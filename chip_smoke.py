@@ -6,12 +6,13 @@
 Phases, each printing one JSON line with its seconds:
 
 1. ``device``  the card, and its name and power limit from nvidia-smi;
-2. ``build``   nvcc builds the three top-k kernels (optimized_rag_tpu_torch/
-               csrc) into build/torch_kernels/ and ctypes loads them;
-3. ``kernels`` each kernel (K1 packed scan, K4 union extraction, K6 tile
-               top-k) against its plain PyTorch twin, f32 and bf16 corpora,
-               N=262,144, D=384, B in {1, 64, 1024}, with times; K1's words
-               are held by value and by the row their column bits name;
+2. ``build``   nvcc builds the top-k kernels (optimized_rag_tpu_torch/csrc)
+               into build/torch_kernels/ and ctypes loads them;
+3. ``kernels`` each kernel against its plain PyTorch twin, N=262,144, D=384,
+               B in {1, 64, 1024}, with times: K1 packed scan, K4 union
+               extraction and K6 tile top-k over f32 and bf16 rows (K1's
+               words held by value and by the row their column bits name),
+               then K3, K5b (bit for bit) and K7 over int8 rows;
 4. ``slice_f32``  the pretrained BiEncoder embeds the qa_docs chunks into a
                DenseIndex filled to 4,194,304 rows (6.4 GB f32) with clustered
                synthetic rows and contiguous near-duplicate runs; a
@@ -23,7 +24,18 @@ Phases, each printing one JSON line with its seconds:
                the oracle; a forced fallback reruns K6;
 5. ``slice_bf16`` the same rows in bf16 storage through DenseIndex.search,
                held against the plain bf16-scan, top-40, f32-rescore
-               pipeline, and its certified answers one query at a time.
+               pipeline, and its certified answers one query at a time;
+6. ``slice_int8`` int8 storage: 16,777,216 rows (6.44 GB of codes, 4x the
+               f32 slice's rows in the same bytes) filled by the same
+               generator, quantize_int8 on the card held bit for bit against
+               the CPU over every row and query; the same two QueryServer
+               loads, a direct search of 64 queries and a 131,072-row index
+               (K7 alone); every answer held against the oracle of the route
+               its batch took (certified: exact int8-native scores; fallback
+               or direct: K7's scoring, differences allowed only at a
+               near-tied cc-th candidate, counted); 64 queries alone through
+               the certified int8 search; recall@10 against the f32 oracle of
+               the unquantized rows printed, not gated.
 
 Launch counts are set to 0 just before each path and read just after it;
 the final line's ``launches`` adds up the paths a user drives (QueryServer
@@ -60,14 +72,18 @@ DIM, TILE, GROUPS = 384, 1024, 8
 N_BIG = 4_194_304                 # rows of the served index (6.4 GB in f32)
 N_SMALL = 131_072                 # below 64*k tiles: routes straight to K6
 N_KERNEL = 262_144                # rows of the kernels phase
+CAPACITY_BLOCK = 65_536           # DenseIndex growth block, as the agent's
 K = 10                            # what clients ask for
 K_SERVED = 1 << (K - 1).bit_length()  # QueryServer's power-of-two bucket
+CC_SERVED = 4 * K_SERVED          # int8 candidates: a 4x oversample
+N_INT8 = 16_777_216               # rows of the int8 index (6.44 GB of codes)
 N_QUERIES, N_CLIENTS = 256, 8
 MAX_DEVICE_BYTES = 30e9
 TIE_TOL = 1e-5                    # f32 scores: ~1e-7 summation-order drift
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 on the CUDA
-# cores, bf16 on the tensor cores.
-PEAK_BW, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
+# cores, bf16 on the tensor cores,
+# int8 on the tensor cores.
+PEAK_BW, PEAK_F32, PEAK_BF16, PEAK_INT8 = 3.35e12, 67e12, 989e12, 1979e12
 _T0 = time.perf_counter()
 
 
@@ -168,34 +184,96 @@ def make_queries(chunks, rng: random.Random, exclude=frozenset()):
 
 # ------------------------------------------------------------- checking
 
-def oracle_topk(q, corpus, size, k, scan_dtype=torch.float32,
-                chunk=262_144):
-    """Chunked exact top-k, ties to the lower row: [B, k] scores, ids."""
-    qs = q.to(scan_dtype).float()
-    b = q.shape[0]
-    best_s = torch.full((b, k), float("-inf"), device=q.device)
-    best_i = torch.full((b, k), -1, dtype=torch.long, device=q.device)
+def running_topk(score, size, k, m, dev, chunk=262_144):
+    """Exact top-k of ``score(lo, hi)`` -> [M, hi-lo] over rows [0, size),
+    chunk by chunk, ties to the lower row: [M, k] scores, ids."""
+    best_s = torch.full((m, k), float("-inf"), device=dev)
+    best_i = torch.full((m, k), -1, dtype=torch.long, device=dev)
     for lo in range(0, size, chunk):
         hi = min(size, lo + chunk)
-        s = qs @ corpus[lo:hi].float().T
-        cand_s = torch.cat([best_s, s], dim=1)
-        cand_i = torch.cat([best_i, torch.arange(lo, hi, device=q.device)
-                            .expand(b, -1)], dim=1)
+        cand_s = torch.cat([best_s, score(lo, hi)], dim=1)
+        cand_i = torch.cat([best_i, torch.arange(lo, hi, device=dev)
+                            .expand(m, -1)], dim=1)
         best_s, pos = torch.sort(cand_s, dim=1, descending=True, stable=True)
         best_s, pos = best_s[:, :k], pos[:, :k]
         best_i = torch.gather(cand_i, 1, pos)
     return best_s, best_i
 
 
+def oracle_topk(q, corpus, size, k, scan_dtype=torch.float32,
+                chunk=262_144):
+    """Chunked exact top-k, ties to the lower row: [B, k] scores, ids."""
+    qs = q.to(scan_dtype).float()
+    return running_topk(lambda lo, hi: qs @ corpus[lo:hi].float().T, size,
+                        k, q.shape[0], q.device, chunk)
+
+
+def int8_oracle(qn, c8, cs, size, k):
+    """Top-k of an int8 corpus under both of the int8 search's scorings,
+    ties to the lower row, for queries ``qn`` [M, D] normalised as the
+    index normalised them. "certified": the int8-native score, a float32
+    product of the codes (exact below 2**24), * cs, * qs; "k7": the
+    fallback's, bf16(q) x codes, an f32 sum, * cs."""
+    from optimized_rag_tpu_torch.ops.quantize import quantize_int8
+    q8, qs = quantize_int8(qn)
+    q8f, qb = q8.float(), qn.to(torch.bfloat16).float()
+    m, dev = qn.shape[0], qn.device
+    return {
+        "certified": running_topk(
+            lambda lo, hi: ((q8f @ c8[lo:hi].float().T) * cs[lo:hi])
+            * qs[:, None], size, k, m, dev),
+        "k7": running_topk(
+            lambda lo, hi: (qb @ c8[lo:hi].float().T) * cs[lo:hi],
+            size, k, m, dev)}
+
+
+def rescore_oracle(qn, c8, cs, cand, kk):
+    """Float32 rescore of dequantized candidate rows in rescore_topk's
+    arithmetic (a batched matmul), top-kk, ties to the lower row."""
+    cand = cand.sort(dim=1).values
+    rows = c8[cand].float() * cs[cand][..., None]
+    s = torch.bmm(rows, qn[:, :, None])[:, :, 0]
+    s, pos = torch.sort(s, dim=1, descending=True, stable=True)
+    return s[:, :kk], torch.gather(cand, 1, pos[:, :kk])
+
+
+def hold_route(what, route, ids, vals, oracle, qn, c8, cs, cc, kk):
+    """Answers [B, >=k] of one int8 search against the oracle of the route
+    it took. Certified: every id equal to the pipeline of exact int8-native
+    scores, top-cc, f32 rescore, top-kk. Fallback or direct (K7): the same
+    pipeline with K7's scoring; an answer may differ only where the
+    oracle's cc-th and (cc+1)-th candidates score within TIE_TOL (K7 sums
+    in another order). Returns the count of such boundary differences."""
+    o_s, o_i = oracle["certified" if route == "certified" else "k7"]
+    want_s, want_i = rescore_oracle(qn, c8, cs, o_i[:, :cc], kk)
+    k = ids.shape[1]
+    differ = (ids.long() != want_i[:, :k]).any(dim=1)
+    edge = (o_s[:, cc - 1] - o_s[:, cc]).abs() <= TIE_TOL
+    if route == "certified":
+        check_answers(what, ids, vals, want_i[:, :k], want_s[:, :k])
+        return 0
+    bad = differ & ~edge
+    if bool(bad.any()):
+        j = int(bad.nonzero()[0, 0])
+        check_answers(f"{what} (row {j}, {route})", ids[j:j + 1],
+                      vals[j:j + 1], want_i[j:j + 1, :k],
+                      want_s[j:j + 1, :k])
+    same = ~differ
+    if bool(same.any()):
+        check_answers(f"{what} ({route})", ids[same], vals[same],
+                      want_i[same, :k], want_s[same, :k])
+    return int(differ.sum())
+
+
 def check_selection(what, q, corpus, ids, vals, ids_ref, vals_ref,
-                    tol=TIE_TOL):
+                    tol=TIE_TOL, row_scale=None):
     """A kernel's selections [S, k, B] (query b on the last axis) agree with
     its twin's.
 
     Scores must match within ``tol``. Ids must match, except where two rows
     score within the drift of two f32 summation orders (a near-tie): there
-    the returned row must really score its value. Returns (worst score
-    error, count of near-tie swaps)."""
+    the returned row must really score its value (``* row_scale`` for an
+    int8 corpus). Returns (worst score error, count of near-tie swaps)."""
     err = float((vals - vals_ref).abs().max())
     if err > tol:
         raise AssertionError(f"{what}: scores differ by {err:.3g} > {tol}")
@@ -203,8 +281,10 @@ def check_selection(what, q, corpus, ids, vals, ids_ref, vals_ref,
     swaps = int(mism.sum())
     if swaps:
         qi = torch.arange(q.shape[0], device=q.device).expand_as(ids)
-        rows = corpus[ids[mism].long()].float()
-        true = (rows * q[qi[mism]]).sum(-1)
+        sel = ids[mism].long()
+        true = (corpus[sel].float() * q[qi[mism]]).sum(-1)
+        if row_scale is not None:
+            true = true * row_scale[sel]
         bad = float((true - vals[mism]).abs().max())
         if bad > tol:
             raise AssertionError(f"{what}: {swaps} ids differ and a returned "
@@ -238,8 +318,7 @@ def check_answers(what, ids, vals, ids_ref, vals_ref, tol=TIE_TOL):
     return err
 
 
-def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
-    peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
+def bound_ms(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BW, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -326,10 +405,100 @@ def hold_kernels(K_, T_, q, corpus, size, tiles, tile_k, reps, where):
         bytes=n * d * isz + b * d * 4 + 2 * t * tile_k * b * 4,
         flops=2 * b * n * d)
     del s, i, s_p, i_p
+    peak = PEAK_F32 if corpus.dtype == torch.float32 else PEAK_BF16
     for rec in out.values():
         rec["bound_ms"], rec["bound_by"] = bound_ms(rec["bytes"],
-                                                    rec["flops"],
-                                                    corpus.dtype)
+                                                    rec["flops"], peak)
+    return out
+
+
+def int8_scores_lib(q8, rows8):
+    """The int8 yardstick's matmul: ``torch._int_mm`` (cuBLASLt s8 x s8 ->
+    s32) where its shape rules allow (more than 16 queries, widths a
+    multiple of 8), else a float32 matmul of the codes."""
+    try:
+        return torch._int_mm(q8, rows8.T), "torch._int_mm"
+    except RuntimeError:
+        return q8.float() @ rows8.float().T, "float32 matmul of the codes"
+
+
+def hold_int8_kernels(K_, q, c8, cs, size, tiles, rounds, reps, where):
+    """K3, K5b and K7 against their twins on the same inputs: K3's words
+    and K5b's values and columns bit for bit, K7 as K6 (within TIE_TOL,
+    near-tie swaps only). Returns one record per kernel with times."""
+    from optimized_rag_tpu_torch.ops.quantize import quantize_int8
+    b, (n, d) = q.shape[0], c8.shape
+    u, t = tiles.shape[0], n // TILE
+    q8, qs = quantize_int8(q)
+    qb = q.to(torch.bfloat16).float()
+    out = {}
+
+    w = K_.packed_extract_int8(q8, qs, c8, cs, size, TILE, GROUPS)
+    w_p = K_.packed_extract_int8_plain(q8, qs, c8, cs, size, TILE, GROUPS)
+    differ = int((w != w_p).sum())
+    if differ:
+        raise AssertionError(f"{where} packed_extract_int8: {differ} words "
+                             "differ from the twin's")
+    lib_name = int8_scores_lib(q8, c8)[1]
+    del w, w_p
+    lib = lambda: torch.topk(int8_scores_lib(q8, c8)[0].view(b, t, TILE), 2)
+    out["packed_extract_int8"] = dict(
+        max_abs_err=0.0, tolerance=0.0, words_differing=differ,
+        ms=median_ms(lambda: K_.packed_extract_int8(q8, qs, c8, cs, size,
+                                                    TILE, GROUPS), reps),
+        plain_ms=median_ms(lambda: K_.packed_extract_int8_plain(
+            q8, qs, c8, cs, size, TILE, GROUPS), reps),
+        library_ms=median_ms(lib, reps), library=lib_name,
+        bytes=n * d + n * 4 + b * d + b * 4 + t * 2 * b * 4,
+        flops=2 * b * n * d, peak=PEAK_INT8)
+
+    v, col = K_.extract_int8(q8, qs, c8, cs, size, TILE, rounds, tiles)
+    v_p, col_p = K_.extract_int8_plain(q8, qs, c8, cs, size, TILE, rounds,
+                                       tiles)
+    if not (torch.equal(v, v_p) and torch.equal(col, col_p)):
+        raise AssertionError(f"{where} extract_int8: {int((v != v_p).sum())} "
+                             f"values and {int((col != col_p).sum())} "
+                             "columns differ from the twin's")
+    sel = c8.view(t, TILE, d)[tiles.long()].reshape(u * TILE, d)
+    lib_name = int8_scores_lib(q8, sel)[1]
+    lib = lambda: torch.topk(int8_scores_lib(q8, sel)[0].view(b, u, TILE),
+                             rounds)
+    out["extract_int8"] = dict(
+        max_abs_err=0.0, tolerance=0.0,
+        ms=median_ms(lambda: K_.extract_int8(q8, qs, c8, cs, size, TILE,
+                                             rounds, tiles), reps),
+        plain_ms=median_ms(lambda: K_.extract_int8_plain(
+            q8, qs, c8, cs, size, TILE, rounds, tiles), reps),
+        library_ms=median_ms(lib, reps), library=lib_name,
+        bytes=(u * TILE * (d + 4) + b * d + b * 4 + u * 4
+               + 2 * u * rounds * b * 4),
+        flops=2 * b * u * TILE * d, peak=PEAK_INT8)
+    del v, col, v_p, col_p, sel
+
+    s, i = K_.tile_topk_scaled(q, c8, cs, size, TILE, rounds)
+    s_p, i_p = K_.tile_topk_scaled_plain(qb, c8, cs, size, TILE, rounds)
+    err, swaps = check_selection(f"{where} tile_topk_scaled", qb, c8,
+                                 i.long(), s, i_p.long(), s_p, row_scale=cs)
+    del s, i, s_p, i_p
+    # Yardstick: a bf16 GEMM of bf16(q) against the codes as bf16 (made
+    # once, outside the timing), x scale in place, then torch.topk.
+    q16, c16 = q.to(torch.bfloat16), c8.to(torch.bfloat16)
+    lib = lambda: torch.topk(torch.matmul(q16, c16.T).mul_(cs).view(
+        b, t, TILE), rounds)
+    out["tile_topk_scaled"] = dict(
+        max_abs_err=err, tolerance=TIE_TOL, near_tie_swaps=swaps,
+        ms=median_ms(lambda: K_.tile_topk_scaled(q, c8, cs, size, TILE,
+                                                 rounds), reps),
+        plain_ms=median_ms(lambda: K_.tile_topk_scaled_plain(
+            qb, c8, cs, size, TILE, rounds), max(1, reps // 2)),
+        library_ms=median_ms(lib, reps),
+        library="bf16 torch.matmul, * scale, torch.topk",
+        bytes=n * (d + 4) + b * d * 4 + 2 * t * rounds * b * 4,
+        flops=2 * b * n * d, peak=PEAK_BF16)
+    del c16, q16
+    for rec in out.values():
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            rec["bytes"], rec["flops"], rec.pop("peak"))
     return out
 
 
@@ -392,27 +561,41 @@ def phase_kernels(K_, T_, dev):
                       "dtype": str(dtype).removeprefix("torch."), "B": b,
                       "N": N_KERNEL, "launches": launches[name], **rec})
         del corpus
-    del corpus32, centers, q_all
+    from optimized_rag_tpu_torch.ops.quantize import quantize_int8
+    c8, cs = quantize_int8(corpus32)
+    for b in (1, 64, 1024):
+        K_.reset_launch_counts()
+        recs = hold_int8_kernels(K_, q_all[:b], c8, cs, size, tiles,
+                                 CC_SERVED, reps=5,
+                                 where=f"kernels int8 B={b}")
+        launches = K_.launch_counts()
+        for name, rec in recs.items():
+            emit({"phase": "kernels", "kernel": name, "dtype": "int8",
+                  "B": b, "N": N_KERNEL, "launches": launches[name], **rec})
+    del corpus32, centers, q_all, c8, cs
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
 
 
-def fill_index(index, svc, chunks, dev):
+def fill_index(index, svc, chunks, dev, n_rows=N_BIG, on_block=None):
     """qa_docs chunk embeddings, then clustered synthetic rows with runs of
-    near-duplicates (of chunks and of synthetic rows) up to N_BIG rows,
-    generated on the card in 2**20-row blocks."""
+    near-duplicates (of chunks and of synthetic rows) up to ``n_rows``
+    rows, generated on the card in 2**20-row blocks; ``on_block(x, start)``
+    sees each block just after it is added at row ``start``."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rng = random.Random(SEED)
     chunk_emb = torch.from_numpy(svc.encode(chunks)).to(dev)
     index.add(chunk_emb)
+    if on_block:
+        on_block(chunk_emb, 0)
     centers = torch.randn(4096, DIM, generator=gen, device=dev) * 2.0
-    runs = plan_runs(rng, N_BIG, len(chunks), 300)
+    runs = plan_runs(rng, n_rows, len(chunks), 300)
     bases = {start: (chunk_emb[j % len(chunks)] if j < 2 * len(chunks)
                      else None)
              for j, (start, _) in enumerate(rng.sample(runs, len(runs)))}
     block = 1 << 20
-    for lo in range(0, N_BIG, block):
-        lo_, hi = max(lo, index.size), min(N_BIG, lo + block)
+    for lo in range(0, n_rows, block):
+        lo_, hi = max(lo, index.size), min(n_rows, lo + block)
         x = clustered_rows(hi - lo_, gen, centers)
         for start, length in runs:
             if lo_ <= start < hi:
@@ -421,8 +604,10 @@ def fill_index(index, svc, chunks, dev):
                 x[start - lo_:start - lo_ + length] = near_duplicates(
                     base, length, gen)
         index.add(x)
+        if on_block:
+            on_block(x, lo_)
         del x
-    assert index.size == N_BIG
+    assert index.size == n_rows
     return runs
 
 
@@ -494,9 +679,10 @@ def certified_alone(T_, q, corpus, size, k, scan_dtype):
     return certified
 
 
-def require_launched(K_, paths, user_paths, what):
-    """Every kernel launched at least once on the paths a user drives."""
-    for name in K_.KERNELS:
+def require_launched(paths, user_paths, names, what):
+    """Every kernel of ``names`` launched at least once on the paths a user
+    drives."""
+    for name in names:
         if not sum(paths[p][name] for p in user_paths):
             raise AssertionError(f"{name} never launched on the {what} path")
 
@@ -513,7 +699,7 @@ def phase_slice_f32(K_, T_, dev, chunks, queries):
     svc = load_biencoder(os.path.join(HERE, "checkpoints", "pretrained"),
                          device=dev)
     cfg = svc.cfg
-    index = DenseIndex(DIM, capacity_block=65536, tile=TILE,
+    index = DenseIndex(DIM, capacity_block=CAPACITY_BLOCK, tile=TILE,
                        dtype=torch.float32, device=dev)
     runs = fill_index(index, svc, chunks, dev)
     torch.cuda.synchronize()
@@ -549,18 +735,18 @@ def phase_slice_f32(K_, T_, dev, chunks, queries):
 
     # A 131,072-row index routes straight to the tiled kernel search.
     qb = q[:64]
-    small = DenseIndex(DIM, capacity_block=65536, tile=TILE,
+    small = DenseIndex(DIM, capacity_block=CAPACITY_BLOCK, tile=TILE,
                        dtype=torch.float32, device=dev)
     small.add(emb[:N_SMALL])
     res = counted(K_, paths, "small_index", lambda: small.search(qb, K))
-    if paths["small_index"] != {"packed_extract": 0, "extract": 0,
+    if paths["small_index"] != {**dict.fromkeys(K_.KERNELS, 0),
                                 "tile_topk": 1}:
         raise AssertionError(f"small index did not route to K6 alone: "
                              f"{paths['small_index']}")
     os_, oi_ = oracle_topk(qb, small.embeddings(), small.size, K)
     check_answers("small index", torch.from_numpy(res.ids).to(dev),
                   torch.from_numpy(res.scores).to(dev), oi_, os_)
-    require_launched(K_, paths, USER_PATHS_F32, "f32")
+    require_launched(paths, USER_PATHS_F32, FLOAT_KERNELS, "f32")
 
     # Certified answers held one query at a time (served batches mostly
     # fall back, so few certified answers reach the oracle above).
@@ -576,8 +762,9 @@ def phase_slice_f32(K_, T_, dev, chunks, queries):
                                         union_tiles=1)
         return T_.certificate_uncovered(packed), index._settle_certificate(
             qb, s_c, packed.cpu().numpy(), kk)
-    uncovered, (f_s, f_i) = counted(K_, paths, "forced_fallback", forced)
-    if uncovered == 0:
+    uncovered, (f_s, f_i, route) = counted(K_, paths, "forced_fallback",
+                                           forced)
+    if uncovered == 0 or route != "fallback":
         raise AssertionError("union_tiles=1 certified every query: the "
                              "forced fallback did not trigger")
     if paths["forced_fallback"]["tile_topk"] != 1:
@@ -628,7 +815,7 @@ def phase_slice_f32(K_, T_, dev, chunks, queries):
 def phase_slice_bf16(K_, T_, dev, svc, index32, queries, sel_tiles):
     from optimized_rag_tpu_torch.index.dense import DenseIndex
     t0 = time.perf_counter()
-    index = DenseIndex(DIM, capacity_block=65536, tile=TILE,
+    index = DenseIndex(DIM, capacity_block=CAPACITY_BLOCK, tile=TILE,
                        dtype=torch.bfloat16, device=dev)
     emb32 = index32.embeddings()
     for lo in range(0, index32.size, 1 << 20):
@@ -640,11 +827,11 @@ def phase_slice_bf16(K_, T_, dev, svc, index32, queries, sel_tiles):
 
     paths = {}
     res = counted(K_, paths, "search", lambda: index.search(q, K))
-    small = DenseIndex(DIM, capacity_block=65536, tile=TILE,
+    small = DenseIndex(DIM, capacity_block=CAPACITY_BLOCK, tile=TILE,
                        dtype=torch.bfloat16, device=dev)
     small.add(emb[:N_SMALL])
     res_small = counted(K_, paths, "small_index", lambda: small.search(q, K))
-    require_launched(K_, paths, USER_PATHS_BF16, "bf16")
+    require_launched(paths, USER_PATHS_BF16, FLOAT_KERNELS, "bf16")
 
     for idx, r in ((index, res), (small, res_small)):
         # The plain pipeline: bf16 scan, top-40, f32 rescore, top-10.
@@ -673,16 +860,267 @@ def phase_slice_bf16(K_, T_, dev, svc, index32, queries, sel_tiles):
     return paths, recs
 
 
+class RouteLog:
+    """The index as QueryServer sees it, recording each batch it searches:
+    the query rows as the server passed them and the route they took."""
+
+    def __init__(self, index):
+        self.index = index
+        self.batches = []
+        self._lock = threading.Lock()
+
+    def search(self, q, k):
+        res = self.index.search(q, k)
+        with self._lock:
+            self.batches.append((np.array(q, dtype=np.float32), res.route))
+        return res
+
+
+def phase_slice_int8(K_, T_, dev, svc, chunks, queries):
+    """int8 storage on the served path: 16,777,216 rows (4x the f32 slice's
+    rows in the same bytes). Every answer is held against the oracle of the
+    route its batch took; recall@10 against the f32 oracle of the
+    unquantized rows is printed, not gated."""
+    from optimized_rag_tpu_torch.index.dense import DenseIndex
+    from optimized_rag_tpu_torch.ops.quantize import quantize_int8
+    from optimized_rag_tpu_torch.ops.similarity import normalize
+    from optimized_rag_tpu_torch.serving import QueryServer
+    t0 = time.perf_counter()
+    texts = queries[0] + queries[1]
+    with svc._cache_lock:                 # fresh encodes, as in slice_f32
+        svc._cache.clear()
+    q32 = unit(torch.from_numpy(svc.encode(texts)).to(dev))
+    f32 = {"s": torch.full((len(texts), K), float("-inf"), device=dev),
+           "i": torch.full((len(texts), K), -1, dtype=torch.long,
+                           device=dev), "rows": 0}
+    index = DenseIndex(DIM, capacity_block=CAPACITY_BLOCK, tile=TILE,
+                       dtype=torch.int8, device=dev)
+
+    def on_block(x, start):
+        # quantize_int8 on the card equals its CPU result bit for bit, and
+        # add stored exactly quantize_int8(normalize(rows)).
+        u = normalize(x.float())
+        c8, cs = quantize_int8(u)
+        h8, hs = quantize_int8(u.cpu())
+        if not (torch.equal(c8.cpu(), h8)
+                and torch.equal(cs.cpu().view(torch.int32),
+                                hs.view(torch.int32))):
+            raise AssertionError(f"quantize_int8 on the card differs from "
+                                 f"the CPU's in rows {start}..")
+        n = x.shape[0]
+        if not (torch.equal(index.embeddings()[start:start + n], c8)
+                and torch.equal(index.row_scale[start:start + n], cs)):
+            raise AssertionError(f"DenseIndex.add stored other codes than "
+                                 f"quantize_int8(normalize(rows)) at {start}")
+        # The f32 oracle of the unquantized rows, for recall.
+        cand_s = torch.cat([f32["s"], q32 @ u.T], dim=1)
+        cand_i = torch.cat([f32["i"], torch.arange(
+            start, start + n, device=dev).expand(len(texts), -1)], dim=1)
+        f32["s"], pos = torch.topk(cand_s, K, dim=1)
+        f32["i"] = torch.gather(cand_i, 1, pos)
+        f32["rows"] += n
+
+    runs = fill_index(index, svc, chunks, dev, N_INT8, on_block)
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t0
+    with svc._cache_lock:
+        svc._cache.clear()
+    index.search(svc.encode(["warm-up request"]), K)
+    emb, scale = index.embeddings(), index.row_scale
+
+    paths, rounds, logs = {}, {}, {}
+    for name, burst, texts_r in (("served_burst", 8, queries[0]),
+                                 ("served_closed_loop", 1, queries[1])):
+        log = RouteLog(index)
+        answers, lat, wall, stats = counted(
+            K_, paths, name,
+            lambda: drive_server(QueryServer, svc, log, texts_r, burst))
+        lat_ms = sorted(x * 1e3 for x in lat)
+        routes = [r for _, r in log.batches]
+        rounds[name] = {
+            "queries": len(texts_r), "clients": N_CLIENTS, "burst": burst,
+            "qps": len(texts_r) / wall, "p50_ms": statistics.median(lat_ms),
+            "p99_ms": lat_ms[min(len(lat_ms) - 1, int(0.99 * len(lat_ms)))],
+            "batches": stats["batches"], "avg_batch": stats["avg_batch"],
+            "routes": {r: routes.count(r) for r in sorted(set(routes))},
+            "launches": paths[name],
+            "launches_per_batch": {k: v / stats["batches"]
+                                   for k, v in paths[name].items()}}
+        logs[name] = (log, answers, texts_r)
+
+    # Direct DenseIndex.search of 64 queries, and a 131,072-row int8 index
+    # (128 tiles < 64 * 40: the tiled K7 search alone).
+    q64_raw = svc.encode(queries[0][:64])
+    res64 = counted(K_, paths, "search", lambda: index.search(q64_raw, K))
+    small = DenseIndex(DIM, capacity_block=CAPACITY_BLOCK, tile=TILE,
+                       dtype=torch.int8, device=dev)
+    small.add(index.vectors_f32(N_SMALL))
+    res_small = counted(K_, paths, "small_index",
+                        lambda: small.search(q64_raw, K))
+    if paths["small_index"] != {**dict.fromkeys(K_.KERNELS, 0),
+                                "tile_topk_scaled": 1}:
+        raise AssertionError(f"small int8 index did not route to K7 alone: "
+                             f"{paths['small_index']}")
+    require_launched(paths, USER_PATHS_INT8, INT8_KERNELS, "int8")
+
+    # Every answer against the oracle of its route. The queries as the
+    # index normalised them: each batch as it was searched.
+    batches = [(name, qraw, route) for name, (log, _, _) in logs.items()
+               for qraw, route in log.batches]
+    batches.append(("search", q64_raw, res64.route))
+    qn = [normalize(torch.from_numpy(qraw).to(dev).float())
+          for _, qraw, _ in batches]
+    qn_all = torch.cat(qn)
+    h8, hs = quantize_int8(qn_all.cpu())
+    q8, qs = quantize_int8(qn_all)
+    if not (torch.equal(q8.cpu(), h8)
+            and torch.equal(qs.cpu().view(torch.int32), hs.view(torch.int32))):
+        raise AssertionError("quantize_int8 of the queries differs between "
+                             "the card and the CPU")
+    oracle = int8_oracle(qn_all, emb, scale, index.size, CC_SERVED + 1)
+    held = {"certified": 0, "fallback": 0, "direct": 0}
+    boundary = []
+    lo = 0
+    answers_by_row = {}          # query row's bytes -> its answers
+    for name, (log, answers, texts_r) in logs.items():
+        emb_r = svc.encode(texts_r)               # cache hits: same bytes
+        for i, a in enumerate(answers):
+            answers_by_row.setdefault(emb_r[i].tobytes(), []).append(a)
+    for (name, qraw, route), qb in zip(batches, qn):
+        m = qb.shape[0]
+        orc = {r: (v[0][lo:lo + m], v[1][lo:lo + m])
+               for r, v in oracle.items()}
+        lo += m
+        if name == "search":
+            got_i = torch.from_numpy(res64.ids).to(dev)
+            got_s = torch.from_numpy(res64.scores).to(dev)
+            n_b = hold_route("int8 search of 64", route, got_i, got_s, orc,
+                             qb, emb, scale, 4 * K, K)
+            held[route] += m
+        else:
+            rows, got_i, got_s = [], [], []
+            for r in range(m):
+                # Pad rows repeat a query: its answers are taken once.
+                for a in answers_by_row.pop(qraw[r].tobytes(), []):
+                    rows.append(r)
+                    got_s.append(a[0])
+                    got_i.append(a[1])
+            rows = torch.tensor(rows, device=dev)
+            orc = {r: (v[0][rows], v[1][rows]) for r, v in orc.items()}
+            n_b = hold_route(
+                f"served int8 answers ({name})", route,
+                torch.tensor(np.stack(got_i), device=dev),
+                torch.tensor(np.stack(got_s), device=dev), orc, qb[rows],
+                emb, scale, CC_SERVED, K_SERVED)
+            held[route] += len(rows)
+        if n_b:
+            boundary.append({"batch": name, "route": route, "answers": n_b})
+    if answers_by_row:
+        raise AssertionError(f"{len(answers_by_row)} served answers were not "
+                             "found in any searched batch")
+    q_small = normalize(torch.from_numpy(q64_raw).to(dev).float())
+    orc_small = int8_oracle(q_small, small.embeddings(), small.row_scale,
+                            small.size, 4 * K + 1)
+    n_small = hold_route("small int8 index", res_small.route,
+                         torch.from_numpy(res_small.ids).to(dev),
+                         torch.from_numpy(res_small.scores).to(dev),
+                         orc_small, q_small, small.embeddings(),
+                         small.row_scale, 4 * K, K)
+    if n_small:
+        boundary.append({"batch": "small_index", "route": res_small.route,
+                         "answers": n_small})
+
+    # Recall@10 of the served answers against the f32 oracle of the
+    # unquantized rows (a quality reading, not a gate).
+    recall = {}
+    for j, (name, (_, answers, _)) in enumerate(logs.items()):
+        hits = [len(set(a[1][:K].tolist())
+                    & set(f32["i"][j * N_QUERIES + i].tolist()))
+                for i, a in enumerate(answers)]
+        recall[name] = sum(hits) / (K * len(hits))
+
+    # 64 queries alone through the certified int8 search: each answer
+    # whose certificate reads 0 must equal the exact int8-native oracle.
+    q64 = qn[-1]
+    m = q64.shape[0]
+    o_s, o_i = oracle["certified"][0][-m:], oracle["certified"][1][-m:]
+
+    def alone():
+        certs = []
+        for j in range(m):
+            s_c, packed = T_.topk_certified(q64[j:j + 1], emb, CC_SERVED,
+                                            index.size, tile=TILE,
+                                            row_scale=scale)
+            certs.append(T_.certificate_uncovered(packed))
+            if certs[-1] == 0:
+                if not (torch.equal(packed[:-1], o_i[j:j + 1, :CC_SERVED])
+                        and torch.equal(s_c, o_s[j:j + 1, :CC_SERVED])):
+                    check_answers(f"certified int8 answer {j}", packed[:-1],
+                                  s_c, o_i[j:j + 1, :CC_SERVED],
+                                  o_s[j:j + 1, :CC_SERVED], tol=0.0)
+                    raise AssertionError(f"certified int8 answer {j}: scores "
+                                         "not bit-equal to the oracle's")
+        return certs
+    certs = counted(K_, paths, "certified_alone", alone)
+    if not certs.count(0):
+        raise AssertionError("no int8 query certified alone")
+
+    layers = {}
+    for b in (64, 8):
+        for r in range(4):
+            t1 = time.perf_counter()
+            qv = svc.encode([f"{t} (int8 {b}/{r})" for t in queries[0][:b]])
+            t2 = time.perf_counter()
+            index.search(qv, K_SERVED)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            if r:
+                layers.setdefault(f"encode_b{b}_ms", []).append(
+                    (t2 - t1) * 1e3)
+                layers.setdefault(f"search_b{b}_ms", []).append(
+                    (t3 - t2) * 1e3)
+    layers = {k: statistics.median(v) for k, v in layers.items()}
+
+    sel_tiles = torch.tensor(sorted({s // TILE for s, _ in runs})[:32],
+                             dtype=torch.int32, device=dev)
+    recs = hold_int8_kernels(K_, q64, emb, scale, index.size, sel_tiles,
+                             CC_SERVED, reps=3, where="slice_int8")
+    emit({"phase": "slice_int8", "rows": index.size, "dim": DIM,
+          "code_gbytes": index.size * DIM / 1e9,
+          "scale_mbytes": index.size * 4 / 1e6, "runs": len(runs),
+          "quantize_rows_checked": f32["rows"],
+          "quantize_queries_checked": qn_all.shape[0], **rounds,
+          "answers_held": held, "boundary_differences": boundary,
+          "recall_at_10_vs_f32": recall,
+          "certificates_alone": certs, "certified_alone": certs.count(0),
+          "launches_by_path": paths, "layers": layers,
+          "fill_seconds": t_fill, "seconds": time.perf_counter() - t0})
+    del index, small, emb, scale, oracle, orc_small
+    torch.cuda.empty_cache()
+    return paths, recs
+
+
 SOURCES = {"packed_extract": ("optimized_rag_tpu_torch/csrc/packed_extract.cu",
                               "optimized_rag_tpu/ops/topk.py:511"),
            "extract": ("optimized_rag_tpu_torch/csrc/extract.cu",
                        "optimized_rag_tpu/ops/topk.py:992"),
            "tile_topk": ("optimized_rag_tpu_torch/csrc/tile_topk.cu",
-                         "optimized_rag_tpu/ops/topk.py:142")}
+                         "optimized_rag_tpu/ops/topk.py:142"),
+           "packed_extract_int8": (
+               "optimized_rag_tpu_torch/csrc/packed_extract.cu",
+               "optimized_rag_tpu/ops/topk.py:548"),
+           "extract_int8": ("optimized_rag_tpu_torch/csrc/extract.cu",
+                            "optimized_rag_tpu/ops/topk.py:1037"),
+           "tile_topk_scaled": ("optimized_rag_tpu_torch/csrc/tile_topk.cu",
+                                "optimized_rag_tpu/ops/topk.py:178")}
 
 
+FLOAT_KERNELS = ("packed_extract", "extract", "tile_topk")
+INT8_KERNELS = ("packed_extract_int8", "extract_int8", "tile_topk_scaled")
 USER_PATHS_F32 = ("served_burst", "served_closed_loop", "small_index")
 USER_PATHS_BF16 = ("search", "small_index")
+USER_PATHS_INT8 = ("served_burst", "served_closed_loop", "search",
+                   "small_index")
 
 
 def main() -> None:
@@ -706,6 +1144,8 @@ def main() -> None:
     paths16, recs16 = phase_slice_bf16(K_, T_, dev, svc, index32, queries,
                                        sel_tiles)
     del index32
+    torch.cuda.empty_cache()
+    paths8, recs8 = phase_slice_int8(K_, T_, dev, svc, chunks, queries)
     peak = torch.cuda.max_memory_allocated()
     emit({"phase": "done", "peak_device_gbytes": peak / 1e9,
           "seconds": time.perf_counter() - _T0})
@@ -713,12 +1153,14 @@ def main() -> None:
         raise AssertionError(f"peak device memory {peak / 1e9:.1f} GB "
                              f"> {MAX_DEVICE_BYTES / 1e9:.0f} GB")
     # launches: the paths a user drives (QueryServer rounds and the small
-    # index for f32; DenseIndex.search at both sizes for bf16), each also
+    # index for f32; DenseIndex.search at both sizes for bf16; QueryServer
+    # rounds, DenseIndex.search and the small index for int8), each also
     # given alone; the direct calls of the checks are not counted.
     kernels = []
     for dtype, paths, user, recs in (
             ("f32", paths32, USER_PATHS_F32, recs32),
-            ("bf16", paths16, USER_PATHS_BF16, recs16)):
+            ("bf16", paths16, USER_PATHS_BF16, recs16),
+            ("int8", paths8, USER_PATHS_INT8, recs8)):
         for name, rec in recs.items():
             source, replaces = SOURCES[name]
             kernels.append({

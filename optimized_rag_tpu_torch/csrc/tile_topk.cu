@@ -1,48 +1,53 @@
-// K6: per-tile top-k of the exact tiled search (the certified path's
+// K6 and K7: per-tile top-k of the exact tiled search (the certified path's
 // fallback, and the whole search below 64*k tiles).
 //
-// Replaces the TPU kernel `_tile_topk_kernel` + `_extract_tile_winners`
+// K6 replaces the TPU kernel `_tile_topk_kernel` + `_extract_tile_winners`
 // (optimized_rag_tpu/ops/topk.py:142-175, launched by `_tile_pass`,
-// :205-263). For every corpus tile and query: the top `tile_k` rows by
-// repeated max / argmax (lowest column on ties) / mask, rows at or after
-// `size` scoring -1e30. The [B, T*tile_k] merge stays in PyTorch.
+// :205-263); K7 replaces `_tile_topk_scaled_kernel` (:178-195), the same
+// search over an int8 corpus: the query rounded to bf16 times the int8 code
+// (exact in f32), an f32 sum, then x row scale (ScaledOps). For every corpus
+// tile and query: the top `tile_k` rows by repeated max / argmax (lowest
+// column on ties) / mask, rows at or after `size` scoring -1e30. The
+// [B, T*tile_k] merge stays in PyTorch.
 //
 // Output: s f32 [T, tile_k, B] and i int32 [T, tile_k, B], global row ids.
 //
 // Design: K4's block (extract_tile in topk_common.cuh) with the tile id
 // taken from blockIdx.x instead of a list.
 //
-// Bound at the fallback's shape (B=64, N=4,194,304, D=384, f32, H100 SXM):
-// 206 GFLOP of f32 FMA at 67 TFLOP/s, 3.1 ms, against 6.4 GB at 3.35 TB/s,
-// 1.9 ms: operations bind. At the 131,072-row index it routes alone (B=64)
-// the same ratio gives 0.10 ms of FMA against 0.06 ms of bytes.
+// K6 bound at the fallback's shape (B=64, N=4,194,304, D=384, f32, H100
+// SXM): 206 GFLOP of f32 FMA at 67 TFLOP/s, 3.1 ms, against 6.4 GB at 3.35
+// TB/s, 1.9 ms: operations bind. At the 131,072-row index it routes alone
+// (B=64) the same ratio gives 0.10 ms of FMA against 0.06 ms of bytes.
+// K7 bound at the int8 fallback's shape (B=64, N=16,777,216, tile_k=64):
+// 6.5 GB of codes and scales plus 0.54 GB of winners at 3.35 TB/s, 2.1 ms,
+// against 824 GFLOP of bf16 x int8 products at 989 TFLOP/s on the tensor
+// cores, 0.83 ms: bytes bind. This first K7 widens the codes and runs f32
+// FMA on the CUDA cores (12 ms of FMA at 67 TFLOP/s), so operations bind it.
 #include "topk_common.cuh"
 
 namespace orag {
 
-template <typename T>
+template <typename Ops>
 __global__ void __launch_bounds__(kThreads)
-    tile_topk_kernel(const float* __restrict__ qT, const T* __restrict__ c,
-                     const int* __restrict__ size_ptr, float* __restrict__ s,
-                     int* __restrict__ idx, int B, int D, int tile,
-                     int tile_k) {
+    tile_topk_kernel(const Ops ops, const int* __restrict__ size_ptr,
+                     float* __restrict__ s, int* __restrict__ idx, int B,
+                     int Dw, int tile, int tile_k) {
   const int t = blockIdx.x;
-  extract_tile<T>(qT, c, *size_ptr, B, D, tile, t, t, tile_k, t * tile, s,
-                  idx);
+  extract_tile(ops, *size_ptr, B, Dw, tile, t, t, tile_k, t * tile, s, idx);
 }
 
-template <typename T>
-static int launch(const float* qT, const void* c, const int* size, float* s,
-                  int* idx, int B, int N, int D, int tile, int tile_k,
-                  cudaStream_t stream) {
-  const size_t smem = extract_smem_bytes<T>(tile);
+template <typename Ops>
+static int launch(const Ops& ops, const int* size, float* s, int* idx, int B,
+                  int N, int Dw, int tile, int tile_k, cudaStream_t stream) {
+  const size_t smem = extract_smem_bytes<Ops>(tile);
   cudaError_t err = cudaFuncSetAttribute(
-      tile_topk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tile_topk_kernel<Ops>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(N / tile, (B + kExtractQB - 1) / kExtractQB);
-  tile_topk_kernel<T><<<grid, kThreads, smem, stream>>>(
-      qT, static_cast<const T*>(c), size, s, idx, B, D, tile, tile_k);
+  tile_topk_kernel<Ops><<<grid, kThreads, smem, stream>>>(
+      ops, size, s, idx, B, Dw, tile, tile_k);
   return (int)cudaGetLastError();
 }
 
@@ -53,11 +58,25 @@ extern "C" int orag_tile_topk(const float* qT, const void* corpus,
                               int* idx, int B, int N, int D, int tile,
                               int tile_k, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return corpus_bf16
-             ? orag::launch<__nv_bfloat16>(qT, corpus, size, s, idx, B, N, D,
-                                           tile, tile_k, st)
-             : orag::launch<float>(qT, corpus, size, s, idx, B, N, D, tile,
-                                   tile_k, st);
+  if (corpus_bf16)
+    return orag::launch(
+        orag::DenseOps<__nv_bfloat16>{
+            qT, static_cast<const __nv_bfloat16*>(corpus)},
+        size, s, idx, B, N, D, tile, tile_k, st);
+  return orag::launch(
+      orag::DenseOps<float>{qT, static_cast<const float*>(corpus)}, size, s,
+      idx, B, N, D, tile, tile_k, st);
+}
+
+// K7. qT: [D, B] f32 queries already rounded to bf16; corpus: [N, D] int8
+// codes; cs: [N] row scales.
+extern "C" int orag_tile_topk_scaled(const float* qT, const void* corpus,
+                                     const float* cs, const int* size,
+                                     float* s, int* idx, int B, int N, int D,
+                                     int tile, int tile_k, void* stream) {
+  return orag::launch(
+      orag::ScaledOps{qT, static_cast<const int8_t*>(corpus), cs}, size, s,
+      idx, B, N, D, tile, tile_k, static_cast<cudaStream_t>(stream));
 }
 
 // Error text for the codes the entry points above return.

@@ -1,14 +1,23 @@
-// Shared device code of the three top-k kernels (packed_extract.cu,
-// extract.cu, tile_topk.cu): the f32 score block and the exact per-tile
-// extraction rounds.
+// Shared device code of the top-k kernels (packed_extract.cu, extract.cu,
+// tile_topk.cu): the score block, its three operand policies, and the exact
+// per-tile extraction rounds.
 //
-// Scoring function, identical in all three kernels and in the covers'
-// PyTorch rescore: queries arrive as f32 values already rounded to the
-// corpus dtype; bf16 corpus values are widened to f32 (a bf16 x bf16
-// product is exact in f32); every dot product accumulates in f32 FMA over
-// the feature axis in ascending order. No TF32 anywhere: the packed
-// certificate's cushion is two quantisation steps (~2.4e-4 at tile=1024),
-// and TF32 rounding (~1e-3) would exceed it.
+// Scoring functions, each identical in its kernels and in the PyTorch code
+// that rescores their candidates:
+//
+// * DenseOps (K1, K4, K6; f32 or bf16 rows): queries arrive as f32 values
+//   already rounded to the corpus dtype; bf16 corpus values are widened to
+//   f32 (a bf16 x bf16 product is exact in f32); every dot product
+//   accumulates in f32 FMA over the feature axis in ascending order. No
+//   TF32 anywhere: the packed certificate's cushion is two quantisation
+//   steps (~2.4e-4 at tile=1024), and TF32 rounding (~1e-3) would exceed it.
+// * Int8Ops (K3, K5b; int8-native): int8 query codes against int8 row codes,
+//   an exact int32 dot by __dp4a (4 codes a word), then
+//   (float(i32) * row_scale) * query_scale, rounded in that order. The dot
+//   is exact, so the score is one function whatever the summation order.
+// * ScaledOps (K7): f32 queries already rounded to bf16 against int8 codes
+//   widened to f32 (a bf16 x int8 product is exact in f32), f32 FMA in
+//   ascending order, then x row_scale.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,7 +28,7 @@ namespace orag {
 
 constexpr float kNegInf = -1e30f;  // NEG_INF of the reference
 constexpr int kThreads = 256;      // threads of every block
-constexpr int kDepth = 32;         // features staged per step
+constexpr int kDepth = 32;         // words (values, or 4-code groups) a stage
 constexpr int kRows = 128;         // corpus rows scored per chunk
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -27,14 +36,81 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// An operand policy says what one 4-byte shared-memory word holds, how a
+// query word and a corpus word are read from device memory (k counts
+// words; a row has `Dw` of them), how two words multiply into the
+// accumulator, and how the accumulator becomes the score.
+template <typename T>
+struct DenseOps {
+  using Word = float;
+  using Acc = float;
+  const float* qT;  // [D, B] queries, transposed
+  const T* c;       // [N, D] rows
+  __device__ Word q_word(int k, int b, int B) const {
+    return qT[(long long)k * B + b];
+  }
+  __device__ Word c_word(long long row, int k, int Dw) const {
+    return to_float(c[row * Dw + k]);
+  }
+  __device__ static Acc mac(Word a, Word v, Acc acc) {
+    return fmaf(a, v, acc);
+  }
+  __device__ float finish(Acc acc, int, long long) const { return acc; }
+};
+
+struct ScaledOps {
+  using Word = float;
+  using Acc = float;
+  const float* qT;    // [D, B] queries rounded to bf16, transposed
+  const int8_t* c;    // [N, D] row codes
+  const float* cs;    // [N] row scales
+  __device__ Word q_word(int k, int b, int B) const {
+    return qT[(long long)k * B + b];
+  }
+  __device__ Word c_word(long long row, int k, int Dw) const {
+    return static_cast<float>(c[row * Dw + k]);
+  }
+  __device__ static Acc mac(Word a, Word v, Acc acc) {
+    return fmaf(a, v, acc);
+  }
+  __device__ float finish(Acc acc, int, long long row) const {
+    return __fmul_rn(acc, cs[row]);
+  }
+};
+
+struct Int8Ops {
+  using Word = int;
+  using Acc = int;
+  const int* qwT;   // [D/4, B] query code words, transposed
+  const float* qs;  // [B] query scales
+  const int* cw;    // [N, D/4] row code words
+  const float* cs;  // [N] row scales
+  __device__ Word q_word(int k, int b, int B) const {
+    return qwT[(long long)k * B + b];
+  }
+  __device__ Word c_word(long long row, int k, int Dw) const {
+    return cw[row * Dw + k];
+  }
+  __device__ static Acc mac(Word a, Word v, Acc acc) {
+    return __dp4a(a, v, acc);
+  }
+  __device__ float finish(Acc acc, int b, long long row) const {
+    return __fmul_rn(__fmul_rn(__int2float_rn(acc), cs[row]), qs[b]);
+  }
+};
+
 // Scores QB queries against kRows consecutive corpus rows.
 //
-// qT is the query block transposed, [D, B] f32, so that staging reads are
+// Queries are staged transposed ([Dw, B] words) so that staging reads are
 // coalesced along the batch. Thread (tq, tr) owns queries tq*TQ + i and rows
 // tr + j*NR of the chunk: a warp's row reads from shared memory hit
-// consecutive banks, and its query reads are broadcasts.
-template <typename T, int QB, int TQ, int TR>
+// consecutive banks, and its query reads are broadcasts. Scores of queries
+// at or after B come out 0.
+template <typename Ops, int QB, int TQ, int TR>
 struct ScoreBlock {
+  using Word = typename Ops::Word;
+  using Acc = typename Ops::Acc;
+  static_assert(sizeof(Word) == sizeof(float), "one word a 4-byte slot");
   static constexpr int NR = kRows / TR;
   static constexpr int NQ = QB / TQ;
   static_assert(NQ * NR == kThreads, "thread layout must cover the block");
@@ -42,36 +118,36 @@ struct ScoreBlock {
   static constexpr int kCStride = kRows + 1;  // +1: conflict-free stores
   static constexpr int kStageFloats = kQStage + kDepth * kCStride;
 
-  __device__ static void run(const float* __restrict__ qT,
-                             const T* __restrict__ c, int B, int D, int qbase,
+  __device__ static void run(const Ops& ops, int B, int Dw, int qbase,
                              long long row0, float* stage,
-                             float (&acc)[TQ][TR]) {
-    float* q_s = stage;             // [kDepth][QB]
-    float* c_s = stage + kQStage;   // [kDepth][kCStride]
+                             float (&out)[TQ][TR]) {
+    Word* q_s = reinterpret_cast<Word*>(stage);            // [kDepth][QB]
+    Word* c_s = reinterpret_cast<Word*>(stage + kQStage);  // [kDepth][kCStride]
     const int tid = threadIdx.x;
     const int tq = tid / NR, tr = tid % NR;
+    Acc acc[TQ][TR];
 #pragma unroll
     for (int i = 0; i < TQ; ++i)
 #pragma unroll
-      for (int j = 0; j < TR; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < D; k0 += kDepth) {
+      for (int j = 0; j < TR; ++j) acc[i][j] = Acc(0);
+    for (int k0 = 0; k0 < Dw; k0 += kDepth) {
       __syncthreads();  // every reader of the previous stage is done
       for (int idx = tid; idx < kDepth * QB; idx += kThreads) {
         const int kk = idx / QB, qi = idx % QB;
         const int k = k0 + kk, b = qbase + qi;
-        q_s[idx] = (k < D && b < B) ? qT[(long long)k * B + b] : 0.f;
+        q_s[idx] = (k < Dw && b < B) ? ops.q_word(k, b, B) : Word(0);
       }
       for (int idx = tid; idx < kRows * kDepth; idx += kThreads) {
         const int r = idx / kDepth, kk = idx % kDepth;
         const int k = k0 + kk;
         c_s[kk * kCStride + r] =
-            k < D ? to_float(c[(row0 + r) * D + k]) : 0.f;
+            k < Dw ? ops.c_word(row0 + r, k, Dw) : Word(0);
       }
       __syncthreads();
-      const int kmax = min(kDepth, D - k0);
+      const int kmax = min(kDepth, Dw - k0);
 #pragma unroll 8
       for (int kk = 0; kk < kmax; ++kk) {
-        float a[TQ], v[TR];
+        Word a[TQ], v[TR];
 #pragma unroll
         for (int i = 0; i < TQ; ++i) a[i] = q_s[kk * QB + tq * TQ + i];
 #pragma unroll
@@ -79,8 +155,16 @@ struct ScoreBlock {
 #pragma unroll
         for (int i = 0; i < TQ; ++i)
 #pragma unroll
-          for (int j = 0; j < TR; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
+          for (int j = 0; j < TR; ++j) acc[i][j] = Ops::mac(a[i], v[j], acc[i][j]);
       }
+    }
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+      const int b = qbase + tq * TQ + i;
+#pragma unroll
+      for (int j = 0; j < TR; ++j)
+        out[i][j] = b < B ? ops.finish(acc[i][j], b, row0 + tr + j * NR)
+                          : 0.f;
     }
   }
 };
@@ -90,16 +174,16 @@ struct ScoreBlock {
 // `rounds` max / lowest-column argmax / mask passes for its queries, as
 // jnp.max / jnp.argmax / jnp.where do in the reference. Rows at or after
 // `size` score kNegInf. Writes val[(slot*rounds + r)*B + b] and
-// col[...] = column + col_base.
+// col[...] = column + col_base. Any rounds in [1, tile] work: the rounds
+// loop keeps no per-round state outside shared memory.
 constexpr int kExtractQB = 32;
 
-template <typename T>
-__device__ void extract_tile(const float* __restrict__ qT,
-                             const T* __restrict__ c, int size, int B, int D,
+template <typename Ops>
+__device__ void extract_tile(const Ops& ops, int size, int B, int Dw,
                              int tile, int t, int slot, int rounds,
                              int col_base, float* __restrict__ val,
                              int* __restrict__ col) {
-  using Block = ScoreBlock<T, kExtractQB, 4, 4>;
+  using Block = ScoreBlock<Ops, kExtractQB, 4, 4>;
   extern __shared__ float smem[];
   float* stage = smem;
   float* S = smem + Block::kStageFloats;  // [kExtractQB][tile]
@@ -108,7 +192,7 @@ __device__ void extract_tile(const float* __restrict__ qT,
   const int tq = threadIdx.x / Block::NR, tr = threadIdx.x % Block::NR;
   for (int r0 = 0; r0 < tile; r0 += kRows) {
     float acc[4][4];
-    Block::run(qT, c, B, D, qbase, base + r0, stage, acc);
+    Block::run(ops, B, Dw, qbase, base + r0, stage, acc);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -147,10 +231,13 @@ __device__ void extract_tile(const float* __restrict__ qT,
   }
 }
 
-template <typename T>
+template <typename Ops>
 inline size_t extract_smem_bytes(int tile) {
-  return (ScoreBlock<T, kExtractQB, 4, 4>::kStageFloats +
+  return (ScoreBlock<Ops, kExtractQB, 4, 4>::kStageFloats +
           (size_t)kExtractQB * tile) * sizeof(float);
 }
+
+// The int8 entry points take D in codes; the kernels count 4-code words.
+inline bool int8_width_ok(int D) { return D > 0 && D % 4 == 0; }
 
 }  // namespace orag

@@ -5,10 +5,14 @@ blocks and ``size`` masks the tail; deletes are tombstones (zeroed rows,
 oversampled past and filtered); vectors are L2-normalised at add time so
 cosine is a dot product and search is one top-k dispatch (ops/topk.py).
 
-Storage is float32 or bfloat16 on the index's device. bfloat16 scans a 4x
-oversampled candidate set and rescores it in float32. ``state_dict`` is
-interchangeable with the JAX package's: bfloat16 rows are exported as
-float32 numpy (exact), since numpy has no bfloat16.
+Storage is float32, bfloat16 or int8 on the index's device. bfloat16 scans
+a 4x oversampled candidate set and rescores it in float32. int8 stores
+per-row quantized codes with a float32 scale per row (ops/quantize.py: 4x
+the rows of float32 in the same bytes); its search scans the codes (the
+int8-native certified path, or K7), 4x oversampled, and rescores the
+dequantized candidates in float32. ``state_dict`` is interchangeable with
+the JAX package's: bfloat16 rows are exported as float32 numpy (exact),
+since numpy has no bfloat16; int8 rows as int8 codes plus ``scale``.
 """
 
 from __future__ import annotations
@@ -19,9 +23,11 @@ import numpy as np
 import torch
 
 from optimized_rag_tpu_torch.device import resolve_device
+from optimized_rag_tpu_torch.ops.quantize import (
+    dequantize_int8, quantize_int8)
 from optimized_rag_tpu_torch.ops.similarity import normalize
 from optimized_rag_tpu_torch.ops.topk import (
-    dispatch_topk, rescore_topk, tiled_topk)
+    chunked_topk, dispatch_topk, rescore_topk, tiled_topk)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int8": torch.int8}
@@ -35,6 +41,9 @@ def _round_up(x: int, m: int) -> int:
 class DenseSearchResult:
     scores: np.ndarray   # [B, k] f32
     ids: np.ndarray      # [B, k] int64 (-1 for missing)
+    # How the batch was searched: "certified" (certificate 0), "fallback"
+    # (certificate nonzero, exact tiled rerun) or "direct" (one pass).
+    route: str = "direct"
 
 
 class DenseIndex:
@@ -43,19 +52,20 @@ class DenseIndex:
     def __init__(self, dim: int, capacity_block: int = 65536,
                  dtype=torch.float32, tile: int = 1024, device="cuda"):
         dtype = _DTYPES[dtype] if isinstance(dtype, str) else dtype
-        if dtype == torch.int8:
-            raise NotImplementedError(
-                "int8 storage waits for the scaled kernels")
-        if dtype not in (torch.float32, torch.bfloat16):
+        if dtype not in _DTYPES.values():
             raise TypeError(f"unsupported storage dtype {dtype}")
         self.device = resolve_device(device)
         self.dim = dim
         self.capacity_block = _round_up(capacity_block, tile)
         self.tile = tile
         self.dtype = dtype
+        self.quantized = dtype == torch.int8
         self.size = 0
         self._emb = torch.zeros((self.capacity_block, dim), dtype=dtype,
                                 device=self.device)
+        # Per-row dequantization scales of int8 storage.
+        self._scale = (torch.zeros(self.capacity_block, device=self.device)
+                       if self.quantized else None)
         self._tombstones: set[int] = set()
         # Bumped whenever row -> vector assignments change (delete/compact).
         self.epoch = 0
@@ -72,6 +82,9 @@ class DenseIndex:
         new_cap = _round_up(needed, self.capacity_block)
         pad = torch.zeros((new_cap - self.capacity, self.dim),
                           dtype=self.dtype, device=self.device)
+        if self.quantized:
+            self._scale = torch.cat([self._scale, torch.zeros(
+                new_cap - self.capacity, device=self.device)])
         self._emb = torch.cat([self._emb, pad])
 
     def add(self, embeddings) -> np.ndarray:
@@ -80,8 +93,13 @@ class DenseIndex:
         assert emb.ndim == 2 and emb.shape[1] == self.dim, emb.shape
         n = emb.shape[0]
         self._ensure_capacity(self.size + n)
-        self._emb[self.size:self.size + n] = normalize(emb.float()).to(
-            self.dtype)
+        unit = normalize(emb.float())
+        if self.quantized:
+            rows, scale = quantize_int8(unit)
+            self._scale[self.size:self.size + n] = scale
+        else:
+            rows = unit.to(self.dtype)
+        self._emb[self.size:self.size + n] = rows
         ids = np.arange(self.size, self.size + n, dtype=np.int64)
         self.size += n
         return ids
@@ -93,7 +111,10 @@ class DenseIndex:
                 and i not in self._tombstones]
         if not live:
             return
-        self._emb[torch.as_tensor(live, device=self.device)] = 0
+        rows = torch.as_tensor(live, device=self.device)
+        self._emb[rows] = 0
+        if self.quantized:
+            self._scale[rows] = 0.0
         self._tombstones.update(live)
         self.epoch += 1
 
@@ -106,9 +127,13 @@ class DenseIndex:
         new_cap = max(self.capacity_block, _round_up(len(keep), self.tile))
         new_emb = torch.zeros((new_cap, self.dim), dtype=self.dtype,
                               device=self.device)
+        rows = torch.as_tensor(keep, device=self.device)
         if len(keep):
-            new_emb[:len(keep)] = self._emb[torch.as_tensor(
-                keep, device=self.device)]
+            new_emb[:len(keep)] = self._emb[rows]
+        if self.quantized:
+            new_scale = torch.zeros(new_cap, device=self.device)
+            new_scale[:len(keep)] = self._scale[rows]
+            self._scale = new_scale
         self._emb = new_emb
         self.size = len(keep)
         self._tombstones.clear()
@@ -118,22 +143,46 @@ class DenseIndex:
     # --------------------------------------------------------------- search
 
     def embeddings(self) -> torch.Tensor:
-        """The padded device matrix [capacity, dim] (rows >= size are 0)."""
+        """The padded device matrix [capacity, dim] (rows >= size are 0).
+
+        Raw storage: int8 codes in quantized mode; ``vectors_f32`` gives
+        real-valued rows."""
         return self._emb
+
+    @property
+    def row_scale(self):
+        """Per-row dequantization scales [capacity] (int8), else None."""
+        return self._scale
+
+    def vectors_f32(self, limit: int | None = None) -> torch.Tensor:
+        """Float32 unit vectors [limit or size, dim], dequantized in int8
+        mode."""
+        stop = self.size if limit is None else limit
+        if self.quantized:
+            return dequantize_int8(self._emb[:stop], self._scale[:stop])
+        return self._emb[:stop].float()
+
+    def get(self, ids) -> torch.Tensor:
+        rows = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        if self.quantized:
+            return dequantize_int8(self._emb[rows], self._scale[rows])
+        return self._emb[rows]
 
     def _settle_certificate(self, q, scores, ids, kk):
         """Resolve a deferred certificate: ``ids`` fetched as numpy.
 
         The certified path appends an uncovered-count row (ids [B+1, kk]);
         a nonzero count (cover overflow) reruns the exact tiled search.
+        Returns (scores, ids, route).
         """
         b = q.shape[0]
-        if ids.shape[0] == b:                 # plain exact path
-            return scores.cpu().numpy(), ids
+        if ids.shape[0] == b:                 # one-pass path
+            return scores.cpu().numpy(), ids, "direct"
         if int(ids[-1, 0]) == 0:              # certified exact
-            return scores.cpu().numpy(), ids[:-1]
-        s2, i2 = tiled_topk(q, self._emb, kk, size=self.size, tile=self.tile)
-        return s2.cpu().numpy(), i2.cpu().numpy()
+            return scores.cpu().numpy(), ids[:-1], "certified"
+        s2, i2 = tiled_topk(q, self._emb, kk, size=self.size, tile=self.tile,
+                            row_scale=self._scale)
+        return s2.cpu().numpy(), i2.cpu().numpy(), "fallback"
 
     def search(self, queries, k: int, *, prefer_kernel=None,
                approx_tile_k: int | None = None) -> DenseSearchResult:
@@ -148,27 +197,25 @@ class DenseIndex:
         # otherwise crowd out genuinely negative matches).
         slack = min(len(self._tombstones), max(0, self.size - k))
         kk = min(k + slack, self.size)
-        if self.dtype == torch.bfloat16 and self.size > 4 * kk:
-            # bf16 scan of a 4x oversampled candidate set, then a float32
-            # rescore of the candidates.
-            c_s, cand = dispatch_topk(q, self._emb, 4 * kk, size=self.size,
-                                      prefer_kernel=prefer_kernel,
-                                      tile=self.tile,
-                                      approx_tile_k=approx_tile_k,
-                                      defer_certificate=True)
-            _, cand = self._settle_certificate(q, c_s, cand.cpu().numpy(),
-                                               4 * kk)
-            scores, ids = rescore_topk(q, self._emb, torch.as_tensor(
-                cand, device=self.device), kk)
-            scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
+        # Candidates to scan for: int8 and bf16 oversample 4x in the
+        # low-precision scan, then rescore the candidates in float32.
+        if self.quantized:
+            cc = min(4 * kk, self.size)
+        elif self.dtype == torch.bfloat16 and self.size > 4 * kk:
+            cc = 4 * kk
         else:
-            scores, ids = dispatch_topk(q, self._emb, kk, size=self.size,
-                                        prefer_kernel=prefer_kernel,
-                                        tile=self.tile,
-                                        approx_tile_k=approx_tile_k,
-                                        defer_certificate=True)
-            scores, ids = self._settle_certificate(q, scores,
-                                                   ids.cpu().numpy(), kk)
+            cc = kk
+        c_s, cand = dispatch_topk(q, self._emb, cc, size=self.size,
+                                  prefer_kernel=prefer_kernel, tile=self.tile,
+                                  approx_tile_k=approx_tile_k,
+                                  defer_certificate=True,
+                                  row_scale=self._scale)
+        scores, ids, route = self._settle_certificate(
+            q, c_s, cand.cpu().numpy(), cc)
+        if cc != kk or self.quantized:
+            scores, ids = rescore_topk(q, self._emb, torch.as_tensor(
+                ids, device=self.device), kk, row_scale=self._scale)
+            scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
         ids = ids.astype(np.int64)
         if self._tombstones or kk > k:
             out_s = np.full((b, k), -np.inf, np.float32)
@@ -179,8 +226,8 @@ class DenseIndex:
                         int(ids[r, c]) not in self._tombstones][:k]
                 out_s[r, :len(cols)] = scores[r, cols]
                 out_i[r, :len(cols)] = ids[r, cols]
-            return DenseSearchResult(out_s, out_i)
-        return DenseSearchResult(scores, ids)
+            return DenseSearchResult(out_s, out_i, route)
+        return DenseSearchResult(scores, ids, route)
 
     def search_tail(self, queries, k: int, from_row: int
                     ) -> DenseSearchResult:
@@ -198,8 +245,13 @@ class DenseIndex:
         # Oversample by the alignment slack so pre-from_row rows caught by
         # the aligned slice cannot crowd out genuine tail rows.
         kk = min(k + (from_row - start), self.size - start)
-        scores, ids = dispatch_topk(q, tail, kk, size=self.size - start,
-                                    tile=self.tile)
+        if self.quantized:
+            tail_scale = self._scale[start:start + tail.shape[0]]
+            scores, ids = chunked_topk(q, tail, kk, size=self.size - start,
+                                       row_scale=tail_scale)
+        else:
+            scores, ids = dispatch_topk(q, tail, kk, size=self.size - start,
+                                        tile=self.tile)
         scores = scores.cpu().numpy()
         ids = ids.cpu().numpy().astype(np.int64) + start
         valid = (ids >= from_row) & (ids < self.size) & np.isfinite(scores)
@@ -214,24 +266,34 @@ class DenseIndex:
     # ------------------------------------------------------------- snapshot
 
     def state_dict(self) -> dict:
-        """Snapshot in the JAX package's format (``embeddings`` as numpy)."""
-        return {
+        """Snapshot in the JAX package's format (``embeddings`` as numpy:
+        float32 rows, or int8 codes with a float32 ``scale``)."""
+        rows = self._emb[:self.size]
+        state = {
             "dim": self.dim, "size": self.size, "tile": self.tile,
             "capacity_block": self.capacity_block,
             "dtype": str(self.dtype).removeprefix("torch."),
-            "embeddings": self._emb[:self.size].float().cpu().numpy(),
+            "embeddings": (rows if self.quantized else rows.float()
+                           ).cpu().numpy(),
             "tombstones": np.array(sorted(self._tombstones), np.int64),
         }
+        if self.quantized:
+            state["scale"] = self._scale[:self.size].cpu().numpy()
+        return state
 
     @classmethod
     def from_state_dict(cls, state: dict, device="cuda") -> "DenseIndex":
         idx = cls(int(state["dim"]), int(state["capacity_block"]),
                   str(state["dtype"]), int(state["tile"]), device=device)
-        emb = np.array(state["embeddings"], np.float32)
+        emb = np.array(state["embeddings"],
+                       np.int8 if idx.quantized else np.float32)
         if len(emb):
             idx._ensure_capacity(len(emb))
             idx._emb[:len(emb)] = torch.from_numpy(emb).to(
                 device=idx.device, dtype=idx.dtype)
+            if idx.quantized:
+                idx._scale[:len(emb)] = torch.from_numpy(np.array(
+                    state["scale"], np.float32)).to(idx.device)
             idx.size = len(emb)
         idx._tombstones = set(int(i) for i in state.get("tombstones", []))
         return idx

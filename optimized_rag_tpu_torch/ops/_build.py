@@ -43,6 +43,16 @@ _SIGNATURES = {
     "orag_extract": [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     # qT, corpus, corpus_bf16, size, s, idx, B, N, D, tile, tile_k, stream
     "orag_tile_topk": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qwT, qs, corpus, cs, size, out, B, N, D, tile, groups, stream
+    "orag_packed_extract_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _P],
+    # qwT, qs, corpus, cs, size, tiles, U, val, col, B, N, D, tile, rounds,
+    # stream
+    "orag_extract_int8": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                          _I, _P],
+    # qT, corpus, cs, size, s, idx, B, N, D, tile, tile_k, stream
+    "orag_tile_topk_scaled": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _P],
 }
 
 

@@ -2,7 +2,7 @@
 certified packed search.
 
 Held against ``optimized_rag_tpu/ops/topk.py`` (:38-135, :198-309,
-:697-732, :759-989, :1214-1340). Every function returns
+:697-756, :759-989, :1214-1340). Every function returns
 ``(scores [B, k] f32, ids [B, k])``; the certified ones append the
 certificate row to ids. Ties go to the lower index everywhere, as
 ``lax.top_k`` and ``jnp.argmax`` give them: ``torch.topk`` promises no tie
@@ -16,8 +16,15 @@ All float32 products run in full float32 (``device.configure_numerics``
 turns TF32 off): the certificate's two-step cushion (``_unpack_ub``) allows
 for reduction-order drift between the scan and the covers, not for TF32.
 
-Not ported yet: int8 row scales (``row_scale``), the verified and ANN
-variants, and ``tile_k``-approximate extraction beyond ``dispatch_topk``'s
+int8 corpora (``row_scale`` [N], ops/quantize.py): the plain scans and
+``rescore_topk`` dequantize; ``tiled_topk`` runs K7 (bf16 query x codes,
+x row scale); ``topk_certified`` quantizes the queries and runs the
+int8-native K3 scan and K5b cover, whose scores
+``(float(i32) * row_scale) * q_scale`` its c1 rescore repeats bit for bit.
+
+Not ported yet: the bf16-operand scaled certified route
+(``int8_native=False``, kernels K2 and K5a), the verified and ANN variants,
+and ``tile_k``-approximate extraction beyond ``dispatch_topk``'s
 ``approx_tile_k`` opt-in.
 """
 
@@ -25,8 +32,10 @@ from __future__ import annotations
 
 import torch
 
+from optimized_rag_tpu_torch.ops.quantize import quantize_int8
 from optimized_rag_tpu_torch.ops.topk_kernels import (
-    NEG_INF, extract, packed_extract, tile_topk)
+    NEG_INF, extract, extract_int8, packed_extract, packed_extract_int8,
+    tile_topk, tile_topk_scaled)
 
 
 def _topk(x: torch.Tensor, k: int):
@@ -49,18 +58,22 @@ def _mask_padding(scores: torch.Tensor, base: int, size) -> torch.Tensor:
 
 
 def exact_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
-               size=None):
-    """Brute-force matmul + top-k. queries [B, D], corpus [N, D]."""
+               size=None, row_scale=None):
+    """Brute-force matmul + top-k. queries [B, D], corpus [N, D];
+    ``row_scale`` [N] dequantizes an int8 corpus's scores."""
     scores = queries.float() @ corpus.float().T
+    if row_scale is not None:
+        scores = scores * row_scale[None, :].float()
     if size is not None:
         scores = _mask_padding(scores, 0, size)
     return _topk(scores, k)
 
 
 def chunked_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
-                 size=None, chunk: int = 65536):
+                 size=None, chunk: int = 65536, row_scale=None):
     """Streaming top-k over corpus chunks, memory O(B*(chunk+k)); a
-    remainder tail of ``n % chunk`` rows is scored as one more chunk."""
+    remainder tail of ``n % chunk`` rows is scored as one more chunk.
+    ``row_scale`` [N] dequantizes each chunk's scores."""
     n = corpus.shape[0]
     b = queries.shape[0]
     q = queries.float()
@@ -70,7 +83,10 @@ def chunked_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     best_i = torch.full((b, k), -1, dtype=torch.long, device=dev)
     for base in range(0, n, chunk):
         rows = corpus[base:base + chunk]
-        s = _mask_padding(q @ rows.float().T, base, size_)
+        s = q @ rows.float().T
+        if row_scale is not None:
+            s = s * row_scale[base:base + chunk][None, :].float()
+        s = _mask_padding(s, base, size_)
         col = torch.arange(base, base + rows.shape[0], device=dev)
         cand_s = torch.cat([best_s, s], dim=1)
         cand_i = torch.cat([best_i, col.expand(b, -1)], dim=1)
@@ -89,14 +105,20 @@ def _merge_tile_winners(tile_s: torch.Tensor, tile_i: torch.Tensor, k: int):
 
 
 def tiled_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
-               size=None, tile: int = 1024, tile_k: int | None = None):
-    """Exact two-stage top-k: per-tile top-``tile_k`` (kernel K6) then a
-    merge. Ports ``pallas_topk``. ``tile_k < k`` is approximate."""
+               size=None, tile: int = 1024, tile_k: int | None = None,
+               row_scale=None):
+    """Exact two-stage top-k: per-tile top-``tile_k`` (kernel K6, or K7
+    for an int8 corpus with ``row_scale``) then a merge. Ports
+    ``pallas_topk``. ``tile_k < k`` is approximate."""
     n = corpus.shape[0]
     assert k <= tile
     tile_k = min(tile_k or k, k)
     assert (n // tile) * tile_k >= k, (n // tile, tile_k, k)
-    tile_s, tile_i = tile_topk(queries, corpus, size, tile, tile_k)
+    if row_scale is None:
+        tile_s, tile_i = tile_topk(queries, corpus, size, tile, tile_k)
+    else:
+        tile_s, tile_i = tile_topk_scaled(queries, corpus, row_scale, size,
+                                          tile, tile_k)
     return _merge_tile_winners(tile_s, tile_i, k)
 
 
@@ -107,6 +129,17 @@ def _exact_rowwise_scores(queries: torch.Tensor, gathered: torch.Tensor,
     widened to float32 (bf16 values are exact in f32), f32 products."""
     q = queries.to(dtype).float()
     return torch.bmm(gathered.float(), q[:, :, None])[:, :, 0]
+
+
+def _exact_rowwise_scores_int8(q8: torch.Tensor, gathered: torch.Tensor,
+                                row_scale: torch.Tensor,
+                                q_scale: torch.Tensor) -> torch.Tensor:
+    """The int8-native score of per-query gathered rows [B, M, D] -> [B, M]:
+    the code dot as a float32 product of the codes (exact: every partial
+    sum is an integer below 2**24 for D <= 1040), then the kernels'
+    multiply order, ``(raw * row_scale) * q_scale``."""
+    raw = torch.bmm(gathered.float(), q8.float()[:, :, None])[:, :, 0]
+    return (raw * row_scale) * q_scale[:, None]
 
 
 def _unpack_lb(vals: torch.Tensor, tile: int) -> torch.Tensor:
@@ -122,7 +155,8 @@ def _unpack_ub(vals: torch.Tensor, tile: int) -> torch.Tensor:
 
 def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                    size=None, tile: int = 4096, groups: int = 8,
-                   union_tiles: int = 32, pad_r: int | None = None):
+                   union_tiles: int = 32, pad_r: int | None = None,
+                   row_scale=None, int8_native: bool = True):
     """EXACT top-k by the packed scan (K1) plus three certified covers.
     Ports ``pallas_topk_certified``.
 
@@ -134,15 +168,34 @@ def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     c1 rescored exactly the top-R candidates with their full strided units;
     c2 takes the exact per-tile top-k (K4) of the union of tiles whose
     second unit may beat tau; c3 checks the best excluded candidate.
+
+    An int8 corpus with ``row_scale`` [N] runs int8-native: the queries are
+    quantized on their device (ops/quantize.py), K3 scans and K5b covers,
+    and every score is ``(float(i32) * row_scale) * q_scale``, so the
+    certificate means exact for that scoring. ``int8_native=False`` (the
+    bf16-operand scaled kernels K2 and K5a) is not ported yet.
     """
-    n, _ = corpus.shape
+    n, d = corpus.shape
     b = queries.shape[0]
     dev = corpus.device
     small = tile // groups
     num_tiles = n // tile
     assert 2 * num_tiles > k, (num_tiles, k)
     size_ = n if size is None else size
-    w_val = packed_extract(queries, corpus, size, tile, groups)  # [T, 2, B]
+    native = row_scale is not None
+    if native:
+        if corpus.dtype != torch.int8 or not int8_native:
+            raise NotImplementedError(
+                "the scaled certified scan (kernels K2 and K5a: bf16 "
+                "operands times row_scale) is not ported yet; use an int8 "
+                "corpus with int8_native=True")
+        # Float32 products of the codes are exact only below 2**24.
+        assert d * 127 * 127 < 1 << 24, d
+        q8, q_scale = quantize_int8(queries)
+        w_val = packed_extract_int8(q8, q_scale, corpus, row_scale, size,
+                                    tile, groups)                # [T, 2, B]
+    else:
+        w_val = packed_extract(queries, corpus, size, tile, groups)
 
     vals = w_val.permute(2, 0, 1).reshape(b, 2 * num_tiles)
     cand_tile = torch.arange(2 * num_tiles, device=dev) // 2
@@ -165,8 +218,13 @@ def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     valid_cand = (vtop[:, :r_cnt] > 0) & ~dup
     flat = members.reshape(b, r_cnt * groups)
     okf = (valid_cand[:, :, None] & (members < size_)).reshape(b, -1)
-    gathered = corpus[flat.clamp_min(0)]                          # [B, M, D]
-    sc = _exact_rowwise_scores(queries, gathered, corpus.dtype)
+    safe = flat.clamp_min(0)
+    gathered = corpus[safe]                                       # [B, M, D]
+    if native:
+        sc = _exact_rowwise_scores_int8(q8, gathered, row_scale[safe],
+                                        q_scale)
+    else:
+        sc = _exact_rowwise_scores(queries, gathered, corpus.dtype)
     sc = torch.where(okf, sc, NEG_INF)
     top_s, top_i = _topk_rows(sc, flat, k)
     tau = top_s[:, k - 1]
@@ -186,8 +244,12 @@ def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     selected = torch.zeros(num_tiles, dtype=torch.bool, device=dev)
     selected[sel_tiles] = sel_valid
     uncovered = (sus & ~selected[None, :]).sum() + c3_viol.sum()
-    uval, ucol = extract(queries, corpus, size, tile, k,
-                         sel_tiles.to(torch.int32))               # [U, k, B]
+    if native:
+        uval, ucol = extract_int8(q8, q_scale, corpus, row_scale, size,
+                                  tile, k, sel_tiles.to(torch.int32))
+    else:
+        uval, ucol = extract(queries, corpus, size, tile, k,
+                             sel_tiles.to(torch.int32))           # [U, k, B]
     uc = torch.where(sel_valid[None, :, None], uval.permute(2, 0, 1),
                      NEG_INF)                                     # [B, U, k]
     urow = (sel_tiles[:, None, None] * tile + ucol.long()).permute(2, 0, 1)
@@ -207,7 +269,8 @@ def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
 def topk_certified_multi(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                          size=None, sub_batch: int = 1024, tile: int = 4096,
                          groups: int = 8, union_tiles: int = 32,
-                         pad_r: int | None = None):
+                         pad_r: int | None = None, row_scale=None,
+                         int8_native: bool = True):
     """``topk_certified`` over M sub-batches; the certificate row sums the
     blocks' uncovered counts. Ports ``pallas_topk_certified_multi``."""
     mb = queries.shape[0]
@@ -216,7 +279,8 @@ def topk_certified_multi(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     for s0 in range(0, mb, sub_batch):
         s, i = topk_certified(queries[s0:s0 + sub_batch], corpus, k, size,
                               tile=tile, groups=groups,
-                              union_tiles=union_tiles, pad_r=pad_r)
+                              union_tiles=union_tiles, pad_r=pad_r,
+                              row_scale=row_scale, int8_native=int8_native)
         scores.append(s)
         ids.append(i[:-1])
         uncovered = uncovered + i[-1, 0]
@@ -226,10 +290,14 @@ def topk_certified_multi(queries: torch.Tensor, corpus: torch.Tensor, k: int,
 
 
 def rescore_topk(queries: torch.Tensor, corpus: torch.Tensor,
-                 cand_ids: torch.Tensor, k: int):
-    """Exact float32 rescoring of an oversampled candidate set [B, C]."""
+                 cand_ids: torch.Tensor, k: int, row_scale=None):
+    """Exact float32 rescoring of an oversampled candidate set [B, C];
+    ``row_scale`` [N] dequantizes gathered int8 rows first."""
     cand_ids = cand_ids.long()
-    cand = corpus[cand_ids.clamp_min(0)]                          # [B, C, D]
+    safe = cand_ids.clamp_min(0)
+    cand = corpus[safe]                                           # [B, C, D]
+    if row_scale is not None:
+        cand = cand.float() * row_scale[safe][..., None].float()
     scores = _exact_rowwise_scores(queries.float(), cand, torch.float32)
     scores = torch.where(cand_ids >= 0, scores, NEG_INF)
     return _topk_rows(scores, cand_ids, k)
@@ -242,7 +310,7 @@ def certificate_uncovered(ids) -> int:
 
 def dispatch_topk(queries, corpus, k, size=None, *, prefer_kernel=None,
                   tile=1024, chunk=65536, approx_tile_k=None,
-                  defer_certificate=False):
+                  defer_certificate=False, row_scale=None):
     """Pick the top-k implementation for the device and problem size.
 
     Exact at every scale. With the kernels (by default: a CUDA corpus,
@@ -255,6 +323,8 @@ def dispatch_topk(queries, corpus, k, size=None, *, prefer_kernel=None,
     certificate row still attached ([B+1, k]); the caller reruns
     ``tiled_topk`` when ``certificate_uncovered(ids)`` is nonzero.
     ``approx_tile_k`` opts into unverified approximate extraction.
+    ``row_scale`` [N] (int8 corpus) goes to every route: K7 for the tiled
+    search, the int8-native K3/K5b for the certified one.
     """
     n = corpus.shape[0]
     if prefer_kernel is None:
@@ -263,7 +333,7 @@ def dispatch_topk(queries, corpus, k, size=None, *, prefer_kernel=None,
         if approx_tile_k is not None:
             eff_tile_k = max(approx_tile_k, -(-k // max(n // tile, 1)))
             return tiled_topk(queries, corpus, k, size, tile=tile,
-                              tile_k=eff_tile_k)
+                              tile_k=eff_tile_k, row_scale=row_scale)
         if n // tile >= 64 * k:
             b = queries.shape[0]
             if b > 1024:
@@ -273,19 +343,24 @@ def dispatch_topk(queries, corpus, k, size=None, *, prefer_kernel=None,
                 q_run = (torch.cat([queries, queries[:1].expand(pad, -1)])
                          if pad else queries)
                 scores, packed = topk_certified_multi(
-                    q_run, corpus, k, size, sub_batch=1024, tile=tile)
+                    q_run, corpus, k, size, sub_batch=1024, tile=tile,
+                    row_scale=row_scale)
                 if pad:
                     scores = scores[:b]
                     packed = torch.cat([packed[:b], packed[-1:]])
             else:
                 scores, packed = topk_certified(queries, corpus, k, size,
-                                                tile=tile)
+                                                tile=tile,
+                                                row_scale=row_scale)
             if defer_certificate:
                 return scores, packed
             if certificate_uncovered(packed) == 0:
                 return scores, packed[:-1]
-            return tiled_topk(queries, corpus, k, size, tile=tile)
-        return tiled_topk(queries, corpus, k, size, tile=tile)
+            return tiled_topk(queries, corpus, k, size, tile=tile,
+                              row_scale=row_scale)
+        return tiled_topk(queries, corpus, k, size, tile=tile,
+                          row_scale=row_scale)
     if n > chunk:
-        return chunked_topk(queries, corpus, k, size, chunk=chunk)
-    return exact_topk(queries, corpus, k, size)
+        return chunked_topk(queries, corpus, k, size, chunk=chunk,
+                            row_scale=row_scale)
+    return exact_topk(queries, corpus, k, size, row_scale=row_scale)

@@ -1,4 +1,4 @@
-"""The three top-k kernels of the search path: CUDA launches and plain twins.
+"""The top-k kernels of the search path: CUDA launches and plain twins.
 
 Held against ``optimized_rag_tpu/ops/topk.py``:
 
@@ -7,16 +7,28 @@ Held against ``optimized_rag_tpu/ops/topk.py``:
 * ``extract`` (K4) ports ``_extract_kernel`` / ``_extract_rounds``
   (:992-1018, :1053-1066), launched by ``_extract_pass``;
 * ``tile_topk`` (K6) ports ``_tile_topk_kernel`` / ``_extract_tile_winners``
-  (:142-175), launched by ``_tile_pass``.
+  (:142-175), launched by ``_tile_pass``;
+* ``packed_extract_int8`` (K3) ports ``_packed_extract_int8_kernel``
+  (:548-573) and ``extract_int8`` (K5b) ports ``_extract_int8_kernel``
+  (:1037-1050): int8 query codes against int8 row codes, the int32 dot then
+  ``(float(i32) * row_scale) * query_scale``;
+* ``tile_topk_scaled`` (K7) ports ``_tile_topk_scaled_kernel`` (:178-195):
+  the query rounded to bf16 against int8 codes, an f32 sum, x row_scale.
 
-Each wrapper casts the queries to the corpus dtype (the TPU kernels' operand
-cast) and widens them to float32. A CPU corpus takes the plain twin
-(``*_plain``, torch.matmul in float32 plus elementwise ops, the same
-function); a CUDA corpus launches the kernel from ``csrc/`` or raises. Each
-launch adds one to its count in ``launch_counts()``.
+K1, K4 and K6 cast the queries to the corpus dtype (the TPU kernels'
+operand cast) and widen them to float32; K7 rounds them to bf16. A CPU
+corpus takes the plain twin (``*_plain``, torch.matmul in float32 plus
+elementwise ops, the same function); a CUDA corpus launches the kernel from
+``csrc/`` or raises. Each launch adds one to its count in
+``launch_counts()``.
+
+The int8-native score is exact in float32: for D * 127**2 < 2**24 every
+partial sum of a code-by-code dot is an integer below 2**24, so a float32
+product of the codes equals the int32 dot in any summation order (TF32 is
+off). K3's words and K5b's values are therefore bit for bit their twins'.
 
 ``size`` (live rows) may be an int or a device scalar; rows at or after it
-pack to 0 in K1 and score -1e30 in K4 and K6.
+pack to 0 in K1 and K3 and score -1e30 in K4, K5b, K6 and K7.
 """
 
 from __future__ import annotations
@@ -26,7 +38,8 @@ import threading
 import torch
 
 NEG_INF = -1e30
-KERNELS = ("packed_extract", "extract", "tile_topk")
+KERNELS = ("packed_extract", "extract", "tile_topk", "packed_extract_int8",
+           "extract_int8", "tile_topk_scaled")
 
 _counts_lock = threading.Lock()
 _launches = dict.fromkeys(KERNELS, 0)
@@ -68,9 +81,23 @@ def _tiles_per_block(b: int, tile: int) -> int:
     return max(1, _PLAIN_BLOCK // max(b * tile, 1))
 
 
+def _score(q: torch.Tensor, rows: torch.Tensor, row_scale=None,
+           q_scale=None) -> torch.Tensor:
+    """Scores [..., B, R] of f32 queries [B, D] against rows [..., R, D],
+    then ``* row_scale`` [..., R] and ``* q_scale`` [B], in that order."""
+    s = torch.matmul(q, rows.float().transpose(-1, -2))
+    if row_scale is not None:
+        s = s * row_scale.unsqueeze(-2)
+    if q_scale is not None:
+        s = s * q_scale[:, None]
+    return s
+
+
 def packed_extract_plain(q: torch.Tensor, corpus: torch.Tensor, size,
-                         tile: int, groups: int) -> torch.Tensor:
-    """K1's function in PyTorch: int32 [T, 2, B] packed unit winners."""
+                         tile: int, groups: int, row_scale=None,
+                         q_scale=None) -> torch.Tensor:
+    """K1's function in PyTorch: int32 [T, 2, B] packed unit winners
+    (scored as K3 with ``row_scale`` and ``q_scale``)."""
     n, _ = corpus.shape
     b = q.shape[0]
     num_tiles, small = n // tile, tile // groups
@@ -81,7 +108,10 @@ def packed_extract_plain(q: torch.Tensor, corpus: torch.Tensor, size,
     for t0 in range(0, num_tiles, step):
         t1 = min(num_tiles, t0 + step)
         nt = t1 - t0
-        s = (q @ corpus[t0 * tile:t1 * tile].float().T).view(b, nt, tile)
+        lo, hi = t0 * tile, t1 * tile
+        s = _score(q, corpus[lo:hi],
+                   None if row_scale is None else row_scale[lo:hi],
+                   q_scale).view(b, nt, tile)
         rows = torch.arange(t0 * tile, t1 * tile, device=dev).view(nt, tile)
         live = _live(rows, size)
         _check_score_range(s, live)
@@ -160,13 +190,15 @@ def _extract_rounds_plain(s: torch.Tensor, rounds: int):
 
 
 def _extract_tiles_plain(q, corpus, size, tile, rounds, tile_ids,
-                         check_range=False):
+                         check_range=False, row_scale=None, q_scale=None):
     """Exact top-``rounds`` of each listed tile: (val, col) [U, rounds, B],
     columns local to their tile."""
     n, d = corpus.shape
     dev = corpus.device
-    c = corpus.view(n // tile, tile, d)[tile_ids].float()       # [U, tile, D]
-    s = torch.matmul(q, c.transpose(1, 2))                        # [U, B, tile]
+    c = corpus.view(n // tile, tile, d)[tile_ids]                # [U, tile, D]
+    cs = (None if row_scale is None
+          else row_scale.view(n // tile, tile)[tile_ids])        # [U, tile]
+    s = _score(q, c, cs, q_scale)                                 # [U, B, tile]
     rows = tile_ids[:, None] * tile + torch.arange(tile, device=dev)
     live = _live(rows, size)[:, None, :]
     if check_range:
@@ -184,20 +216,52 @@ def extract_plain(q: torch.Tensor, corpus: torch.Tensor, size, tile: int,
                                 check_range=True)
 
 
-def tile_topk_plain(q: torch.Tensor, corpus: torch.Tensor, size, tile: int,
-                    tile_k: int):
-    """K6's function in PyTorch: (s f32, i int32 global ids), each
-    [T, tile_k, B]."""
+def _tile_topk_plain(q, corpus, size, tile, tile_k, row_scale=None):
     num_tiles = corpus.shape[0] // tile
     dev = corpus.device
     vals, ids = [], []
     step = _tiles_per_block(q.shape[0], tile)
     for t0 in range(0, num_tiles, step):
         tile_ids = torch.arange(t0, min(num_tiles, t0 + step), device=dev)
-        v, c = _extract_tiles_plain(q, corpus, size, tile, tile_k, tile_ids)
+        v, c = _extract_tiles_plain(q, corpus, size, tile, tile_k, tile_ids,
+                                    row_scale=row_scale)
         vals.append(v)
         ids.append(c + (tile_ids * tile).to(torch.int32)[:, None, None])
     return torch.cat(vals), torch.cat(ids)
+
+
+def tile_topk_plain(q: torch.Tensor, corpus: torch.Tensor, size, tile: int,
+                    tile_k: int):
+    """K6's function in PyTorch: (s f32, i int32 global ids), each
+    [T, tile_k, B]."""
+    return _tile_topk_plain(q, corpus, size, tile, tile_k)
+
+
+def packed_extract_int8_plain(q8: torch.Tensor, q_scale: torch.Tensor,
+                              corpus: torch.Tensor, row_scale: torch.Tensor,
+                              size, tile: int, groups: int) -> torch.Tensor:
+    """K3's function in PyTorch: K1's packed words [T, 2, B] of the scores
+    ``(float(q8 . c8) * row_scale) * q_scale`` (the dot exact in f32)."""
+    return packed_extract_plain(q8.float(), corpus, size, tile, groups,
+                                row_scale=row_scale, q_scale=q_scale)
+
+
+def extract_int8_plain(q8: torch.Tensor, q_scale: torch.Tensor,
+                       corpus: torch.Tensor, row_scale: torch.Tensor, size,
+                       tile: int, rounds: int, tiles: torch.Tensor):
+    """K5b's function in PyTorch: K4 scored as K3."""
+    return _extract_tiles_plain(q8.float(), corpus, size, tile, rounds,
+                                tiles.long(), check_range=True,
+                                row_scale=row_scale, q_scale=q_scale)
+
+
+def tile_topk_scaled_plain(q: torch.Tensor, corpus: torch.Tensor,
+                           row_scale: torch.Tensor, size, tile: int,
+                           tile_k: int):
+    """K7's function in PyTorch: K6 with ``q`` (already rounded to bf16,
+    in f32) against the int8 codes, an f32 sum, then ``* row_scale``."""
+    return _tile_topk_plain(q, corpus, size, tile, tile_k,
+                            row_scale=row_scale)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -216,13 +280,16 @@ def _size_arg(size, n: int, device) -> torch.Tensor:
                       dtype=torch.int32, device=device)
 
 
+_FLOAT_ROWS = (torch.float32, torch.bfloat16)
+
+
 def _check_cuda(q: torch.Tensor, corpus: torch.Tensor, tile: int,
-                max_tile: int | None = None) -> None:
+                max_tile: int | None = None, dtypes=_FLOAT_ROWS) -> None:
     if corpus.device.type != "cuda":
         raise ValueError(f"no kernel for a corpus on {corpus.device}")
-    if corpus.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"corpus dtype {corpus.dtype}: the kernels take "
-                        "float32 or bfloat16")
+    if corpus.dtype not in dtypes:
+        raise TypeError(f"corpus dtype {corpus.dtype}: this kernel takes "
+                        f"{', '.join(str(t) for t in dtypes)}")
     if corpus.dim() != 2 or not corpus.is_contiguous():
         raise ValueError("corpus must be a contiguous [N, D] matrix")
     if q.dim() != 2 or q.shape[1] != corpus.shape[1] or q.shape[0] < 1:
@@ -237,6 +304,28 @@ def _check_cuda(q: torch.Tensor, corpus: torch.Tensor, tile: int,
     if max_tile is not None and tile > max_tile:
         raise ValueError(f"tile={tile} exceeds {max_tile}: the tile's "
                          "scores must fit in shared memory")
+
+
+def _check_scales(corpus: torch.Tensor, row_scale: torch.Tensor,
+                  q8: torch.Tensor | None = None,
+                  q_scale: torch.Tensor | None = None) -> None:
+    """The int8 kernels' extra operands: f32 row scales [N]; for the
+    int8-native ones, int8 query codes [B, D] with D % 4 == 0 (four codes
+    a __dp4a word), f32 query scales [B], a 4-byte aligned corpus."""
+    n, d = corpus.shape
+    checks = [(row_scale, (n,), torch.float32, "row_scale")]
+    if q8 is not None:
+        checks += [(q8, (q8.shape[0], d), torch.int8, "query codes"),
+                   (q_scale, (q8.shape[0],), torch.float32, "q_scale")]
+        if d % 4 or corpus.data_ptr() % 4:
+            raise ValueError(f"int8-native kernels need D % 4 == 0 and an "
+                             f"aligned corpus; D={d}")
+    for t, shape, dtype, what in checks:
+        if (tuple(t.shape) != shape or t.dtype != dtype
+                or t.device != corpus.device):
+            raise ValueError(f"{what}: {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}, want {shape} {dtype} on "
+                             f"{corpus.device}")
 
 
 def _launch(name: str, fn, corpus: torch.Tensor, *args) -> None:
@@ -319,6 +408,91 @@ def tile_topk(queries: torch.Tensor, corpus: torch.Tensor, size, tile: int,
                     device=corpus.device)
     _launch("tile_topk", "orag_tile_topk", corpus, qT.data_ptr(),
             corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
+            size_t.data_ptr(), s.data_ptr(), i.data_ptr(), b, n, d, tile,
+            tile_k)
+    return s, i
+
+
+def _int8_words(q8: torch.Tensor) -> torch.Tensor:
+    """Query codes [B, D] as int32 words of 4 codes, transposed [D/4, B]."""
+    return q8.contiguous().view(torch.int32).T.contiguous()
+
+
+def packed_extract_int8(q8: torch.Tensor, q_scale: torch.Tensor,
+                        corpus: torch.Tensor, row_scale: torch.Tensor, size,
+                        tile: int, groups: int = 8) -> torch.Tensor:
+    """K3: K1's packed words [T, 2, B] of int8 codes ``q8`` [B, D] (scales
+    ``q_scale`` [B]) against an int8 corpus (scales ``row_scale`` [N])."""
+    if corpus.device.type == "cpu":
+        return packed_extract_int8_plain(q8, q_scale, corpus, row_scale,
+                                         size, tile, groups)
+    _check_cuda(q8, corpus, tile, dtypes=(torch.int8,))
+    _check_scales(corpus, row_scale, q8, q_scale)
+    if tile % groups:
+        raise ValueError(f"tile={tile} must be a multiple of groups={groups}")
+    n, d = corpus.shape
+    b = q8.shape[0]
+    # Operands stay bound to names until the launch is enqueued: a freed
+    # temporary could be reallocated by another thread first.
+    qwT, qs, cs = _int8_words(q8), q_scale.contiguous(), row_scale.contiguous()
+    size_t = _size_arg(size, n, corpus.device)
+    out = torch.empty((n // tile, 2, b), dtype=torch.int32,
+                      device=corpus.device)
+    _launch("packed_extract_int8", "orag_packed_extract_int8", corpus,
+            qwT.data_ptr(), qs.data_ptr(), corpus.data_ptr(), cs.data_ptr(),
+            size_t.data_ptr(), out.data_ptr(), b, n, d, tile, groups)
+    return out
+
+
+def extract_int8(q8: torch.Tensor, q_scale: torch.Tensor,
+                 corpus: torch.Tensor, row_scale: torch.Tensor, size,
+                 tile: int, rounds: int, tiles: torch.Tensor):
+    """K5b: ``extract`` scored as K3: (val f32, col int32 tile-local),
+    each [U, rounds, B]."""
+    if corpus.device.type == "cpu":
+        return extract_int8_plain(q8, q_scale, corpus, row_scale, size, tile,
+                                  rounds, tiles)
+    _check_cuda(q8, corpus, tile, max_tile=1024, dtypes=(torch.int8,))
+    _check_scales(corpus, row_scale, q8, q_scale)
+    if not 1 <= rounds <= tile:
+        raise ValueError(f"rounds={rounds} outside [1, tile={tile}]")
+    tiles = tiles.to(device=corpus.device, dtype=torch.int32).contiguous()
+    n, d = corpus.shape
+    b, u = q8.shape[0], tiles.shape[0]
+    qwT, qs, cs = _int8_words(q8), q_scale.contiguous(), row_scale.contiguous()
+    size_t = _size_arg(size, n, corpus.device)
+    val = torch.empty((u, rounds, b), dtype=torch.float32,
+                      device=corpus.device)
+    col = torch.empty((u, rounds, b), dtype=torch.int32, device=corpus.device)
+    _launch("extract_int8", "orag_extract_int8", corpus, qwT.data_ptr(),
+            qs.data_ptr(), corpus.data_ptr(), cs.data_ptr(),
+            size_t.data_ptr(), tiles.data_ptr(), u, val.data_ptr(),
+            col.data_ptr(), b, n, d, tile, rounds)
+    return val, col
+
+
+def tile_topk_scaled(queries: torch.Tensor, corpus: torch.Tensor,
+                     row_scale: torch.Tensor, size, tile: int, tile_k: int):
+    """K7: per-tile top-``tile_k`` of an int8 corpus, the queries rounded
+    to bf16: (s f32, i int32 global ids), each [T, tile_k, B]."""
+    q = queries.to(torch.bfloat16).float().contiguous()
+    if corpus.device.type == "cpu":
+        return tile_topk_scaled_plain(q, corpus, row_scale, size, tile,
+                                      tile_k)
+    _check_cuda(q, corpus, tile, max_tile=1024, dtypes=(torch.int8,))
+    _check_scales(corpus, row_scale)
+    if not 1 <= tile_k <= tile:
+        raise ValueError(f"tile_k={tile_k} outside [1, tile={tile}]")
+    n, d = corpus.shape
+    b = q.shape[0]
+    qT, cs = q.T.contiguous(), row_scale.contiguous()
+    size_t = _size_arg(size, n, corpus.device)
+    s = torch.empty((n // tile, tile_k, b), dtype=torch.float32,
+                    device=corpus.device)
+    i = torch.empty((n // tile, tile_k, b), dtype=torch.int32,
+                    device=corpus.device)
+    _launch("tile_topk_scaled", "orag_tile_topk_scaled", corpus,
+            qT.data_ptr(), corpus.data_ptr(), cs.data_ptr(),
             size_t.data_ptr(), s.data_ptr(), i.data_ptr(), b, n, d, tile,
             tile_k)
     return s, i

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one GPU: the /search serving path.
+"""Smoke run of the PyTorch/CUDA port on one GPU: the /search serving path
+and the reference benchmark's retrieval path.
 
     python3 chip_smoke.py            # from any directory; needs one CUDA card
 
@@ -9,10 +10,12 @@ Phases, each printing one JSON line with its seconds:
 2. ``build``   nvcc builds the top-k kernels (optimized_rag_tpu_torch/csrc)
                into build/torch_kernels/ and ctypes loads them;
 3. ``kernels`` each kernel against its plain PyTorch twin, N=262,144, D=384,
-               B in {1, 64, 1024}, with times: K1 packed scan, K4 union
-               extraction and K6 tile top-k over f32 and bf16 rows (K1's
-               words held by value and by the row their column bits name),
-               then K3, K5b (bit for bit) and K7 over int8 rows;
+               B in {1, 64, 1024} at tile 1024 and B=1024 at tile 4096,
+               with times: K1 packed scan, K4 union extraction and K6 tile
+               top-k over f32 and bf16 rows (K1's words held by value and
+               by the row their column bits name), F (the scan floor) over
+               bf16 rows, then K3, K5b (bit for bit), K7, K2 (held as K1)
+               and K5a (as K4) over int8 rows;
 4. ``slice_f32``  the pretrained BiEncoder embeds the qa_docs chunks into a
                DenseIndex filled to 4,194,304 rows (6.4 GB f32) with clustered
                synthetic rows and contiguous near-duplicate runs; a
@@ -35,20 +38,37 @@ Phases, each printing one JSON line with its seconds:
                or direct: K7's scoring, differences allowed only at a
                near-tied cc-th candidate, counted); 64 queries alone through
                the certified int8 search; recall@10 against the f32 oracle of
-               the unquantized rows printed, not gated.
+               the unquantized rows printed, not gated;
+7. ``bench_shape`` the reference benchmark's retrieval path at its full
+               shape (bench.py:180-265, :540-575): 10,485,760 x 128 bf16
+               rows (clustered, 300 near-duplicate runs), tile 4096, k=10,
+               unit-normal queries in batches of 1024 and 512; the
+               certified search (b1024, b512, two sub-batches of 512), ANN
+               at oversample 32 (held against the same pipeline with the
+               scan's twin; recall printed), the verified searches (tile
+               1024 and the tile-4096 batch union), the same rows as int8
+               codes on the int8-native (union 64, pad_r 26) and scaled
+               (K2 -> K5a) routes, and F; every certified or verified answer
+               equals its route's oracle, a nonzero certificate's rerun
+               too; qps and ms per route and batch. Every kernel call the
+               routes make is recorded, and one call of each distinct
+               shape is held against its twin and timed there.
 
-Launch counts are set to 0 just before each path and read just after it;
-the final line's ``launches`` adds up the paths a user drives (QueryServer
-rounds and DenseIndex.search), and ``launches_by_path`` gives each alone.
-Then the card's nvidia-smi line, one JSON line with every kernel's numbers
-at the search path's shapes, and last the ``{"ok": true, ...}`` line. Any
-failure raises: the traceback is printed and the exit code is not 0. A
-watchdog interrupts the script after DEADLINE_S seconds.
+Launch counts are set to 0 just before each path and read just after it.
+Then the card's nvidia-smi line; one JSON line with an entry for each
+kernel at each shape a user path gives it (the served slices' paths:
+QueryServer rounds, DenseIndex.search and the small indexes; and each
+shape of bench_shape's routes), its numbers measured at that shape and its
+``launches`` counted on those paths alone (``launches_by_path`` gives each
+path); and last the ``{"ok": true, ...}`` line. Any failure raises: the
+traceback is printed and the exit code is not 0. A watchdog interrupts the
+script after DEADLINE_S seconds.
 """
 
 from __future__ import annotations
 
 import _thread
+import contextlib
 import glob
 import json
 import os
@@ -78,6 +98,10 @@ K_SERVED = 1 << (K - 1).bit_length()  # QueryServer's power-of-two bucket
 CC_SERVED = 4 * K_SERVED          # int8 candidates: a 4x oversample
 N_INT8 = 16_777_216               # rows of the int8 index (6.44 GB of codes)
 N_QUERIES, N_CLIENTS = 256, 8
+# The reference benchmark's retrieval shape (bench.py:180-183): 10,485,760
+# x 128 bf16 rows, tile 4096, k 10, batches of 1024 and 512.
+N_BENCH, DIM_BENCH, BENCH_TILE = 10_485_760, 128, 4096
+B_HEAD, B_CMP = 1024, 512
 MAX_DEVICE_BYTES = 30e9
 TIE_TOL = 1e-5                    # f32 scores: ~1e-7 summation-order drift
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 on the CUDA
@@ -134,13 +158,14 @@ def clustered_rows(n, gen, centers):
     dev = centers.device
     assign = torch.randint(0, centers.shape[0], (n,), generator=gen,
                            device=dev)
-    return unit(centers[assign]
-                + torch.randn(n, DIM, generator=gen, device=dev))
+    return unit(centers[assign] + torch.randn(n, centers.shape[1],
+                                              generator=gen, device=dev))
 
 
 def near_duplicates(base, n, gen):
     """``n`` rows at cosine ~0.98 to ``base``: base + 0.2 * unit noise."""
-    noise = unit(torch.randn(n, DIM, generator=gen, device=base.device))
+    noise = unit(torch.randn(n, base.shape[0], generator=gen,
+                             device=base.device))
     return unit(base[None, :] + 0.2 * noise)
 
 
@@ -266,14 +291,15 @@ def hold_route(what, route, ids, vals, oracle, qn, c8, cs, cc, kk):
 
 
 def check_selection(what, q, corpus, ids, vals, ids_ref, vals_ref,
-                    tol=TIE_TOL, row_scale=None):
+                    tol=TIE_TOL, row_scale=None, rows_dtype=None):
     """A kernel's selections [S, k, B] (query b on the last axis) agree with
     its twin's.
 
     Scores must match within ``tol``. Ids must match, except where two rows
     score within the drift of two f32 summation orders (a near-tie): there
-    the returned row must really score its value (``* row_scale`` for an
-    int8 corpus). Returns (worst score error, count of near-tie swaps)."""
+    the returned row must really score its value (rows rounded to
+    ``rows_dtype``, then ``* row_scale``, for the scaled kernels). Returns
+    (worst score error, count of near-tie swaps)."""
     err = float((vals - vals_ref).abs().max())
     if err > tol:
         raise AssertionError(f"{what}: scores differ by {err:.3g} > {tol}")
@@ -282,7 +308,9 @@ def check_selection(what, q, corpus, ids, vals, ids_ref, vals_ref,
     if swaps:
         qi = torch.arange(q.shape[0], device=q.device).expand_as(ids)
         sel = ids[mism].long()
-        true = (corpus[sel].float() * q[qi[mism]]).sum(-1)
+        rows = corpus[sel] if rows_dtype is None else corpus[sel].to(
+            rows_dtype)
+        true = (rows.float() * q[qi[mism]]).sum(-1)
         if row_scale is not None:
             true = true * row_scale[sel]
         bad = float((true - vals[mism]).abs().max())
@@ -326,90 +354,42 @@ def bound_ms(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
 
 # -------------------------------------------------------- kernel holding
 
+LIB_ELEMS = 1 << 30               # largest [B, rows] yardstick score block
+
+
+def kernel_kind(name):
+    """"int8" (int8-native: K3, K5b), "scaled" (K2, K5a, K7) or "dense"."""
+    return ("int8" if name.endswith("_int8")
+            else "scaled" if name.endswith("_scaled") else "dense")
+
+
+def call_operands(name, args):
+    """A wrapper call's arguments, as ops/topk.py passes them, split into
+    (queries or query codes, corpus, row scales, size, tile, m, tiles,
+    arguments without the range flag); m is groups, rounds or tile_k."""
+    kind = kernel_kind(name)
+    if name == "scan_floor":
+        q, corpus, tile = args
+        return q, corpus, None, None, tile, 1, None, args
+    core = args
+    if name.startswith("packed"):         # drop the range flag, if passed
+        core = args[:{"dense": 5, "scaled": 6, "int8": 7}[kind]]
+    if kind == "int8":
+        q, _, corpus, cs, size, tile, m, *rest = core
+    elif kind == "scaled":
+        q, corpus, cs, size, tile, m, *rest = core
+    else:
+        (q, corpus, size, tile, m, *rest), cs = core, None
+    tiles = rest[0] if name.startswith("extract") else None
+    return q, corpus, cs, size, tile, m, tiles, core
+
+
 def lib_scores(qs, rows):
     """The library yardstick's matmul: f32 GEMM for an f32 corpus, bf16
     GEMM (tensor cores, bf16 output) for a bf16 one."""
     if rows.dtype == torch.bfloat16:
         return torch.matmul(qs.to(torch.bfloat16), rows.transpose(-1, -2))
     return torch.matmul(qs, rows.transpose(-1, -2))
-
-
-def hold_kernels(K_, T_, q, corpus, size, tiles, tile_k, reps, where):
-    """Run each kernel and its twin on the same inputs; return one record
-    per kernel with errors and times (kernel, twin, library yardstick)."""
-    b, (n, d) = q.shape[0], corpus.shape
-    isz = corpus.element_size()
-    u, t = tiles.shape[0], n // TILE
-    qs = K_._scan_queries(q, corpus)
-    out = {}
-
-    w = K_.packed_extract(q, corpus, size, TILE, GROUPS)
-    w_p = K_.packed_extract_plain(qs, corpus, size, TILE, GROUPS)
-    lb_err = float((T_._unpack_lb(w, TILE) - T_._unpack_lb(w_p, TILE))
-                   .abs().max())
-    step = 2.0 ** -12                     # quantisation step on (2, 4)
-    if lb_err > step:
-        raise AssertionError(f"{where} packed_extract: lower bounds differ "
-                             f"by {lb_err:.3g} > one step {step:.3g}")
-    # The column bits too: each word names a live row that scores its
-    # value, and equals the twin's word unless a row sits on a boundary.
-    faults, boundary = K_.packed_word_faults(qs, corpus, size, TILE, w, w_p,
-                                             drift=TIE_TOL)
-    if faults:
-        raise AssertionError(f"{where} packed_extract: {faults} packed words "
-                             "name a wrong row or value")
-    lib = lambda: torch.topk(lib_scores(qs, corpus).view(b, t, TILE), 2)
-    nbytes = n * d * isz + b * d * 4 + t * 2 * b * 4
-    out["packed_extract"] = dict(
-        max_abs_err=lb_err, tolerance=step, boundary_words=boundary,
-        ms=median_ms(lambda: K_.packed_extract(q, corpus, size, TILE,
-                                               GROUPS), reps),
-        plain_ms=median_ms(lambda: K_.packed_extract_plain(
-            qs, corpus, size, TILE, GROUPS), reps),
-        library_ms=median_ms(lib, reps),
-        bytes=nbytes, flops=2 * b * n * d)
-    del w, w_p
-
-    v, col = K_.extract(q, corpus, size, TILE, tile_k, tiles)
-    v_p, col_p = K_.extract_plain(qs, corpus, size, TILE, tile_k, tiles)
-    base = (tiles.long() * TILE)[:, None, None]
-    err, swaps = check_selection(f"{where} extract", qs, corpus,
-                                 col.long() + base, v, col_p.long() + base,
-                                 v_p)
-    sel = corpus.view(t, TILE, d)[tiles.long()]
-    lib = lambda: torch.topk(lib_scores(qs, sel), tile_k)
-    out["extract"] = dict(
-        max_abs_err=err, tolerance=TIE_TOL, near_tie_swaps=swaps,
-        ms=median_ms(lambda: K_.extract(q, corpus, size, TILE, tile_k,
-                                        tiles), reps),
-        plain_ms=median_ms(lambda: K_.extract_plain(
-            qs, corpus, size, TILE, tile_k, tiles), reps),
-        library_ms=median_ms(lib, reps),
-        bytes=u * TILE * d * isz + b * d * 4 + u * 4 + 2 * u * tile_k * b * 4,
-        flops=2 * b * u * TILE * d)
-    del v, col, v_p, col_p, sel
-
-    s, i = K_.tile_topk(q, corpus, size, TILE, tile_k)
-    s_p, i_p = K_.tile_topk_plain(qs, corpus, size, TILE, tile_k)
-    err, swaps = check_selection(f"{where} tile_topk", qs, corpus, i.long(),
-                                 s, i_p.long(), s_p)
-    lib = lambda: torch.topk(lib_scores(qs, corpus).view(b, t, TILE),
-                             tile_k)
-    out["tile_topk"] = dict(
-        max_abs_err=err, tolerance=TIE_TOL, near_tie_swaps=swaps,
-        ms=median_ms(lambda: K_.tile_topk(q, corpus, size, TILE, tile_k),
-                     reps),
-        plain_ms=median_ms(lambda: K_.tile_topk_plain(
-            qs, corpus, size, TILE, tile_k), max(1, reps // 2)),
-        library_ms=median_ms(lib, reps),
-        bytes=n * d * isz + b * d * 4 + 2 * t * tile_k * b * 4,
-        flops=2 * b * n * d)
-    del s, i, s_p, i_p
-    peak = PEAK_F32 if corpus.dtype == torch.float32 else PEAK_BF16
-    for rec in out.values():
-        rec["bound_ms"], rec["bound_by"] = bound_ms(rec["bytes"],
-                                                    rec["flops"], peak)
-    return out
 
 
 def int8_scores_lib(q8, rows8):
@@ -422,84 +402,172 @@ def int8_scores_lib(q8, rows8):
         return q8.float() @ rows8.float().T, "float32 matmul of the codes"
 
 
-def hold_int8_kernels(K_, q, c8, cs, size, tiles, rounds, reps, where):
-    """K3, K5b and K7 against their twins on the same inputs: K3's words
-    and K5b's values and columns bit for bit, K7 as K6 (within TIE_TOL,
-    near-tie swaps only). Returns one record per kernel with times."""
+def library_call(K_, name, q, corpus, cs, tile, m, tiles):
+    """One PyTorch computation of the kernel's function on the same inputs,
+    never called by the port: a GEMM (bf16 of bf16(q) and the rows as bf16,
+    x scales, for the scaled kernels; ``torch._int_mm`` for the int8-native
+    ones), then ``torch.topk`` (``amax`` for F) per tile. Over the whole
+    corpus it runs in row blocks where one [B, N] score matrix would exceed
+    LIB_ELEMS. Returns (callable, label)."""
+    kind = kernel_kind(name)
+    b, (n, d) = q.shape[0], corpus.shape
+    if kind == "int8":
+        score = lambda rows, rs: int8_scores_lib(q, rows.reshape(-1, d))[0]
+        label = int8_scores_lib(q, corpus[:tile])[1]
+        src = corpus
+    elif kind == "scaled":
+        q16 = q.to(torch.bfloat16)
+        score = lambda rows, rs: torch.matmul(q16, rows.transpose(-1, -2)) \
+            .mul_(rs)
+        label = "bf16 torch.matmul, * scale"
+        src = corpus.to(torch.bfloat16)   # made once, outside the timing
+    else:
+        qs = K_._scan_queries(q, corpus)
+        score = lambda rows, rs: lib_scores(qs, rows)
+        label = f"{'bf16' if corpus.dtype == torch.bfloat16 else 'f32'} " \
+                "torch.matmul"
+        src = corpus
+    if tiles is not None:                 # the listed tiles: one call
+        t_ids = tiles.long()
+        sel = src.view(n // tile, tile, d)[t_ids]
+        rs = None if cs is None else cs.view(n // tile, tile)[t_ids][:, None]
+        if kind == "int8":
+            return (lambda: torch.topk(score(sel, rs).view(b, -1, tile), m),
+                    f"{label}, torch.topk")
+        return lambda: torch.topk(score(sel, rs), m), f"{label}, torch.topk"
+    reduce = ((lambda s: s.amax(dim=-1)) if name == "scan_floor"
+              else (lambda s: torch.topk(s, m if name.startswith("tile")
+                                         else 2)))
+    step = n if b * n <= LIB_ELEMS else max(tile, LIB_ELEMS // b // tile
+                                            * tile)
+
+    def lib():
+        for lo in range(0, n, step):
+            hi = min(n, lo + step)
+            reduce(score(src[lo:hi], None if cs is None else cs[lo:hi])
+                   .view(b, (hi - lo) // tile, tile))
+    red = "amax per tile" if name == "scan_floor" else "torch.topk"
+    blocks = "" if step == n else f", in blocks of {step} rows"
+    return lib, f"{label}, {red}{blocks}"
+
+
+def hold_call(K_, T_, name, args, reps, where, plain_reps=None):
+    """Kernel ``name`` on ``args`` (a wrapper call as ops/topk.py makes it)
+    against its plain twin on the same inputs, then timed beside the twin
+    and the library yardstick. int8-native kernels bit for bit; packed
+    words by value (one quantisation step) and by the row their column
+    bits name; selections within TIE_TOL, near-tie swaps only; F within
+    TIE_TOL. Returns the record: errors, ms, plain_ms, library_ms, bytes,
+    flops, bound_ms, bound_by and the call's shape."""
+    kind = kernel_kind(name)
+    q, corpus, cs, size, tile, m, tiles, core = call_operands(name, args)
+    b, (n, d) = q.shape[0], corpus.shape
+    kernel = lambda: getattr(K_, name)(*core)
+    if kind == "int8":
+        qt, plain_args = None, core
+    else:
+        qt = (K_._bf16_queries(q) if kind == "scaled"
+              else K_._scan_queries(q, corpus))
+        plain_args = (qt,) + tuple(core[1:])
+    plain = lambda: getattr(K_, name + "_plain")(*plain_args)
+    rows_dtype = (K_.scaled_rows_dtype(corpus) if kind == "scaled"
+                  else None)
+    out, ref = kernel(), plain()
+    rec = {}
+    if kind == "int8":
+        differ = sum(int((a != r).sum()) for a, r in zip(
+            out if isinstance(out, tuple) else (out,),
+            ref if isinstance(ref, tuple) else (ref,)))
+        if differ:
+            raise AssertionError(f"{where} {name}: {differ} values differ "
+                                 "from the twin's")
+        rec.update(max_abs_err=0.0, tolerance=0.0)
+    elif name.startswith("packed"):
+        step = 2.0 ** -12                 # quantisation step on (2, 4)
+        lb_err = float((T_._unpack_lb(out, tile) - T_._unpack_lb(ref, tile))
+                       .abs().max())
+        faults, boundary = K_.packed_word_faults(
+            qt, corpus, size, tile, out, ref, drift=TIE_TOL, row_scale=cs,
+            rows_dtype=rows_dtype)
+        if lb_err > step or faults:
+            raise AssertionError(f"{where} {name}: lower bounds differ by "
+                                 f"{lb_err:.3g} (step {step:.3g}), {faults} "
+                                 "words name a wrong row or value")
+        rec.update(max_abs_err=lb_err, tolerance=step,
+                   boundary_words=boundary)
+    elif name == "scan_floor":
+        err = float((out - ref).abs().max())
+        if not err <= TIE_TOL:
+            raise AssertionError(f"{where} scan_floor: {err:.3g} > {TIE_TOL}")
+        rec.update(max_abs_err=err, tolerance=TIE_TOL)
+    else:
+        (v, i), (v_p, i_p) = out, ref
+        i, i_p = i.long(), i_p.long()
+        if tiles is not None:             # tile-local columns
+            base = (tiles.long() * tile)[:, None, None]
+            i, i_p = i + base, i_p + base
+        err, swaps = check_selection(f"{where} {name}", qt, corpus, i, v, i_p,
+                                     v_p, row_scale=cs, rows_dtype=rows_dtype)
+        rec.update(max_abs_err=err, tolerance=TIE_TOL, near_tie_swaps=swaps)
+        del v, i, v_p, i_p
+    del out, ref
+    lib, label = library_call(K_, name, q, corpus, cs, tile, m, tiles)
+    rec.update(ms=median_ms(kernel, reps),
+               plain_ms=median_ms(plain, plain_reps or reps),
+               library_ms=median_ms(lib, plain_reps or reps), library=label)
+    del lib
+    # Bytes: inputs read once, outputs written once; operations: 2*B*rows*D.
+    t = n // tile
+    row_bytes = d * corpus.element_size() + (0 if cs is None else 4)
+    q_bytes = b * (d + 4) if kind == "int8" else b * d * 4
+    if tiles is not None:
+        u = tiles.shape[0]
+        rows, out_bytes = u * tile, u * 4 + 2 * u * m * b * 4
+    else:
+        rows = n
+        out_bytes = t * b * 4 * (1 if name == "scan_floor"
+                                 else 2 * m if name.startswith("tile")
+                                 else 2)
+    peak = (PEAK_INT8 if kind == "int8" else PEAK_F32
+            if kind == "dense" and corpus.dtype == torch.float32
+            else PEAK_BF16)
+    rec.update(bytes=rows * row_bytes + q_bytes + out_bytes,
+               flops=2 * b * rows * d, B=b, N=n, D=d, tile=tile,
+               m=m, U=None if tiles is None else tiles.shape[0])
+    rec["bound_ms"], rec["bound_by"] = bound_ms(rec["bytes"], rec["flops"],
+                                                peak)
+    return rec
+
+
+def dense_calls(q, corpus, size, tile, tiles, rounds, floor=False):
+    """K1, K4 and K6 (and F) calls on a float corpus, as the search makes
+    them."""
+    calls = [("packed_extract", (q, corpus, size, tile, GROUPS)),
+             ("extract", (q, corpus, size, tile, rounds, tiles)),
+             ("tile_topk", (q, corpus, size, tile, rounds))]
+    if floor:
+        calls.append(("scan_floor", (q, corpus, tile)))
+    return calls
+
+
+def int8_calls(q, c8, cs, size, tile, tiles, rounds, scaled=False):
+    """K3, K5b and K7 (and the scaled route's K2 and K5a) calls on an int8
+    corpus."""
     from optimized_rag_tpu_torch.ops.quantize import quantize_int8
-    b, (n, d) = q.shape[0], c8.shape
-    u, t = tiles.shape[0], n // TILE
     q8, qs = quantize_int8(q)
-    qb = q.to(torch.bfloat16).float()
-    out = {}
+    calls = [("packed_extract_int8", (q8, qs, c8, cs, size, tile, GROUPS)),
+             ("extract_int8", (q8, qs, c8, cs, size, tile, rounds, tiles)),
+             ("tile_topk_scaled", (q, c8, cs, size, tile, rounds))]
+    if scaled:
+        calls += [("packed_extract_scaled", (q, c8, cs, size, tile, GROUPS)),
+                  ("extract_scaled", (q, c8, cs, size, tile, rounds, tiles))]
+    return calls
 
-    w = K_.packed_extract_int8(q8, qs, c8, cs, size, TILE, GROUPS)
-    w_p = K_.packed_extract_int8_plain(q8, qs, c8, cs, size, TILE, GROUPS)
-    differ = int((w != w_p).sum())
-    if differ:
-        raise AssertionError(f"{where} packed_extract_int8: {differ} words "
-                             "differ from the twin's")
-    lib_name = int8_scores_lib(q8, c8)[1]
-    del w, w_p
-    lib = lambda: torch.topk(int8_scores_lib(q8, c8)[0].view(b, t, TILE), 2)
-    out["packed_extract_int8"] = dict(
-        max_abs_err=0.0, tolerance=0.0, words_differing=differ,
-        ms=median_ms(lambda: K_.packed_extract_int8(q8, qs, c8, cs, size,
-                                                    TILE, GROUPS), reps),
-        plain_ms=median_ms(lambda: K_.packed_extract_int8_plain(
-            q8, qs, c8, cs, size, TILE, GROUPS), reps),
-        library_ms=median_ms(lib, reps), library=lib_name,
-        bytes=n * d + n * 4 + b * d + b * 4 + t * 2 * b * 4,
-        flops=2 * b * n * d, peak=PEAK_INT8)
 
-    v, col = K_.extract_int8(q8, qs, c8, cs, size, TILE, rounds, tiles)
-    v_p, col_p = K_.extract_int8_plain(q8, qs, c8, cs, size, TILE, rounds,
-                                       tiles)
-    if not (torch.equal(v, v_p) and torch.equal(col, col_p)):
-        raise AssertionError(f"{where} extract_int8: {int((v != v_p).sum())} "
-                             f"values and {int((col != col_p).sum())} "
-                             "columns differ from the twin's")
-    sel = c8.view(t, TILE, d)[tiles.long()].reshape(u * TILE, d)
-    lib_name = int8_scores_lib(q8, sel)[1]
-    lib = lambda: torch.topk(int8_scores_lib(q8, sel)[0].view(b, u, TILE),
-                             rounds)
-    out["extract_int8"] = dict(
-        max_abs_err=0.0, tolerance=0.0,
-        ms=median_ms(lambda: K_.extract_int8(q8, qs, c8, cs, size, TILE,
-                                             rounds, tiles), reps),
-        plain_ms=median_ms(lambda: K_.extract_int8_plain(
-            q8, qs, c8, cs, size, TILE, rounds, tiles), reps),
-        library_ms=median_ms(lib, reps), library=lib_name,
-        bytes=(u * TILE * (d + 4) + b * d + b * 4 + u * 4
-               + 2 * u * rounds * b * 4),
-        flops=2 * b * u * TILE * d, peak=PEAK_INT8)
-    del v, col, v_p, col_p, sel
-
-    s, i = K_.tile_topk_scaled(q, c8, cs, size, TILE, rounds)
-    s_p, i_p = K_.tile_topk_scaled_plain(qb, c8, cs, size, TILE, rounds)
-    err, swaps = check_selection(f"{where} tile_topk_scaled", qb, c8,
-                                 i.long(), s, i_p.long(), s_p, row_scale=cs)
-    del s, i, s_p, i_p
-    # Yardstick: a bf16 GEMM of bf16(q) against the codes as bf16 (made
-    # once, outside the timing), x scale in place, then torch.topk.
-    q16, c16 = q.to(torch.bfloat16), c8.to(torch.bfloat16)
-    lib = lambda: torch.topk(torch.matmul(q16, c16.T).mul_(cs).view(
-        b, t, TILE), rounds)
-    out["tile_topk_scaled"] = dict(
-        max_abs_err=err, tolerance=TIE_TOL, near_tie_swaps=swaps,
-        ms=median_ms(lambda: K_.tile_topk_scaled(q, c8, cs, size, TILE,
-                                                 rounds), reps),
-        plain_ms=median_ms(lambda: K_.tile_topk_scaled_plain(
-            qb, c8, cs, size, TILE, rounds), max(1, reps // 2)),
-        library_ms=median_ms(lib, reps),
-        library="bf16 torch.matmul, * scale, torch.topk",
-        bytes=n * (d + 4) + b * d * 4 + 2 * t * rounds * b * 4,
-        flops=2 * b * n * d, peak=PEAK_BF16)
-    del c16, q16
-    for rec in out.values():
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            rec["bytes"], rec["flops"], rec.pop("peak"))
-    return out
+def hold_calls(K_, T_, calls, reps, where):
+    """``hold_call`` of each (name, args); one record per kernel name."""
+    return {name: hold_call(K_, T_, name, args, reps, where)
+            for name, args in calls}
 
 
 # ----------------------------------------------------------------- phases
@@ -545,33 +613,44 @@ def phase_kernels(K_, T_, dev):
                                          device=dev)])[:b_max]
     q_all = unit(corpus32[pick] + 0.5 * unit(torch.randn(
         b_max, DIM, generator=gen, device=dev)))
-    hot = sorted({s // TILE for s, _ in runs})
-    tiles = torch.tensor((hot + [t for t in range(N_KERNEL // TILE)
-                                 if t not in hot])[:32],
-                         dtype=torch.int32, device=dev)
+
+    def union(tile):
+        """32 tile ids, the tiles holding runs first."""
+        hot = sorted({s // tile for s, _ in runs})
+        return torch.tensor((hot + [t for t in range(N_KERNEL // tile)
+                                    if t not in hot])[:32],
+                            dtype=torch.int32, device=dev)
+
+    # (tile, batches): the search path's tile at every batch, and the
+    # reference benchmark's tile 4096 at its batch of 1024.
+    shapes = ((TILE, (1, 64, 1024)), (BENCH_TILE, (1024,)))
     for dtype in (torch.float32, torch.bfloat16):
         corpus = corpus32.to(dtype)
-        for b in (1, 64, 1024):
-            K_.reset_launch_counts()
-            recs = hold_kernels(K_, T_, q_all[:b], corpus, size, tiles, 16,
-                                reps=5, where=f"kernels {dtype} B={b}")
-            launches = K_.launch_counts()
-            for name, rec in recs.items():
-                emit({"phase": "kernels", "kernel": name,
-                      "dtype": str(dtype).removeprefix("torch."), "B": b,
-                      "N": N_KERNEL, "launches": launches[name], **rec})
+        for tile, batches in shapes:
+            for b in batches:
+                K_.reset_launch_counts()
+                recs = hold_calls(K_, T_, dense_calls(
+                    q_all[:b], corpus, size, tile, union(tile), 16,
+                    floor=dtype == torch.bfloat16), reps=5,
+                    where=f"kernels {dtype} B={b} tile={tile}")
+                launches = K_.launch_counts()
+                for name, rec in recs.items():
+                    emit({"phase": "kernels", "kernel": name,
+                          "dtype": str(dtype).removeprefix("torch."),
+                          "launches": launches[name], **rec})
         del corpus
     from optimized_rag_tpu_torch.ops.quantize import quantize_int8
     c8, cs = quantize_int8(corpus32)
-    for b in (1, 64, 1024):
-        K_.reset_launch_counts()
-        recs = hold_int8_kernels(K_, q_all[:b], c8, cs, size, tiles,
-                                 CC_SERVED, reps=5,
-                                 where=f"kernels int8 B={b}")
-        launches = K_.launch_counts()
-        for name, rec in recs.items():
-            emit({"phase": "kernels", "kernel": name, "dtype": "int8",
-                  "B": b, "N": N_KERNEL, "launches": launches[name], **rec})
+    for tile, batches in shapes:
+        for b in batches:
+            K_.reset_launch_counts()
+            recs = hold_calls(K_, T_, int8_calls(
+                q_all[:b], c8, cs, size, tile, union(tile), CC_SERVED,
+                scaled=True), reps=5, where=f"kernels int8 B={b} tile={tile}")
+            launches = K_.launch_counts()
+            for name, rec in recs.items():
+                emit({"phase": "kernels", "kernel": name, "dtype": "int8",
+                      "launches": launches[name], **rec})
     del corpus32, centers, q_all, c8, cs
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
@@ -797,8 +876,8 @@ def phase_slice_f32(K_, T_, dev, chunks, queries):
     # Each kernel against its twin at the search path's shapes.
     sel_tiles = torch.tensor(sorted({s // TILE for s, _ in runs})[:32],
                              dtype=torch.int32, device=dev)
-    recs = hold_kernels(K_, T_, qb, emb, index.size, sel_tiles, kk, reps=3,
-                        where="slice_f32")
+    recs = hold_calls(K_, T_, dense_calls(qb, emb, index.size, TILE,
+                                          sel_tiles, kk), 3, "slice_f32")
     emit({"phase": "slice_f32", "rows": index.size, "dim": DIM,
           "encoder": {"layers": cfg.num_layers, "hidden": cfg.hidden_dim,
                       "heads": cfg.num_heads, "vocab": cfg.vocab_size,
@@ -849,8 +928,8 @@ def phase_slice_bf16(K_, T_, dev, svc, index32, queries, sel_tiles):
     # query at a time, against the bf16-scan oracle.
     n_cert = counted(K_, paths, "certified_alone", lambda: certified_alone(
         T_, q, emb, index.size, 4 * K, torch.bfloat16))
-    recs = hold_kernels(K_, T_, q, emb, index.size, sel_tiles, 4 * K,
-                        reps=3, where="slice_bf16")
+    recs = hold_calls(K_, T_, dense_calls(q, emb, index.size, TILE,
+                                          sel_tiles, 4 * K), 3, "slice_bf16")
     emit({"phase": "slice_bf16", "rows": index.size,
           "gbytes": index.size * DIM * 2 / 1e9, "B": q.shape[0],
           "launches_by_path": paths, "certified_alone": n_cert,
@@ -1083,8 +1162,9 @@ def phase_slice_int8(K_, T_, dev, svc, chunks, queries):
 
     sel_tiles = torch.tensor(sorted({s // TILE for s, _ in runs})[:32],
                              dtype=torch.int32, device=dev)
-    recs = hold_int8_kernels(K_, q64, emb, scale, index.size, sel_tiles,
-                             CC_SERVED, reps=3, where="slice_int8")
+    recs = hold_calls(K_, T_, int8_calls(q64, emb, scale, index.size, TILE,
+                                         sel_tiles, CC_SERVED), 3,
+                      "slice_int8")
     emit({"phase": "slice_int8", "rows": index.size, "dim": DIM,
           "code_gbytes": index.size * DIM / 1e9,
           "scale_mbytes": index.size * 4 / 1e6, "runs": len(runs),
@@ -1100,6 +1180,279 @@ def phase_slice_int8(K_, T_, dev, svc, chunks, queries):
     return paths, recs
 
 
+@contextlib.contextmanager
+def with_twin_scan(T_, K_):
+    """ops/topk.py with K1 replaced by its plain twin, on the card: the
+    same pipeline without the scan kernel."""
+    kernel = T_.packed_extract
+    T_.packed_extract = lambda q, c, size, tile, groups=8, flag=None: \
+        K_.packed_extract_plain(K_._scan_queries(q, c), c, size, tile, groups)
+    try:
+        yield
+    finally:
+        T_.packed_extract = kernel
+
+
+@contextlib.contextmanager
+def recording(T_, K_, log):
+    """Each kernel wrapper that ops/topk.py calls (and ``K_.scan_floor``)
+    appends (name, args) to ``log`` and launches as before."""
+    saved = [(mod, name, getattr(mod, name)) for mod in (T_, K_)
+             for name in K_.KERNELS if name in vars(mod)]
+
+    def spy(name, fn):
+        def call(*args):
+            log.append((name, args))
+            return fn(*args)
+        return call
+    for mod, name, fn in saved:
+        setattr(mod, name, spy(name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.float16: "f16", torch.int8: "int8"}
+
+
+def call_shape(name, args):
+    """What a kernel's time depends on: (dtype, B, N, D, tile, m, U)."""
+    q, corpus, _, _, tile, m, tiles, _ = call_operands(name, args)
+    return (DTYPE_NAMES[corpus.dtype], q.shape[0], *corpus.shape, tile, m,
+            None if tiles is None else tiles.shape[0])
+
+
+def shape_label(name, rec):
+    """``B=.. tile=..`` and what m is: groups (scans), rounds over U tiles
+    (covers) or tile_k."""
+    m = ("" if name == "scan_floor"
+         else f" groups={rec['m']}" if name.startswith("packed")
+         else f" rounds={rec['m']} U={rec['U']}" if name.startswith("extract")
+         else f" tile_k={rec['m']}")
+    return f"B={rec['B']} tile={rec['tile']}{m}"
+
+
+def hold_recorded(K_, T_, log, reps, where):
+    """Hold one call of each distinct (kernel, shape) in ``log`` (path ->
+    the (name, args) its run recorded) against its twin; each record
+    carries how many launches of that shape every path made."""
+    shapes = {}
+    for path, calls in log.items():
+        for name, args in calls:
+            e = shapes.setdefault((name, *call_shape(name, args)),
+                                  {"args": args, "by_path": {}})
+            e["by_path"][path] = e["by_path"].get(path, 0) + 1
+    out = []
+    for key, e in shapes.items():
+        name, dtype, b, _, _, tile, m, _ = key
+        rec = hold_call(K_, T_, name, e.pop("args"), reps,
+                        f"{where} {name} B={b} tile={tile} m={m}",
+                        plain_reps=1)
+        rec["shape"] = shape_label(name, rec)
+        rec["fma_floor_ms"] = rec["flops"] / PEAK_F32 * 1e3
+        out.append({"name": name, "dtype": dtype, "launches_by_path":
+                    e["by_path"], **rec})
+    log.clear()
+    return out
+
+
+def phase_bench_shape(K_, T_, dev):
+    """The reference benchmark's retrieval path at its full shape
+    (bench.py:180-265 and :540-575): 10,485,760 x 128 bf16 rows (the
+    generator of benchmarks/common.py with 4,096 clusters, plus 300
+    near-duplicate runs), tile 4096, k 10, unit-normal queries from a seed
+    in batches of 1024 and 512. Every certified or verified answer with a
+    certificate of 0 equals its route's oracle, and every other is rerun
+    exactly and equals it too; ANN answers equal the same pipeline run with
+    the scan's twin on the card, except for queries with a boundary word.
+    Every kernel call the routes make is recorded; one call of each
+    distinct shape is held against its twin and timed. Returns the
+    launches of each path and those records, bf16 and int8 apart."""
+    from optimized_rag_tpu_torch.ops.quantize import quantize_int8
+    t0 = time.perf_counter()
+    n, d, tile, k = N_BENCH, DIM_BENCH, BENCH_TILE, K
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    centers = torch.randn(4096, d, generator=gen, device=dev) * 2.0
+    runs = plan_runs(random.Random(SEED + 2), n, 0, 300)
+    corpus = torch.empty((n, d), dtype=torch.bfloat16, device=dev)
+    block = 1 << 20
+    for lo in range(0, n, block):
+        hi = min(n, lo + block)
+        x = clustered_rows(hi - lo, gen, centers)
+        for start, length in runs:             # 32-aligned: inside a block
+            if lo <= start < hi:
+                x[start - lo:start - lo + length] = near_duplicates(
+                    x[start - lo], length, gen)
+        corpus[lo:hi] = x.to(torch.bfloat16)
+        del x
+    del centers
+    rng = np.random.default_rng(SEED)        # bench.py:195-203
+
+    def qbatch(b):
+        x = rng.standard_normal((b, d)).astype(np.float32)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        return torch.from_numpy(x).to(dev)
+    q_head, q_cmp = qbatch(B_HEAD), qbatch(B_CMP)
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t0
+    oracle = {B_HEAD: oracle_topk(q_head, corpus, n, k, torch.bfloat16),
+              B_CMP: oracle_topk(q_cmp, corpus, n, k, torch.bfloat16)}
+    paths, routes, log = {}, {}, {}
+
+    def run(name, fn):
+        """``fn()`` counted as path ``name``, its kernel calls recorded;
+        the recorded calls must be exactly the counted launches."""
+        calls = log.setdefault(name, [])
+        with recording(T_, K_, calls):
+            out = counted(K_, paths, name, fn)
+        seen = {m: sum(c == m for c, _ in calls) for m in K_.KERNELS}
+        if seen != paths[name]:
+            raise AssertionError(f"bench_shape {name}: recorded {seen}, "
+                                 f"counted {paths[name]}")
+        return out
+
+    def route(name, q, call, rerun, want, want_rerun=None, tol=TIE_TOL):
+        """``call()`` -> (scores, ids with the certificate row), counted as
+        path ``name`` together with the exact ``rerun()`` where the
+        certificate is not 0; the answer held against its oracle (``want``,
+        or ``want_rerun`` for a rerun answer); then ``call`` timed alone."""
+        def path():
+            s, packed = call()
+            uncovered = T_.certificate_uncovered(packed)
+            if uncovered:
+                s, ids = rerun()
+                return uncovered, s, ids
+            return uncovered, s, packed[:-1]
+        uncovered, s, ids = run(name, path)
+        o_s, o_i = want_rerun if uncovered and want_rerun else want
+        check_answers(f"bench_shape {name}", ids, s, o_i, o_s,
+                      tol=TIE_TOL if uncovered else tol)
+        ms = median_ms(call, 3)
+        routes[name] = {"B": q.shape[0], "uncovered": uncovered,
+                        "route": "fallback" if uncovered else "certified",
+                        "ms": ms, "qps": q.shape[0] / ms * 1e3}
+
+    # 1. Certified at tile 4096, groups 8 (K1 -> K4; K6 on a nonzero
+    # certificate), b1024, b512 and two sub-batches of 512.
+    for name, q, call in (
+            ("certified_b1024", q_head, lambda: T_.topk_certified(
+                q_head, corpus, k, tile=tile, groups=GROUPS)),
+            ("certified_b512", q_cmp, lambda: T_.topk_certified(
+                q_cmp, corpus, k, tile=tile, groups=GROUPS)),
+            ("certified_multi_2x512", q_head, lambda: T_.topk_certified_multi(
+                q_head, corpus, k, sub_batch=B_CMP, tile=tile,
+                groups=GROUPS))):
+        route(name, q, call, lambda q=q: T_.tiled_topk(q, corpus, k,
+                                                       tile=tile),
+              oracle[q.shape[0]])
+
+    # 2. ANN at oversample 32, b1024, against the same pipeline with the
+    # scan's twin; K1's words held as in the kernel phase.
+    ann = lambda: T_.topk_ann(q_head, corpus, k, tile=tile, groups=GROUPS,
+                              oversample=32)
+    a_s, a_i = run("ann_b1024", ann)
+    with with_twin_scan(T_, K_):
+        p_s, p_i = ann()
+    qs = K_._scan_queries(q_head, corpus)
+    w = K_.packed_extract(q_head, corpus, None, tile, GROUPS)
+    w_p = K_.packed_extract_plain(qs, corpus, None, tile, GROUPS)
+    faults, boundary = K_.packed_word_faults(qs, corpus, None, tile, w, w_p,
+                                             drift=TIE_TOL)
+    on_boundary = (w != w_p).any(dim=1).any(dim=0)          # [B]
+    del w, w_p
+    differ = (a_i != p_i).any(dim=1) | (a_s != p_s).any(dim=1)
+    if faults or bool((differ & ~on_boundary).any()):
+        raise AssertionError(
+            f"bench_shape ANN: {faults} faulty words; "
+            f"{int((differ & ~on_boundary).sum())} answers differ from the "
+            "twin pipeline's with no boundary word to explain them")
+    recall = float(np.mean([
+        len(set(a.tolist()) & set(o.tolist())) / k
+        for a, o in zip(a_i.cpu(), oracle[B_HEAD][1].cpu())]))
+    ms = median_ms(ann, 3)
+    routes["ann_b1024"] = {
+        "B": B_HEAD, "ms": ms, "qps": B_HEAD / ms * 1e3,
+        "recall_at_10_vs_exact": recall,
+        "answers_differing_from_twin_pipeline": int(differ.sum()),
+        "queries_with_boundary_words": int(on_boundary.sum()),
+        "boundary_words": boundary}
+
+    # 3. Verified: per-query rescan at tile 1024, batch union at tile 4096.
+    v_s, v_i = run("verified_b512", lambda: T_.topk_verified(
+        q_cmp, corpus, k, tile=1024, tile_k=2))
+    check_answers("bench_shape verified_b512", v_i, v_s, oracle[B_CMP][1],
+                  oracle[B_CMP][0])
+    ms = median_ms(lambda: T_.topk_verified(q_cmp, corpus, k, tile=1024,
+                                            tile_k=2), 3)
+    routes["verified_b512"] = {"B": B_CMP, "tile": 1024, "ms": ms,
+                               "qps": B_CMP / ms * 1e3}
+    route("verified_batch_b512", q_cmp,
+          lambda: T_.topk_verified_batch(q_cmp, corpus, k, tile=tile,
+                                         tile_k=2, union_tiles=32),
+          lambda: T_.tiled_topk(q_cmp, corpus, k, tile=tile), oracle[B_CMP])
+
+    # 5 (before the int8 copy). F over the bf16 rows at b1024: each tile's
+    # best score; the best of all equals the oracle's top score.
+    f = run("floor_b1024", lambda: K_.scan_floor(q_head, corpus, tile))
+    top_err = float((f.amax(dim=0)[0] - oracle[B_HEAD][0][:, 0]).abs().max())
+    if not top_err <= TIE_TOL:
+        raise AssertionError(f"bench_shape floor: {top_err:.3g} from the "
+                             "oracle's best score")
+    del f
+    bf16_paths = tuple(log)
+    require_launched(paths, bf16_paths, FLOAT_KERNELS + ("scan_floor",),
+                     "bench_shape bf16")
+    held16 = hold_recorded(K_, T_, log, 3, "bench_shape bf16")
+
+    # 4. The same rows as int8 codes, quantized on the card in blocks.
+    c8 = torch.empty((n, d), dtype=torch.int8, device=dev)
+    cs = torch.empty(n, device=dev)
+    for lo in range(0, n, block):
+        c8[lo:lo + block], cs[lo:lo + block] = quantize_int8(
+            corpus[lo:lo + block].float())
+    del corpus
+    torch.cuda.empty_cache()
+    q8, q8s = quantize_int8(q_head)
+    q8f, qb = q8.float(), q_head.to(torch.bfloat16).float()
+    native = running_topk(lambda lo, hi: ((q8f @ c8[lo:hi].float().T)
+                                          * cs[lo:hi]) * q8s[:, None],
+                          n, k, B_HEAD, dev)
+    scaled = running_topk(lambda lo, hi: (qb @ c8[lo:hi].float().T)
+                          * cs[lo:hi], n, k, B_HEAD, dev)
+    fallback = lambda: T_.tiled_topk(q_head, c8, k, tile=tile, row_scale=cs)
+    route("int8_native_b1024", q_head,
+          lambda: T_.topk_certified_multi(
+              q_head, c8, k, sub_batch=B_HEAD, tile=tile, groups=GROUPS,
+              union_tiles=64, pad_r=26, row_scale=cs, int8_native=True),
+          fallback, native, want_rerun=scaled, tol=0.0)
+    route("int8_scaled_b1024", q_head,
+          lambda: T_.topk_certified(q_head, c8, k, tile=tile, groups=GROUPS,
+                                    row_scale=cs, int8_native=False),
+          fallback, scaled)
+    del q8, q8f, qb, native, scaled, oracle
+    int8_paths = tuple(p for p in log)
+    require_launched(paths, int8_paths, (
+        "packed_extract_int8", "extract_int8", "packed_extract_scaled",
+        "extract_scaled"), "bench_shape int8")
+    held8 = hold_recorded(K_, T_, log, 3, "bench_shape int8")
+    del c8, cs
+    torch.cuda.empty_cache()
+
+    emit({"phase": "bench_shape", "rows": n, "dim": d, "tile": tile,
+          "k": k, "gbytes": n * d * 2 / 1e9,
+          "int8_gbytes": n * (d + 4) / 1e9, "runs": len(runs),
+          "routes": routes, "launches_by_path": paths,
+          "fill_seconds": t_fill, "seconds": time.perf_counter() - t0})
+    for rec in held16 + held8:
+        emit({"phase": "bench_shape", "kernel": rec["name"],
+              **{key: v for key, v in rec.items() if key != "name"}})
+    return ({p: paths[p] for p in bf16_paths}, held16,
+            {p: paths[p] for p in int8_paths}, held8)
+
+
 SOURCES = {"packed_extract": ("optimized_rag_tpu_torch/csrc/packed_extract.cu",
                               "optimized_rag_tpu/ops/topk.py:511"),
            "extract": ("optimized_rag_tpu_torch/csrc/extract.cu",
@@ -1112,7 +1465,30 @@ SOURCES = {"packed_extract": ("optimized_rag_tpu_torch/csrc/packed_extract.cu",
            "extract_int8": ("optimized_rag_tpu_torch/csrc/extract.cu",
                             "optimized_rag_tpu/ops/topk.py:1037"),
            "tile_topk_scaled": ("optimized_rag_tpu_torch/csrc/tile_topk.cu",
-                                "optimized_rag_tpu/ops/topk.py:178")}
+                                "optimized_rag_tpu/ops/topk.py:178"),
+           "packed_extract_scaled": (
+               "optimized_rag_tpu_torch/csrc/packed_extract.cu",
+               "optimized_rag_tpu/ops/topk.py:530"),
+           "extract_scaled": ("optimized_rag_tpu_torch/csrc/extract.cu",
+                              "optimized_rag_tpu/ops/topk.py:1021"),
+           # F ports F1 (replaces) and F2, benchmarks/sweep_r4c.py:157,
+           # the same function.
+           "scan_floor": ("optimized_rag_tpu_torch/csrc/floor.cu",
+                          "benchmarks/sweep_r4_kernel.py:128")}
+
+
+def kernel_entry(name, where, by_path, rec):
+    """One entry of the final ``kernels`` line."""
+    source, replaces = SOURCES[name]
+    entry = {"name": f"{name}[{where}]", "route": "cuda", "source": source,
+             "replaces": replaces, "launches": sum(by_path.values()),
+             "launches_by_path": by_path,
+             **{key: rec[key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")}}
+    if name == "scan_floor":
+        entry["also_replaces"] = "benchmarks/sweep_r4c.py:157"
+    return entry
 
 
 FLOAT_KERNELS = ("packed_extract", "extract", "tile_topk")
@@ -1146,32 +1522,38 @@ def main() -> None:
     del index32
     torch.cuda.empty_cache()
     paths8, recs8 = phase_slice_int8(K_, T_, dev, svc, chunks, queries)
+    del svc
+    torch.cuda.empty_cache()
+    bench16, held16, bench8, held8 = phase_bench_shape(K_, T_, dev)
     peak = torch.cuda.max_memory_allocated()
     emit({"phase": "done", "peak_device_gbytes": peak / 1e9,
           "seconds": time.perf_counter() - _T0})
     if peak > MAX_DEVICE_BYTES:
         raise AssertionError(f"peak device memory {peak / 1e9:.1f} GB "
                              f"> {MAX_DEVICE_BYTES / 1e9:.0f} GB")
-    # launches: the paths a user drives (QueryServer rounds and the small
-    # index for f32; DenseIndex.search at both sizes for bf16; QueryServer
-    # rounds, DenseIndex.search and the small index for int8), each also
-    # given alone; the direct calls of the checks are not counted.
+    # One entry per kernel and shape a user path gives it, its numbers
+    # measured at that shape and its launches counted on those paths alone:
+    # the served slices (QueryServer rounds and the small index for f32;
+    # DenseIndex.search at both sizes for bf16; QueryServer rounds,
+    # DenseIndex.search and the small index for int8), then every shape of
+    # bench_shape's routes. The direct calls of the checks are not counted.
     kernels = []
     for dtype, paths, user, recs in (
             ("f32", paths32, USER_PATHS_F32, recs32),
             ("bf16", paths16, USER_PATHS_BF16, recs16),
             ("int8", paths8, USER_PATHS_INT8, recs8)):
         for name, rec in recs.items():
-            source, replaces = SOURCES[name]
-            kernels.append({
-                "name": f"{name}[{dtype}]", "route": "cuda",
-                "source": source, "replaces": replaces,
-                "launches": sum(paths[p][name] for p in user),
-                "launches_by_path": {p: paths[p][name] for p in user},
-                "max_abs_err": rec["max_abs_err"],
-                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-                "library_ms": rec["library_ms"]})
+            kernels.append(kernel_entry(name, f"{dtype}", {
+                p: paths[p][name] for p in user}, rec))
+    for rec in held16 + held8:
+        kernels.append(kernel_entry(
+            rec["name"], f"{rec['dtype']} bench_shape {rec['shape']}",
+            rec["launches_by_path"], rec))
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    missing = set(K_.KERNELS) - {k["name"].split("[")[0] for k in kernels}
+    if idle or missing:
+        raise AssertionError(f"never launched on a user path: {idle}; no "
+                             f"entry: {sorted(missing)}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

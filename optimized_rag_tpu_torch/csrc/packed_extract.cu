@@ -1,26 +1,31 @@
-// K1 and K3: packed single-pass scan of the certified top-k.
+// K1, K2 and K3: packed single-pass scan of the certified top-k.
 //
 // K1 replaces the TPU kernel `_packed_extract_kernel` + `_pack_tile_scores`
 // (optimized_rag_tpu/ops/topk.py:511-527, 576-618, launched by
-// `_packed_pass`, :621-694); K3 replaces `_packed_extract_int8_kernel`
-// (:548-573), the same scan over an int8 corpus with an int8-native dot.
-// Per corpus tile of `tile` rows and per query: the score s (DenseOps for
-// K1, Int8Ops for K3; topk_common.cuh), shifted to max(s + 2, 0) (rows at
-// or after `size` become 0), the f32 bits with the low log2(tile) bits
-// replaced by the tile-local column, the max over each strided unit
-// {u, u + tile/G, ...}, and the two largest unit winners. A packed value is
-// a non-negative int, so int order is float order and every reduction is an
-// integer max.
+// `_packed_pass`, :621-694); K2 replaces `_packed_extract_scaled_kernel`
+// (:530-545), the scan of the scaled route (`int8_native=False`): the query
+// rounded to bf16 times the rows rounded to bf16, an f32 sum, x row scale;
+// K3 replaces `_packed_extract_int8_kernel` (:548-573), the same scan over
+// an int8 corpus with an int8-native dot. Per corpus tile of `tile` rows and
+// per query: the score s (DenseOps for K1, ScaledOps for K2, Int8Ops for
+// K3; topk_common.cuh), shifted to max(s + 2, 0) (rows at or after `size`
+// become 0), the f32 bits with the low log2(tile) bits replaced by the
+// tile-local column, the max over each strided unit {u, u + tile/G, ...},
+// and the two largest unit winners. A packed value is a non-negative int,
+// so int order is float order and every reduction is an integer max.
 //
-// Output: int32 [T, 2, B], the bits the reference returns as f32.
+// Output: int32 [T, 2, B], the bits the reference returns as f32; and
+// *flag = 1 when a live row scores outside (-2, 2) (the certified path's
+// precondition, which the reference leaves unchecked on the device).
 //
-// Design: one block per (tile, group of 64 queries). The block walks its
-// tile in chunks of 128 rows; each chunk's [64 x 128] scores come from
-// ScoreBlock (4x8 outputs a thread) and are packed in registers, then
-// folded into per-unit winners with shared-memory atomicMax (any tile/G
-// works; max is order-free, so the result is deterministic). One warp per
-// query then takes the top two units. The packing epilogue is the same
-// code for both scorers.
+// Design: one block per (tile, group of QB queries), QB = 64, or 16 where
+// 64 queries' unit winners [64, tile/G] would not fit in shared memory
+// (tile/G > 768). The block walks its tile in chunks of 128 rows; each
+// chunk's [QB x 128] scores come from ScoreBlock (QB/16 x 8 outputs a
+// thread) and are packed in registers, then folded into per-unit winners
+// with shared-memory atomicMax (any tile/G works; max is order-free, so the
+// result is deterministic). One warp per query then takes the top two
+// units. The packing epilogue is the same code for all three scorers.
 //
 // K1 bound at the f32 search path's shape (B=64, N=4,194,304, D=384, H100
 // SXM): 2*B*N*D = 206 GFLOP of f32 FMA on the CUDA cores (TF32 is a
@@ -28,6 +33,12 @@
 // 3.35 TB/s, 1.9 ms: operations bind. A bf16 corpus halves the bytes (1.0
 // ms), and its bf16 x bf16 products could run on the tensor cores, so bytes
 // bind there. This first kernel scores on the CUDA cores in both cases.
+//
+// K1 and K2 at the reference benchmark's shape (B=1024, N=10,485,760,
+// D=128, bf16 rows or int8 codes, tile 4096): 2.75 TFLOP, 2.78 ms on the
+// tensor cores at 989 TFLOP/s against 0.80 ms of bf16 bytes (0.41 ms of
+// codes and scales): operations bind. On the CUDA cores' f32 FMA, as both
+// score here, the same work cannot take less than 41 ms.
 //
 // K3 bound at the int8 search path's shape (B=64, N=16,777,216, D=384):
 // 6.44 GB of codes plus 67 MB of row scales at 3.35 TB/s is 1.9 ms, against
@@ -39,41 +50,52 @@
 
 namespace orag {
 
-constexpr int kPackQB = 64;
-template <typename Ops>
-using PackBlock = ScoreBlock<Ops, kPackQB, 4, 8>;
+template <typename Ops, int QB>
+using PackBlock = ScoreBlock<Ops, QB, QB / 16, 8>;
 
-template <typename Ops>
-__global__ void __launch_bounds__(kThreads)
+// MinBlocks blocks an SM (__launch_bounds__): 3 where three blocks' shared
+// memory fits an SM (tile 1024 at groups 8, 57 KB each), which caps ptxas
+// at 85 registers a thread (without the cap it takes 98-128 and K1 runs
+// slower); 1 where only one fits (tile 4096: about 155 KB), no cap.
+template <typename Ops, int QB, int MinBlocks>
+__global__ void __launch_bounds__(kThreads, MinBlocks)
     packed_extract_kernel(const Ops ops, const int* __restrict__ size_ptr,
-                          int* __restrict__ out, int B, int Dw, int tile,
-                          int groups) {
-  using Block = PackBlock<Ops>;
+                          int* __restrict__ out, int* __restrict__ flag,
+                          int B, int Dw, int tile, int groups) {
+  using Block = PackBlock<Ops, QB>;
+  constexpr int TQ = QB / 16;
   extern __shared__ float smem[];
   const int small = tile / groups;
   int* gw = reinterpret_cast<int*>(smem + Block::kStageFloats);  // [QB][small]
-  const int t = blockIdx.x, qbase = blockIdx.y * kPackQB;
+  const int t = blockIdx.x, qbase = blockIdx.y * QB;
   const int size = *size_ptr;
   const long long base = (long long)t * tile;
-  for (int i = threadIdx.x; i < kPackQB * small; i += kThreads) gw[i] = 0;
+  for (int i = threadIdx.x; i < QB * small; i += kThreads) gw[i] = 0;
   const int tq = threadIdx.x / Block::NR, tr = threadIdx.x % Block::NR;
+  bool bad = false;
   for (int r0 = 0; r0 < tile; r0 += kRows) {
-    float acc[4][8];
+    float acc[TQ][8];
     Block::run(ops, B, Dw, qbase, base + r0, smem, acc);  // syncs first
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < TQ; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = r0 + tr + j * Block::NR;
-        float sh = fmaxf(acc[i][j] + 2.0f, 0.0f);
-        if (base + col >= size) sh = 0.0f;
+        const float s = acc[i][j];  // 0 for queries at or after B
+        float sh = fmaxf(s + 2.0f, 0.0f);
+        if (base + col >= size) {
+          sh = 0.0f;
+        } else if (s <= -2.0f || s >= 2.0f) {
+          bad = true;
+        }
         const int packed = (__float_as_int(sh) & ~(tile - 1)) | col;
-        atomicMax(&gw[(tq * 4 + i) * small + col % small], packed);
+        atomicMax(&gw[(tq * TQ + i) * small + col % small], packed);
       }
   }
+  if (bad) *flag = 1;
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int qi = warp; qi < kPackQB; qi += kThreads / 32) {
+  for (int qi = warp; qi < QB; qi += kThreads / 32) {
     const int b = qbase + qi;
     if (b >= B) break;
     const int* row = gw + qi * small;
@@ -95,47 +117,93 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename Ops>
-static int launch(const Ops& ops, const int* size, int* out, int B, int N,
-                  int Dw, int tile, int groups, cudaStream_t stream) {
-  const size_t smem = (PackBlock<Ops>::kStageFloats +
-                       (size_t)kPackQB * (tile / groups)) * sizeof(float);
+template <typename Ops, int QB>
+static size_t packed_smem_bytes(int tile, int groups) {
+  return (PackBlock<Ops, QB>::kStageFloats +
+          (size_t)QB * (tile / groups)) * sizeof(float);
+}
+
+template <typename Ops, int QB, int MinBlocks>
+static int launch_blocks(const Ops& ops, const int* size, int* out,
+                         int* flag, int B, int N, int Dw, int tile,
+                         int groups, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      packed_extract_kernel<Ops>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      packed_extract_kernel<Ops, QB, MinBlocks>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N / tile, (B + kPackQB - 1) / kPackQB);
-  packed_extract_kernel<Ops><<<grid, kThreads, smem, stream>>>(
-      ops, size, out, B, Dw, tile, groups);
+  const dim3 grid(N / tile, (B + QB - 1) / QB);
+  packed_extract_kernel<Ops, QB, MinBlocks><<<grid, kThreads, smem, stream>>>(
+      ops, size, out, flag, B, Dw, tile, groups);
   return (int)cudaGetLastError();
+}
+
+// Building with -DORAG_PACKED_MIN_BLOCKS=1 or =3 forces one register
+// policy at every tile, so that the two can be timed against each other
+// (benchmarks_torch/packed_min_blocks.py).
+template <typename Ops, int QB>
+static int launch_qb(const Ops& ops, const int* size, int* out, int* flag,
+                     int B, int N, int Dw, int tile, int groups,
+                     cudaStream_t stream) {
+  const size_t smem = packed_smem_bytes<Ops, QB>(tile, groups);
+#ifdef ORAG_PACKED_MIN_BLOCKS
+  const bool three = ORAG_PACKED_MIN_BLOCKS == 3;
+#else
+  const bool three = 3 * (smem + kSmemReserved) <= (size_t)kSmemPerSM;
+#endif
+  return three ? launch_blocks<Ops, QB, 3>(ops, size, out, flag, B, N, Dw,
+                                           tile, groups, smem, stream)
+               : launch_blocks<Ops, QB, 1>(ops, size, out, flag, B, N, Dw,
+                                           tile, groups, smem, stream);
+}
+
+template <typename Ops>
+static int launch(const Ops& ops, const int* size, int* out, int* flag,
+                  int B, int N, int D, int tile, int groups,
+                  cudaStream_t stream) {
+  const int Dw = row_words<Ops>(D);
+  if (packed_smem_bytes<Ops, 64>(tile, groups) <= (size_t)kMaxSmem)
+    return launch_qb<Ops, 64>(ops, size, out, flag, B, N, Dw, tile, groups,
+                              stream);
+  return launch_qb<Ops, 16>(ops, size, out, flag, B, N, Dw, tile, groups,
+                            stream);
 }
 
 }  // namespace orag
 
+// K1. qT: [D, B] f32 queries already rounded to the corpus dtype; corpus:
+// [N, D] f32, bf16 or f16 (dtype code, topk_common.cuh); flag: int32 [1].
 extern "C" int orag_packed_extract(const float* qT, const void* corpus,
-                                   int corpus_bf16, const int* size, int* out,
-                                   int B, int N, int D, int tile, int groups,
-                                   void* stream) {
+                                   int dtype, const int* size, int* out,
+                                   int* flag, int B, int N, int D, int tile,
+                                   int groups, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (corpus_bf16)
-    return orag::launch(
-        orag::DenseOps<__nv_bfloat16>{
-            qT, static_cast<const __nv_bfloat16*>(corpus)},
-        size, out, B, N, D, tile, groups, s);
-  return orag::launch(
-      orag::DenseOps<float>{qT, static_cast<const float*>(corpus)}, size,
-      out, B, N, D, tile, groups, s);
+  return orag::with_dense_ops(qT, corpus, dtype, D, [&](auto ops) {
+    return orag::launch(ops, size, out, flag, B, N, D, tile, groups, s);
+  });
 }
 
-// K3. qwT: [D/4, B] int32 words of 4 query codes; qs: [B] query scales;
-// corpus: [N, D] int8 codes (4-byte aligned); cs: [N] row scales.
+// K2. qT: [D, B] f32 queries already rounded to bf16; corpus: [N, D] int8
+// codes or f32/bf16/f16 rows (dtype code); cs: [N] row scales.
+extern "C" int orag_packed_extract_scaled(const float* qT, const void* corpus,
+                                          int dtype, const float* cs,
+                                          const int* size, int* out,
+                                          int* flag, int B, int N, int D,
+                                          int tile, int groups,
+                                          void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return orag::with_scaled_ops(qT, corpus, dtype, cs, D, [&](auto ops) {
+    return orag::launch(ops, size, out, flag, B, N, D, tile, groups, s);
+  });
+}
+
+// K3. qwT: [ceil(D/4), B] int32 words of 4 query codes (zero codes past
+// D); qs: [B] query scales; corpus: [N, D] int8 codes; cs: [N] row scales.
 extern "C" int orag_packed_extract_int8(const int* qwT, const float* qs,
                                         const void* corpus, const float* cs,
-                                        const int* size, int* out, int B,
-                                        int N, int D, int tile, int groups,
-                                        void* stream) {
-  if (!orag::int8_width_ok(D)) return (int)cudaErrorInvalidValue;
-  return orag::launch(
-      orag::Int8Ops{qwT, qs, static_cast<const int*>(corpus), cs}, size, out,
-      B, N, D / 4, tile, groups, static_cast<cudaStream_t>(stream));
+                                        const int* size, int* out, int* flag,
+                                        int B, int N, int D, int tile,
+                                        int groups, void* stream) {
+  return orag::launch(orag::int8_ops(qwT, qs, corpus, cs, D), size, out,
+                      flag, B, N, D, tile, groups,
+                      static_cast<cudaStream_t>(stream));
 }

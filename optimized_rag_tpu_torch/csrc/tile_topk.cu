@@ -1,19 +1,21 @@
 // K6 and K7: per-tile top-k of the exact tiled search (the certified path's
-// fallback, and the whole search below 64*k tiles).
+// fallback, the whole search below 64*k tiles, and the first pass of the
+// verified searches at tile_k=2).
 //
 // K6 replaces the TPU kernel `_tile_topk_kernel` + `_extract_tile_winners`
 // (optimized_rag_tpu/ops/topk.py:142-175, launched by `_tile_pass`,
 // :205-263); K7 replaces `_tile_topk_scaled_kernel` (:178-195), the same
-// search over an int8 corpus: the query rounded to bf16 times the int8 code
-// (exact in f32), an f32 sum, then x row scale (ScaledOps). For every corpus
-// tile and query: the top `tile_k` rows by repeated max / argmax (lowest
-// column on ties) / mask, rows at or after `size` scoring -1e30. The
-// [B, T*tile_k] merge stays in PyTorch.
+// search scored as K2: the query rounded to bf16 times the rows rounded to
+// bf16 (int8 codes are exact), an f32 sum, then x row scale (ScaledOps).
+// For every corpus tile and query: the top `tile_k` rows by repeated max /
+// argmax (lowest column on ties) / mask, rows at or after `size` scoring
+// -1e30. The [B, T*tile_k] merge stays in PyTorch.
 //
 // Output: s f32 [T, tile_k, B] and i int32 [T, tile_k, B], global row ids.
 //
-// Design: K4's block (extract_tile in topk_common.cuh) with the tile id
-// taken from blockIdx.x instead of a list.
+// Design: K4's block (extract_tile in topk_common.cuh, QB queries a block
+// as the tile allows) with the tile id taken from blockIdx.x instead of a
+// list.
 //
 // K6 bound at the fallback's shape (B=64, N=4,194,304, D=384, f32, H100
 // SXM): 206 GFLOP of f32 FMA at 67 TFLOP/s, 3.1 ms, against 6.4 GB at 3.35
@@ -28,58 +30,62 @@
 
 namespace orag {
 
-template <typename Ops>
+template <typename Ops, int QB>
 __global__ void __launch_bounds__(kThreads)
     tile_topk_kernel(const Ops ops, const int* __restrict__ size_ptr,
                      float* __restrict__ s, int* __restrict__ idx, int B,
                      int Dw, int tile, int tile_k) {
   const int t = blockIdx.x;
-  extract_tile(ops, *size_ptr, B, Dw, tile, t, t, tile_k, t * tile, s, idx);
+  extract_tile<Ops, QB>(ops, *size_ptr, B, Dw, tile, t, t, tile_k, t * tile,
+                        s, idx);
 }
 
 template <typename Ops>
 static int launch(const Ops& ops, const int* size, float* s, int* idx, int B,
-                  int N, int Dw, int tile, int tile_k, cudaStream_t stream) {
-  const size_t smem = extract_smem_bytes<Ops>(tile);
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_topk_kernel<Ops>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N / tile, (B + kExtractQB - 1) / kExtractQB);
-  tile_topk_kernel<Ops><<<grid, kThreads, smem, stream>>>(
-      ops, size, s, idx, B, Dw, tile, tile_k);
-  return (int)cudaGetLastError();
+                  int N, int D, int tile, int tile_k, cudaStream_t stream) {
+  const int Dw = row_words<Ops>(D);
+  return with_extract_qb(tile, [&](auto qb) {
+    constexpr int QB = decltype(qb)::value;
+    const size_t smem = extract_smem_bytes<QB>(tile);
+    cudaError_t err = cudaFuncSetAttribute(
+        tile_topk_kernel<Ops, QB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(N / tile, (B + QB - 1) / QB);
+    tile_topk_kernel<Ops, QB><<<grid, kThreads, smem, stream>>>(
+        ops, size, s, idx, B, Dw, tile, tile_k);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace orag
 
-extern "C" int orag_tile_topk(const float* qT, const void* corpus,
-                              int corpus_bf16, const int* size, float* s,
-                              int* idx, int B, int N, int D, int tile,
-                              int tile_k, void* stream) {
+// K6. qT: [D, B] f32 queries already rounded to the corpus dtype; corpus:
+// [N, D] f32, bf16 or f16 (dtype code, topk_common.cuh).
+extern "C" int orag_tile_topk(const float* qT, const void* corpus, int dtype,
+                              const int* size, float* s, int* idx, int B,
+                              int N, int D, int tile, int tile_k,
+                              void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (corpus_bf16)
-    return orag::launch(
-        orag::DenseOps<__nv_bfloat16>{
-            qT, static_cast<const __nv_bfloat16*>(corpus)},
-        size, s, idx, B, N, D, tile, tile_k, st);
-  return orag::launch(
-      orag::DenseOps<float>{qT, static_cast<const float*>(corpus)}, size, s,
-      idx, B, N, D, tile, tile_k, st);
+  return orag::with_dense_ops(qT, corpus, dtype, D, [&](auto ops) {
+    return orag::launch(ops, size, s, idx, B, N, D, tile, tile_k, st);
+  });
 }
 
 // K7. qT: [D, B] f32 queries already rounded to bf16; corpus: [N, D] int8
-// codes; cs: [N] row scales.
+// codes or f32/bf16/f16 rows (dtype code); cs: [N] row scales.
 extern "C" int orag_tile_topk_scaled(const float* qT, const void* corpus,
-                                     const float* cs, const int* size,
-                                     float* s, int* idx, int B, int N, int D,
-                                     int tile, int tile_k, void* stream) {
-  return orag::launch(
-      orag::ScaledOps{qT, static_cast<const int8_t*>(corpus), cs}, size, s,
-      idx, B, N, D, tile, tile_k, static_cast<cudaStream_t>(stream));
+                                     int dtype, const float* cs,
+                                     const int* size, float* s, int* idx,
+                                     int B, int N, int D, int tile,
+                                     int tile_k, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return orag::with_scaled_ops(qT, corpus, dtype, cs, D, [&](auto ops) {
+    return orag::launch(ops, size, s, idx, B, N, D, tile, tile_k, st);
+  });
 }
 
-// Error text for the codes the entry points above return.
+// Error text for the codes the entry points return.
 extern "C" const char* orag_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

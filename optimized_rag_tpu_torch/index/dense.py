@@ -5,14 +5,16 @@ blocks and ``size`` masks the tail; deletes are tombstones (zeroed rows,
 oversampled past and filtered); vectors are L2-normalised at add time so
 cosine is a dot product and search is one top-k dispatch (ops/topk.py).
 
-Storage is float32, bfloat16 or int8 on the index's device. bfloat16 scans
-a 4x oversampled candidate set and rescores it in float32. int8 stores
+Storage is float32, bfloat16, float16 or int8 on the index's device.
+bfloat16 scans a 4x oversampled candidate set and rescores it in float32;
+float16 scans for k directly, as the reference does. int8 stores
 per-row quantized codes with a float32 scale per row (ops/quantize.py: 4x
 the rows of float32 in the same bytes); its search scans the codes (the
 int8-native certified path, or K7), 4x oversampled, and rescores the
 dequantized candidates in float32. ``state_dict`` is interchangeable with
-the JAX package's: bfloat16 rows are exported as float32 numpy (exact),
-since numpy has no bfloat16; int8 rows as int8 codes plus ``scale``.
+the JAX package's: bfloat16 and float16 rows are exported as float32
+numpy (exact; numpy has no bfloat16), int8 rows as int8 codes plus
+``scale``.
 """
 
 from __future__ import annotations
@@ -27,10 +29,11 @@ from optimized_rag_tpu_torch.ops.quantize import (
     dequantize_int8, quantize_int8)
 from optimized_rag_tpu_torch.ops.similarity import normalize
 from optimized_rag_tpu_torch.ops.topk import (
-    chunked_topk, dispatch_topk, rescore_topk, tiled_topk)
+    certificate_uncovered, chunked_topk, dispatch_topk, rescore_topk,
+    tiled_topk)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "int8": torch.int8}
+           "float16": torch.float16, "int8": torch.int8}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -172,13 +175,14 @@ class DenseIndex:
         """Resolve a deferred certificate: ``ids`` fetched as numpy.
 
         The certified path appends an uncovered-count row (ids [B+1, kk]);
-        a nonzero count (cover overflow) reruns the exact tiled search.
+        a nonzero count (cover overflow) reruns the exact tiled search. A
+        count of -1 (a score outside (-2, 2)) raises ``ValueError``.
         Returns (scores, ids, route).
         """
         b = q.shape[0]
         if ids.shape[0] == b:                 # one-pass path
             return scores.cpu().numpy(), ids, "direct"
-        if int(ids[-1, 0]) == 0:              # certified exact
+        if certificate_uncovered(ids) == 0:   # certified exact
             return scores.cpu().numpy(), ids[:-1], "certified"
         s2, i2 = tiled_topk(q, self._emb, kk, size=self.size, tile=self.tile,
                             row_scale=self._scale)

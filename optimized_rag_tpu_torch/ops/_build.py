@@ -36,23 +36,32 @@ build_info: dict = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # qT, corpus, corpus_bf16, size, out, B, N, D, tile, groups, stream
-    "orag_packed_extract": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
-    # qT, corpus, corpus_bf16, size, tiles, U, val, col, B, N, D, tile,
-    # rounds, stream
+    # qT, corpus, dtype, size, out, flag, B, N, D, tile, groups, stream
+    "orag_packed_extract": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qT, corpus, dtype, cs, size, out, flag, B, N, D, tile, groups, stream
+    "orag_packed_extract_scaled": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _P],
+    # qwT, qs, corpus, cs, size, out, flag, B, N, D, tile, groups, stream
+    "orag_packed_extract_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _P],
+    # qT, corpus, dtype, size, tiles, U, val, col, B, N, D, tile, rounds,
+    # stream
     "orag_extract": [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
-    # qT, corpus, corpus_bf16, size, s, idx, B, N, D, tile, tile_k, stream
-    "orag_tile_topk": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # qwT, qs, corpus, cs, size, out, B, N, D, tile, groups, stream
-    "orag_packed_extract_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _P],
+    # qT, corpus, dtype, cs, size, tiles, U, val, col, B, N, D, tile,
+    # rounds, stream
+    "orag_extract_scaled": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                            _I, _I, _P],
     # qwT, qs, corpus, cs, size, tiles, U, val, col, B, N, D, tile, rounds,
     # stream
     "orag_extract_int8": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                           _I, _P],
-    # qT, corpus, cs, size, s, idx, B, N, D, tile, tile_k, stream
-    "orag_tile_topk_scaled": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _P],
+    # qT, corpus, dtype, size, s, idx, B, N, D, tile, tile_k, stream
+    "orag_tile_topk": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qT, corpus, dtype, cs, size, s, idx, B, N, D, tile, tile_k, stream
+    "orag_tile_topk_scaled": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _P],
+    # qT, corpus, dtype, out, B, N, D, tile, stream
+    "orag_scan_floor": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,30 +1,38 @@
-"""Dense top-k retrieval: exact scans, the tiled kernel search and the
-certified packed search.
+"""Dense top-k retrieval: exact scans, the tiled kernel search, the
+verified searches, and the certified packed search with its ANN variant.
 
-Held against ``optimized_rag_tpu/ops/topk.py`` (:38-135, :198-309,
-:697-756, :759-989, :1214-1340). Every function returns
-``(scores [B, k] f32, ids [B, k])``; the certified ones append the
+Held against ``optimized_rag_tpu/ops/topk.py`` (:38-135, :198-475,
+:697-989, :1144-1340). Every function returns ``(scores [B, k] f32,
+ids [B, k])``; the certified ones and ``topk_verified_batch`` append the
 certificate row to ids. Ties go to the lower index everywhere, as
 ``lax.top_k`` and ``jnp.argmax`` give them: ``torch.topk`` promises no tie
 order, so every selection here is a stable descending sort over candidates
 in row order (``_topk_rows`` puts them in row order where they come in
-another). The JAX certified path and ``rescore_topk`` order exact ties by
-candidate rank instead; here they take the lower row, as every other path
-does.
+another). The JAX certified, verified and ANN paths and ``rescore_topk``
+order exact ties by candidate rank instead; here they take the lower row,
+as every other path does.
 
 All float32 products run in full float32 (``device.configure_numerics``
 turns TF32 off): the certificate's two-step cushion (``_unpack_ub``) allows
 for reduction-order drift between the scan and the covers, not for TF32.
 
-int8 corpora (``row_scale`` [N], ops/quantize.py): the plain scans and
-``rescore_topk`` dequantize; ``tiled_topk`` runs K7 (bf16 query x codes,
-x row scale); ``topk_certified`` quantizes the queries and runs the
-int8-native K3 scan and K5b cover, whose scores
-``(float(i32) * row_scale) * q_scale`` its c1 rescore repeats bit for bit.
+Corpora with a ``row_scale`` [N] (ops/quantize.py): the plain scans and
+``rescore_topk`` dequantize; ``tiled_topk`` runs K7 (bf16 query x rows
+rounded to bf16, x row scale). ``topk_certified`` on an int8 corpus runs
+int8-native (``int8_native=True``): the queries are quantized, K3 scans
+and K5b covers, and the scores ``(float(i32) * row_scale) * q_scale``,
+exact at any width, are what its c1 rescore repeats bit for bit. With
+``int8_native=False``, or a ``row_scale`` on a float corpus, it runs the
+scaled route: K2 scans and K5a covers, scoring bf16(q) x bf16(row) in f32
+times the row scale, which c1 rescores.
 
-Not ported yet: the bf16-operand scaled certified route
-(``int8_native=False``, kernels K2 and K5a), the verified and ANN variants,
-and ``tile_k``-approximate extraction beyond ``dispatch_topk``'s
+The certified path needs every score in (-2, 2). On the CPU the kernels'
+twins raise ``ValueError``; on the card K1/K2/K3 set a flag that turns the
+certificate to -1, and ``certificate_uncovered`` (where every caller reads
+the certificate) raises the same error. ``topk_ann`` has no certificate: it
+reads the flag itself, one device-to-host copy a call.
+
+Not ported: ``tile_k``-approximate extraction beyond ``dispatch_topk``'s
 ``approx_tile_k`` opt-in.
 """
 
@@ -34,8 +42,9 @@ import torch
 
 from optimized_rag_tpu_torch.ops.quantize import quantize_int8
 from optimized_rag_tpu_torch.ops.topk_kernels import (
-    NEG_INF, extract, extract_int8, packed_extract, packed_extract_int8,
-    tile_topk, tile_topk_scaled)
+    _EXACT_CODES, NEG_INF, RANGE_ERROR, extract, extract_int8,
+    extract_scaled, new_flag, packed_extract, packed_extract_int8,
+    packed_extract_scaled, scaled_rows_dtype, tile_topk, tile_topk_scaled)
 
 
 def _topk(x: torch.Tensor, k: int):
@@ -108,8 +117,8 @@ def tiled_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                size=None, tile: int = 1024, tile_k: int | None = None,
                row_scale=None):
     """Exact two-stage top-k: per-tile top-``tile_k`` (kernel K6, or K7
-    for an int8 corpus with ``row_scale``) then a merge. Ports
-    ``pallas_topk``. ``tile_k < k`` is approximate."""
+    with ``row_scale``) then a merge. Ports ``pallas_topk``.
+    ``tile_k < k`` is approximate."""
     n = corpus.shape[0]
     assert k <= tile
     tile_k = min(tile_k or k, k)
@@ -126,7 +135,8 @@ def _exact_rowwise_scores(queries: torch.Tensor, gathered: torch.Tensor,
                           dtype: torch.dtype) -> torch.Tensor:
     """Per-query scores against per-query gathered rows [B, M, D] -> [B, M],
     scoring the kernels' function: queries cast to ``dtype``, both operands
-    widened to float32 (bf16 values are exact in f32), f32 products."""
+    widened to float32 (bf16 and f16 values are exact in f32), f32
+    products."""
     q = queries.to(dtype).float()
     return torch.bmm(gathered.float(), q[:, :, None])[:, :, 0]
 
@@ -135,11 +145,28 @@ def _exact_rowwise_scores_int8(q8: torch.Tensor, gathered: torch.Tensor,
                                 row_scale: torch.Tensor,
                                 q_scale: torch.Tensor) -> torch.Tensor:
     """The int8-native score of per-query gathered rows [B, M, D] -> [B, M]:
-    the code dot as a float32 product of the codes (exact: every partial
-    sum is an integer below 2**24 for D <= 1040), then the kernels'
-    multiply order, ``(raw * row_scale) * q_scale``."""
-    raw = torch.bmm(gathered.float(), q8.float()[:, :, None])[:, :, 0]
-    return (raw * row_scale) * q_scale[:, None]
+    the exact int32 code dot (float32 products of at most 1040 codes, each
+    an exact integer, added in int32), then the kernels' multiply order,
+    ``(float(i32) * row_scale) * q_scale``."""
+    raw = None
+    for lo in range(0, q8.shape[1], _EXACT_CODES):
+        hi = lo + _EXACT_CODES
+        part = torch.bmm(gathered[..., lo:hi].float(),
+                         q8[:, lo:hi].float()[:, :, None])[:, :, 0]
+        raw = (part.to(torch.int32) if raw is None
+               else raw + part.to(torch.int32))
+    return (raw.float() * row_scale) * q_scale[:, None]
+
+
+def _exact_rowwise_scores_scaled(queries: torch.Tensor,
+                                 gathered: torch.Tensor,
+                                 row_scale: torch.Tensor) -> torch.Tensor:
+    """The scaled route's score of gathered rows [B, M, D] -> [B, M]: the
+    queries and rows rounded to bf16, f32 products, then ``* row_scale``
+    [B, M] (K2, K5a and K7's function)."""
+    rows_dtype = scaled_rows_dtype(gathered)
+    rows = gathered if rows_dtype is None else gathered.to(rows_dtype)
+    return _exact_rowwise_scores(queries, rows, torch.bfloat16) * row_scale
 
 
 def _unpack_lb(vals: torch.Tensor, tile: int) -> torch.Tensor:
@@ -153,28 +180,31 @@ def _unpack_ub(vals: torch.Tensor, tile: int) -> torch.Tensor:
     return ((vals & -tile) + 2 * tile).view(torch.float32) - 2.0
 
 
-def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
-                   size=None, tile: int = 4096, groups: int = 8,
-                   union_tiles: int = 32, pad_r: int | None = None,
-                   row_scale=None, int8_native: bool = True):
-    """EXACT top-k by the packed scan (K1) plus three certified covers.
-    Ports ``pallas_topk_certified``.
+def _certificate_row(uncovered, flag: torch.Tensor, k: int) -> torch.Tensor:
+    """The certificate row [1, k]: ``uncovered`` in its first slot, or -1
+    when the range flag is set (a live score outside (-2, 2))."""
+    row = torch.zeros((1, k), dtype=torch.long, device=flag.device)
+    row[0, 0] = torch.where(flag[0] > 0, -1, uncovered)
+    return row
 
-    queries [B, D] normalised (scores in (-2, 2)); corpus [N, D] with
-    N % tile == 0 and 2*(N/tile) > k. Returns (scores [B, k] f32,
-    ids [B+1, k] int64) with ids[B, 0] the uncovered count: 0 means exact
-    for the corpus-dtype scoring; otherwise rerun with ``tiled_topk``.
 
-    c1 rescored exactly the top-R candidates with their full strided units;
-    c2 takes the exact per-tile top-k (K4) of the union of tiles whose
-    second unit may beat tau; c3 checks the best excluded candidate.
+def _duplicates(rows: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """[B, M] bool: ok entries whose row already appears at an earlier ok
+    entry of the same query (every copy scores alike: one is kept)."""
+    m = rows.shape[1]
+    key = torch.where(ok, rows, -2 - torch.arange(m, device=rows.device))
+    srt, order = torch.sort(key, dim=1, stable=True)
+    dup_sorted = torch.zeros_like(ok)
+    dup_sorted[:, 1:] = srt[:, 1:] == srt[:, :-1]
+    return torch.zeros_like(ok).scatter(1, order, dup_sorted)
 
-    An int8 corpus with ``row_scale`` [N] runs int8-native: the queries are
-    quantized on their device (ops/quantize.py), K3 scans and K5b covers,
-    and every score is ``(float(i32) * row_scale) * q_scale``, so the
-    certificate means exact for that scoring. ``int8_native=False`` (the
-    bf16-operand scaled kernels K2 and K5a) is not ported yet.
-    """
+
+def _packed_search(queries, corpus, k, size, tile, groups, union_tiles,
+                   pad_r, row_scale, int8_native, covers):
+    """``pallas_topk_certified`` with its ``covers`` switch: the packed
+    scan, c1's unit-expanded exact rescore and, with ``covers``, the c2/c3
+    covers and the certificate row; without, the ANN answer (c1 alone,
+    with +-4 column windows). Returns (scores, ids, range flag)."""
     n, d = corpus.shape
     b = queries.shape[0]
     dev = corpus.device
@@ -182,20 +212,19 @@ def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     num_tiles = n // tile
     assert 2 * num_tiles > k, (num_tiles, k)
     size_ = n if size is None else size
-    native = row_scale is not None
-    if native:
-        if corpus.dtype != torch.int8 or not int8_native:
-            raise NotImplementedError(
-                "the scaled certified scan (kernels K2 and K5a: bf16 "
-                "operands times row_scale) is not ported yet; use an int8 "
-                "corpus with int8_native=True")
-        # Float32 products of the codes are exact only below 2**24.
-        assert d * 127 * 127 < 1 << 24, d
+    mode = ("dense" if row_scale is None
+            else "native" if corpus.dtype == torch.int8 and int8_native
+            else "scaled")
+    flag = new_flag(dev)
+    if mode == "native":
         q8, q_scale = quantize_int8(queries)
         w_val = packed_extract_int8(q8, q_scale, corpus, row_scale, size,
-                                    tile, groups)                # [T, 2, B]
+                                    tile, groups, flag)          # [T, 2, B]
+    elif mode == "scaled":
+        w_val = packed_extract_scaled(queries, corpus, row_scale, size, tile,
+                                      groups, flag)
     else:
-        w_val = packed_extract(queries, corpus, size, tile, groups)
+        w_val = packed_extract(queries, corpus, size, tile, groups, flag)
 
     vals = w_val.permute(2, 0, 1).reshape(b, 2 * num_tiles)
     cand_tile = torch.arange(2 * num_tiles, device=dev) // 2
@@ -216,24 +245,38 @@ def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     dup = ((ukey[:, :, None] == ukey[:, None, :])
            & (ridx[None, :, None] > ridx[None, None, :])).any(dim=2)
     valid_cand = (vtop[:, :r_cnt] > 0) & ~dup
-    flat = members.reshape(b, r_cnt * groups)
+    if not covers:
+        # ANN: each candidate's +-4 column window rides the rescore too, so
+        # contiguous same-document runs inside one tile surface; windows
+        # overlap, so duplicate rows are dropped.
+        offs = torch.cat([torch.arange(-4, 0, device=dev),
+                          torch.arange(1, 5, device=dev)])
+        win = (r_rows[:, :, None] + offs[None, None, :]).clamp(0, n - 1)
+        members = torch.cat([members, win], dim=2)
+    flat = members.reshape(b, -1)
     okf = (valid_cand[:, :, None] & (members < size_)).reshape(b, -1)
+    if not covers:
+        okf = okf & ~_duplicates(flat, okf)
     safe = flat.clamp_min(0)
     gathered = corpus[safe]                                       # [B, M, D]
-    if native:
+    if mode == "native":
         sc = _exact_rowwise_scores_int8(q8, gathered, row_scale[safe],
                                         q_scale)
+    elif mode == "scaled":
+        sc = _exact_rowwise_scores_scaled(queries, gathered, row_scale[safe])
     else:
         sc = _exact_rowwise_scores(queries, gathered, corpus.dtype)
     sc = torch.where(okf, sc, NEG_INF)
     top_s, top_i = _topk_rows(sc, flat, k)
+    if not covers:
+        return top_s, torch.where(top_s > NEG_INF / 2, top_i, -1), flag
     tau = top_s[:, k - 1]
 
     # c3: the best excluded candidate must be provably below tau.
     c3_viol = _unpack_ub(vtop[:, r_cnt], tile) > tau
 
     # c2: tiles whose second unit may beat tau, covered by the exact
-    # per-tile top-k of the union (K4).
+    # per-tile top-k of the union (K4, K5a or K5b).
     u = min(union_tiles, num_tiles)
     ub2 = _unpack_ub(w_val[:, 1, :], tile).T                       # [B, T]
     sus = ub2 > tau[:, None]
@@ -244,12 +287,15 @@ def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     selected = torch.zeros(num_tiles, dtype=torch.bool, device=dev)
     selected[sel_tiles] = sel_valid
     uncovered = (sus & ~selected[None, :]).sum() + c3_viol.sum()
-    if native:
+    tiles32 = sel_tiles.to(torch.int32)
+    if mode == "native":
         uval, ucol = extract_int8(q8, q_scale, corpus, row_scale, size,
-                                  tile, k, sel_tiles.to(torch.int32))
+                                  tile, k, tiles32)
+    elif mode == "scaled":
+        uval, ucol = extract_scaled(queries, corpus, row_scale, size, tile,
+                                    k, tiles32)
     else:
-        uval, ucol = extract(queries, corpus, size, tile, k,
-                             sel_tiles.to(torch.int32))           # [U, k, B]
+        uval, ucol = extract(queries, corpus, size, tile, k, tiles32)
     uc = torch.where(sel_valid[None, :, None], uval.permute(2, 0, 1),
                      NEG_INF)                                     # [B, U, k]
     urow = (sel_tiles[:, None, None] * tile + ucol.long()).permute(2, 0, 1)
@@ -261,9 +307,39 @@ def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     m_s = torch.cat([torch.where(in_sel, NEG_INF, top_s), r_s], dim=1)
     m_i = torch.cat([top_i, r_i], dim=1)
     out_s, out_i = _topk_rows(m_s, m_i, k)
-    count_row = torch.zeros((1, k), dtype=torch.long, device=dev)
-    count_row[0, 0] = uncovered
-    return out_s, torch.cat([out_i, count_row], dim=0)
+    return (out_s, torch.cat([out_i, _certificate_row(uncovered, flag, k)]),
+            flag)
+
+
+def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                   size=None, tile: int = 4096, groups: int = 8,
+                   union_tiles: int = 32, pad_r: int | None = None,
+                   row_scale=None, int8_native: bool = True):
+    """EXACT top-k by the packed scan (K1) plus three certified covers.
+    Ports ``pallas_topk_certified``.
+
+    queries [B, D] normalised (scores in (-2, 2)); corpus [N, D] with
+    N % tile == 0 and 2*(N/tile) > k. Returns (scores [B, k] f32,
+    ids [B+1, k] int64) with ids[B, 0] the uncovered count: 0 means exact
+    for the scan's scoring; otherwise rerun with ``tiled_topk``. Read it
+    with ``certificate_uncovered``, which raises when a live score lay
+    outside (-2, 2) (the count then reads -1).
+
+    c1 rescored exactly the top-R candidates with their full strided units;
+    c2 takes the exact per-tile top-k (K4) of the union of tiles whose
+    second unit may beat tau; c3 checks the best excluded candidate.
+
+    ``row_scale`` [N]: on an int8 corpus with ``int8_native`` the queries
+    are quantized on their device (ops/quantize.py), K3 scans and K5b
+    covers, and every score is ``(float(i32) * row_scale) * q_scale``;
+    otherwise (``int8_native=False``, or a float corpus) the scaled route
+    scores bf16(q) x bf16(row) in f32 times the row scale, K2 scanning and
+    K5a covering. The certificate means exact for that scoring.
+    """
+    s, ids, _ = _packed_search(queries, corpus, k, size, tile, groups,
+                               union_tiles, pad_r, row_scale, int8_native,
+                               covers=True)
+    return s, ids
 
 
 def topk_certified_multi(queries: torch.Tensor, corpus: torch.Tensor, k: int,
@@ -272,10 +348,11 @@ def topk_certified_multi(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                          pad_r: int | None = None, row_scale=None,
                          int8_native: bool = True):
     """``topk_certified`` over M sub-batches; the certificate row sums the
-    blocks' uncovered counts. Ports ``pallas_topk_certified_multi``."""
+    blocks' uncovered counts (-1 if any block's range flag is set). Ports
+    ``pallas_topk_certified_multi``."""
     mb = queries.shape[0]
     assert mb % sub_batch == 0, (mb, sub_batch)
-    scores, ids, uncovered = [], [], 0
+    scores, ids, counts = [], [], []
     for s0 in range(0, mb, sub_batch):
         s, i = topk_certified(queries[s0:s0 + sub_batch], corpus, k, size,
                               tile=tile, groups=groups,
@@ -283,10 +360,165 @@ def topk_certified_multi(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                               row_scale=row_scale, int8_native=int8_native)
         scores.append(s)
         ids.append(i[:-1])
-        uncovered = uncovered + i[-1, 0]
+        counts.append(i[-1, 0])
+    counts = torch.stack(counts)
     count_row = torch.zeros((1, k), dtype=torch.long, device=corpus.device)
-    count_row[0, 0] = uncovered
+    count_row[0, 0] = torch.where((counts < 0).any(), -1, counts.sum())
     return torch.cat(scores), torch.cat(ids + [count_row])
+
+
+def _check_flag(flag: torch.Tensor) -> None:
+    if bool(flag[0] > 0):
+        raise ValueError(RANGE_ERROR)
+
+
+def _ann_small(queries, corpus, k, size, row_scale):
+    """The exact answer where the packed scan has too few tiles, ids of
+    missing rows -1 (the reference asserts there instead)."""
+    s, i = exact_topk(queries, corpus, k, size, row_scale=row_scale)
+    pad = k - s.shape[1]
+    if pad:
+        s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF)
+        i = torch.nn.functional.pad(i, (0, pad), value=-1)
+    return s, torch.where(s > NEG_INF / 2, i, -1)
+
+
+def topk_ann(queries: torch.Tensor, corpus: torch.Tensor, k: int, size=None,
+             tile: int = 4096, groups: int = 8, oversample: int = 32,
+             row_scale=None):
+    """Approximate top-k at near-scan speed: the certified path's packed
+    scan and c1 rescore (its units plus +-4 column windows), no covers, no
+    certificate. Ports ``pallas_topk_ann``. Returns (scores [B, k] f32,
+    exact rescores, ids [B, k] int64, -1 where fewer than k rows were
+    found).
+
+    Where the scan has too few tiles (2*(N/tile) <= k, or too few
+    candidates to cover k) the answer is the exact top-k instead; the
+    reference raises there.
+    """
+    num_tiles = corpus.shape[0] // tile
+    r = min(max(oversample, k + 8), 2 * num_tiles - 1)
+    if 2 * num_tiles <= k or r * groups < k:
+        return _ann_small(queries, corpus, k, size, row_scale)
+    s, i, flag = _packed_search(queries, corpus, k, size, tile, groups, 32,
+                                r, row_scale, True, covers=False)
+    _check_flag(flag)
+    return s, i
+
+
+def topk_ann_multi(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                   size=None, sub_batch: int = 1024, tile: int = 4096,
+                   groups: int = 8, oversample: int = 32, row_scale=None):
+    """``topk_ann`` over M sub-batches. Ports ``pallas_topk_ann_multi``."""
+    mb = queries.shape[0]
+    assert mb % sub_batch == 0, (mb, sub_batch)
+    out = [topk_ann(queries[s0:s0 + sub_batch], corpus, k, size, tile=tile,
+                    groups=groups, oversample=oversample,
+                    row_scale=row_scale)
+           for s0 in range(0, mb, sub_batch)]
+    return (torch.cat([s for s, _ in out]), torch.cat([i for _, i in out]))
+
+
+def _tau_and_last(tile_s, top_s, k, tile_k):
+    """tau (the k-th merged score) [B] and each tile's last winner [B, T]."""
+    return top_s[:, k - 1], tile_s[:, tile_k - 1, :].T
+
+
+def topk_verified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                  size=None, tile: int = 1024, tile_k: int = 2,
+                  mem_budget: int = 1 << 26):
+    """EXACT top-k from a ``tile_k`` < k per-tile pass (K6) plus a tau-bound
+    rescan. Ports ``pallas_topk_verified``.
+
+    Only tiles whose ``tile_k``-th winner beats tau (the k-th merged score)
+    can hide a top-k row, and there are at most R = (k-1) // tile_k of them
+    per query: their rows are gathered and rescored exactly, in query
+    chunks of at most ``mem_budget`` gathered bytes.
+    """
+    n, d = corpus.shape
+    b = queries.shape[0]
+    tile_k = min(tile_k, k)
+    r = (k - 1) // tile_k
+    if r == 0:                        # tile_k >= k is already exact
+        return tiled_topk(queries, corpus, k, size, tile=tile, tile_k=tile_k)
+    assert (n // tile) * tile_k >= k, (n // tile, tile_k, k)
+    tile_s, tile_i = tile_topk(queries, corpus, size, tile, tile_k)
+    top_s, top_i = _merge_tile_winners(tile_s, tile_i, k)
+    size_ = n if size is None else size
+    tau, s_last = _tau_and_last(tile_s, top_s, k, tile_k)
+    sus_val = torch.where(s_last > tau[:, None], s_last, float("-inf"))
+    sus_sval, sus_t = _topk(sus_val, r)                          # [B, r]
+    sus_ok = sus_sval > NEG_INF / 2
+    r = sus_t.shape[1]
+    qc = max(1, min(b, mem_budget // max(r * tile * d
+                                         * corpus.element_size(), 1)))
+    cols = torch.arange(tile, device=corpus.device)
+    out_s, out_i = [], []
+    for q0 in range(0, b, qc):
+        q1 = min(b, q0 + qc)
+        rows = (sus_t[q0:q1, :, None] * tile + cols).reshape(q1 - q0, -1)
+        sc = _exact_rowwise_scores(queries[q0:q1], corpus[rows],
+                                   corpus.dtype)
+        valid = sus_ok[q0:q1].repeat_interleave(tile, dim=1) & (rows < size_)
+        dup = (rows[:, :, None] == top_i[q0:q1, None, :]).any(-1)
+        sc = torch.where(valid & ~dup, sc, NEG_INF)
+        s, i = _topk_rows(torch.cat([top_s[q0:q1], sc], dim=1),
+                          torch.cat([top_i[q0:q1], rows], dim=1), k)
+        out_s.append(s)
+        out_i.append(i)
+    return torch.cat(out_s), torch.cat(out_i)
+
+
+def topk_verified_batch(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                        size=None, tile: int = 1024, tile_k: int = 2,
+                        union_tiles: int = 32):
+    """Exact top-k with a batch-union rescan: the ``tile_k`` pass (K6),
+    then the ``union_tiles`` hottest suspicious tiles across the batch read
+    once and rescored against every query. Ports
+    ``pallas_topk_verified_batch``. Returns (scores [B, k] f32,
+    ids [B+1, k] int64) with ids[B, 0] the count of (query, tile) suspicions
+    the union did not cover: 0 means exact."""
+    n, d = corpus.shape
+    b = queries.shape[0]
+    dev = corpus.device
+    tile_k = min(tile_k, k)
+    num_tiles = n // tile
+    u = min(union_tiles, num_tiles)
+    assert num_tiles * tile_k >= k, (num_tiles, tile_k, k)
+    tile_s, tile_i = tile_topk(queries, corpus, size, tile, tile_k)
+    top_s, top_i = _merge_tile_winners(tile_s, tile_i, k)
+    size_ = n if size is None else size
+    tau, s_last = _tau_and_last(tile_s, top_s, k, tile_k)
+    sus = s_last > tau[:, None]                                   # [B, T]
+    priority = torch.where(sus, s_last - tau[:, None],
+                           float("-inf")).amax(dim=0)             # [T]
+    sel_pri, sel_tiles = _topk(priority, u)
+    sel_valid = sel_pri > float("-inf")
+    selected = torch.zeros(num_tiles, dtype=torch.bool, device=dev)
+    selected[sel_tiles] = sel_valid
+    uncovered = (sus & ~selected[None, :]).sum()
+
+    # One read of the union's tiles, rescored against every query, the
+    # columns in row order so that ties go to the lower row.
+    order = torch.argsort(sel_tiles)
+    tiles_ord, valid_ord = sel_tiles[order], sel_valid[order]
+    rows = (tiles_ord[:, None] * tile
+            + torch.arange(tile, device=dev)).reshape(-1)         # [U*tile]
+    gathered = corpus.view(num_tiles, tile, d)[tiles_ord].reshape(-1, d)
+    q = queries.to(corpus.dtype).float()
+    sc = q @ gathered.float().T                                   # [B, U*tile]
+    row_ok = valid_ord.repeat_interleave(tile) & (rows < size_)
+    sc = torch.where(row_ok[None, :], sc, NEG_INF)
+    r_s, r_pos = _topk(sc, k)
+    r_i = rows[r_pos]
+
+    in_sel = selected[(top_i // tile).clamp(0, num_tiles - 1)]
+    m_s = torch.cat([torch.where(in_sel, NEG_INF, top_s), r_s], dim=1)
+    m_i = torch.cat([top_i, r_i], dim=1)
+    out_s, out_i = _topk_rows(m_s, m_i, k)
+    count_row = torch.zeros((1, k), dtype=torch.long, device=dev)
+    count_row[0, 0] = uncovered
+    return out_s, torch.cat([out_i, count_row], dim=0)
 
 
 def rescore_topk(queries: torch.Tensor, corpus: torch.Tensor,
@@ -304,8 +536,12 @@ def rescore_topk(queries: torch.Tensor, corpus: torch.Tensor,
 
 
 def certificate_uncovered(ids) -> int:
-    """Uncovered count from a [B+1, k] ids array (0 = exact)."""
-    return int(ids[-1, 0])
+    """Uncovered count from a [B+1, k] ids array (0 = exact). Raises
+    ``ValueError`` where the scan flagged a live score outside (-2, 2)."""
+    uncovered = int(ids[-1, 0])
+    if uncovered < 0:
+        raise ValueError(RANGE_ERROR)
+    return uncovered
 
 
 def dispatch_topk(queries, corpus, k, size=None, *, prefer_kernel=None,
@@ -323,8 +559,9 @@ def dispatch_topk(queries, corpus, k, size=None, *, prefer_kernel=None,
     certificate row still attached ([B+1, k]); the caller reruns
     ``tiled_topk`` when ``certificate_uncovered(ids)`` is nonzero.
     ``approx_tile_k`` opts into unverified approximate extraction.
-    ``row_scale`` [N] (int8 corpus) goes to every route: K7 for the tiled
-    search, the int8-native K3/K5b for the certified one.
+    ``row_scale`` [N] goes to every route: K7 for the tiled search, the
+    int8-native K3/K5b (int8 corpus) or the scaled K2/K5a (float corpus)
+    for the certified one.
     """
     n = corpus.shape[0]
     if prefer_kernel is None:

@@ -1,6 +1,7 @@
 """The top-k kernels of the search path: CUDA launches and plain twins.
 
-Held against ``optimized_rag_tpu/ops/topk.py``:
+Held against ``optimized_rag_tpu/ops/topk.py`` and the reference's kernel
+sweeps:
 
 * ``packed_extract`` (K1) ports ``_packed_extract_kernel`` /
   ``_pack_tile_scores`` (:511-527, :576-618), launched by ``_packed_pass``;
@@ -12,23 +13,35 @@ Held against ``optimized_rag_tpu/ops/topk.py``:
   (:548-573) and ``extract_int8`` (K5b) ports ``_extract_int8_kernel``
   (:1037-1050): int8 query codes against int8 row codes, the int32 dot then
   ``(float(i32) * row_scale) * query_scale``;
-* ``tile_topk_scaled`` (K7) ports ``_tile_topk_scaled_kernel`` (:178-195):
-  the query rounded to bf16 against int8 codes, an f32 sum, x row_scale.
+* ``packed_extract_scaled`` (K2) ports ``_packed_extract_scaled_kernel``
+  (:530-545), ``extract_scaled`` (K5a) ``_extract_scaled_kernel``
+  (:1021-1034) and ``tile_topk_scaled`` (K7) ``_tile_topk_scaled_kernel``
+  (:178-195): the query rounded to bf16 against the rows rounded to bf16
+  (int8 codes are exact), an f32 sum, x row_scale;
+* ``scan_floor`` (F) ports ``_floor_kernel`` of
+  ``benchmarks/sweep_r4_kernel.py:128`` (F1) and
+  ``benchmarks/sweep_r4c.py:157`` (F2), one function: the per-tile max of
+  K1's scores.
 
-K1, K4 and K6 cast the queries to the corpus dtype (the TPU kernels'
-operand cast) and widen them to float32; K7 rounds them to bf16. A CPU
-corpus takes the plain twin (``*_plain``, torch.matmul in float32 plus
+K1, K4, K6 and F cast the queries to the corpus dtype (the TPU kernels'
+operand cast) and widen them to float32; K2, K5a and K7 round them to bf16.
+A CPU corpus takes the plain twin (``*_plain``, torch.matmul in float32 plus
 elementwise ops, the same function); a CUDA corpus launches the kernel from
 ``csrc/`` or raises. Each launch adds one to its count in
 ``launch_counts()``.
 
-The int8-native score is exact in float32: for D * 127**2 < 2**24 every
-partial sum of a code-by-code dot is an integer below 2**24, so a float32
-product of the codes equals the int32 dot in any summation order (TF32 is
-off). K3's words and K5b's values are therefore bit for bit their twins'.
+The int8-native score is exact: the code dot is an integer, which the
+twins take as float32 products of at most ``_EXACT_CODES`` codes a chunk
+(every partial sum an integer below 2**24, exact in any summation order,
+TF32 off) added in int32. K3's words and K5b's values are therefore bit for
+bit their twins', at any width.
 
 ``size`` (live rows) may be an int or a device scalar; rows at or after it
-pack to 0 in K1 and K3 and score -1e30 in K4, K5b, K6 and K7.
+pack to 0 in K1, K2 and K3 and score -1e30 in K4, K5a, K5b, K6 and K7.
+The certified path needs every live score in (-2, 2): the twins of K1, K2,
+K3 and the covers raise ``ValueError`` otherwise, and the kernels K1, K2
+and K3 set their ``flag`` (int32 [1] on the card), which ``ops/topk.py``
+carries to where the certificate is read.
 """
 
 from __future__ import annotations
@@ -39,13 +52,24 @@ import torch
 
 NEG_INF = -1e30
 KERNELS = ("packed_extract", "extract", "tile_topk", "packed_extract_int8",
-           "extract_int8", "tile_topk_scaled")
+           "extract_int8", "tile_topk_scaled", "packed_extract_scaled",
+           "extract_scaled", "scan_floor")
+# The largest tile whose [QB, tile] scores fit in a block's shared memory
+# (two queries a block; csrc/topk_common.cuh with_extract_qb).
+MAX_EXTRACT_TILE = 16384
+# The most unit winners (tile / groups) a packed-scan block keeps for each
+# of its 16 queries (csrc/packed_extract.cu).
+MAX_UNITS = 2048
+RANGE_ERROR = ("certified top-k needs every score in (-2, 2); normalize "
+               "queries and corpus rows")
 
 _counts_lock = threading.Lock()
 _launches = dict.fromkeys(KERNELS, 0)
 
 # Largest [B, rows] score block a plain twin materialises at once.
 _PLAIN_BLOCK = 1 << 24
+# Codes whose float32 dot is exact: 1040 * 127**2 < 2**24.
+_EXACT_CODES = 1040
 
 
 def launch_counts() -> dict:
@@ -73,19 +97,42 @@ def _check_score_range(s: torch.Tensor, live: torch.Tensor) -> None:
     shift and drop out while the certificate still reads exact."""
     bad = ((s <= -2.0) | (s >= 2.0)) & live
     if bool(bad.any()):
-        raise ValueError("certified top-k needs every score in (-2, 2); "
-                         "normalize queries and corpus rows")
+        raise ValueError(RANGE_ERROR)
 
 
 def _tiles_per_block(b: int, tile: int) -> int:
     return max(1, _PLAIN_BLOCK // max(b * tile, 1))
 
 
+def int8_dot(q8: torch.Tensor, rows8: torch.Tensor) -> torch.Tensor:
+    """The exact int32 dot of codes ``q8`` [B, D] and ``rows8`` [..., R, D]:
+    [..., B, R] int32, at any D (float32 products of at most _EXACT_CODES
+    codes, each an exact integer, summed in int32)."""
+    out = None
+    for lo in range(0, q8.shape[-1], _EXACT_CODES):
+        hi = lo + _EXACT_CODES
+        part = torch.matmul(q8[:, lo:hi].float(), rows8[..., lo:hi].float()
+                            .transpose(-1, -2)).to(torch.int32)
+        out = part if out is None else out + part
+    return out
+
+
+def scaled_rows_dtype(corpus: torch.Tensor):
+    """What the scaled kernels round float rows to (int8 codes are exact)."""
+    return None if corpus.dtype == torch.int8 else torch.bfloat16
+
+
 def _score(q: torch.Tensor, rows: torch.Tensor, row_scale=None,
-           q_scale=None) -> torch.Tensor:
-    """Scores [..., B, R] of f32 queries [B, D] against rows [..., R, D],
-    then ``* row_scale`` [..., R] and ``* q_scale`` [B], in that order."""
-    s = torch.matmul(q, rows.float().transpose(-1, -2))
+           q_scale=None, rows_dtype=None) -> torch.Tensor:
+    """Scores [..., B, R] of queries [B, D] against rows [..., R, D] (rounded
+    to ``rows_dtype`` first where given), then ``* row_scale`` [..., R] and
+    ``* q_scale`` [B], in that order. int8 queries take the exact int8 dot."""
+    if q.dtype == torch.int8:
+        s = int8_dot(q, rows).float()
+    else:
+        if rows_dtype is not None:
+            rows = rows.to(rows_dtype)
+        s = torch.matmul(q, rows.float().transpose(-1, -2))
     if row_scale is not None:
         s = s * row_scale.unsqueeze(-2)
     if q_scale is not None:
@@ -95,9 +142,10 @@ def _score(q: torch.Tensor, rows: torch.Tensor, row_scale=None,
 
 def packed_extract_plain(q: torch.Tensor, corpus: torch.Tensor, size,
                          tile: int, groups: int, row_scale=None,
-                         q_scale=None) -> torch.Tensor:
+                         q_scale=None, rows_dtype=None) -> torch.Tensor:
     """K1's function in PyTorch: int32 [T, 2, B] packed unit winners
-    (scored as K3 with ``row_scale`` and ``q_scale``)."""
+    (scored as K3 with int8 ``q`` and ``q_scale``, as K2 with
+    ``row_scale`` and ``rows_dtype``)."""
     n, _ = corpus.shape
     b = q.shape[0]
     num_tiles, small = n // tile, tile // groups
@@ -111,7 +159,7 @@ def packed_extract_plain(q: torch.Tensor, corpus: torch.Tensor, size,
         lo, hi = t0 * tile, t1 * tile
         s = _score(q, corpus[lo:hi],
                    None if row_scale is None else row_scale[lo:hi],
-                   q_scale).view(b, nt, tile)
+                   q_scale, rows_dtype).view(b, nt, tile)
         rows = torch.arange(t0 * tile, t1 * tile, device=dev).view(nt, tile)
         live = _live(rows, size)
         _check_score_range(s, live)
@@ -130,7 +178,8 @@ def _quantise(s: torch.Tensor, tile: int) -> torch.Tensor:
     return torch.clamp_min(s + 2.0, 0.0).view(torch.int32) & -tile
 
 
-def _named_row_scores(q, corpus, words, tile, block=1 << 16):
+def _named_row_scores(q, corpus, words, tile, row_scale=None,
+                      rows_dtype=None, block=1 << 16):
     """(rows, f32 scores) of the row each packed word [T, 2, B] names, by a
     rowwise float32 dot, an order of summation neither scan uses."""
     t, two, b = words.shape
@@ -141,22 +190,30 @@ def _named_row_scores(q, corpus, words, tile, block=1 << 16):
     s = torch.empty(rows.shape, dtype=torch.float32, device=dev)
     for lo in range(0, rows.numel(), block):
         hi = lo + block
-        s[lo:hi] = (corpus[rows[lo:hi]].float() * q[qi[lo:hi]]).sum(-1)
+        r = corpus[rows[lo:hi]]
+        if rows_dtype is not None:
+            r = r.to(rows_dtype)
+        s[lo:hi] = (r.float() * q[qi[lo:hi]]).sum(-1)
+        if row_scale is not None:
+            s[lo:hi] *= row_scale[rows[lo:hi]]
     return rows.view(words.shape), s.view(words.shape)
 
 
 def packed_word_faults(q: torch.Tensor, corpus: torch.Tensor, size,
                        tile: int, words: torch.Tensor, ref: torch.Tensor,
-                       drift: float = 1e-5):
-    """Hold K1's packed words [T, 2, B] against the rows they name.
+                       drift: float = 1e-5, row_scale=None,
+                       rows_dtype=None):
+    """Hold packed words [T, 2, B] (K1's, or K2's with ``row_scale`` and
+    ``rows_dtype``) against the rows they name.
 
-    ``q`` are the scan queries (``_scan_queries``); ``words`` and ``ref``
-    are two computations of K1's function, a kernel's and its twin's. A
-    word is at fault when its value bits are nonzero and its column names
-    a row at or after ``size``, or a row whose exact score, moved by up to
-    ``drift`` either way, does not quantise to those bits; or when it
-    differs from ``ref`` although neither word's row scores within
-    ``drift`` of a quantisation boundary (words of dead rows must be equal).
+    ``q`` are the scan queries (``_scan_queries``, or rounded to bf16 for
+    K2); ``words`` and ``ref`` are two computations of the scan's function,
+    a kernel's and its twin's. A word is at fault when its value bits are
+    nonzero and its column names a row at or after ``size``, or a row whose
+    exact score, moved by up to ``drift`` either way, does not quantise to
+    those bits; or when it differs from ``ref`` although neither word's row
+    scores within ``drift`` of a quantisation boundary (words of dead rows
+    must be equal).
 
     Returns (faults, boundary): the count of words at fault, and of words
     that differ from ``ref`` only where a row sits on a boundary.
@@ -164,7 +221,8 @@ def packed_word_faults(q: torch.Tensor, corpus: torch.Tensor, size,
     size = corpus.shape[0] if size is None else size
     live, near = [], []
     for w in (words, ref):
-        rows, s = _named_row_scores(q, corpus, w, tile)
+        rows, s = _named_row_scores(q, corpus, w, tile, row_scale,
+                                    rows_dtype)
         lo, hi = _quantise(s - drift, tile), _quantise(s + drift, tile)
         value = w & -tile
         live.append(value != 0)
@@ -190,7 +248,8 @@ def _extract_rounds_plain(s: torch.Tensor, rounds: int):
 
 
 def _extract_tiles_plain(q, corpus, size, tile, rounds, tile_ids,
-                         check_range=False, row_scale=None, q_scale=None):
+                         check_range=False, row_scale=None, q_scale=None,
+                         rows_dtype=None):
     """Exact top-``rounds`` of each listed tile: (val, col) [U, rounds, B],
     columns local to their tile."""
     n, d = corpus.shape
@@ -198,7 +257,7 @@ def _extract_tiles_plain(q, corpus, size, tile, rounds, tile_ids,
     c = corpus.view(n // tile, tile, d)[tile_ids]                # [U, tile, D]
     cs = (None if row_scale is None
           else row_scale.view(n // tile, tile)[tile_ids])        # [U, tile]
-    s = _score(q, c, cs, q_scale)                                 # [U, B, tile]
+    s = _score(q, c, cs, q_scale, rows_dtype)                     # [U, B, tile]
     rows = tile_ids[:, None] * tile + torch.arange(tile, device=dev)
     live = _live(rows, size)[:, None, :]
     if check_range:
@@ -216,7 +275,8 @@ def extract_plain(q: torch.Tensor, corpus: torch.Tensor, size, tile: int,
                                 check_range=True)
 
 
-def _tile_topk_plain(q, corpus, size, tile, tile_k, row_scale=None):
+def _tile_topk_plain(q, corpus, size, tile, tile_k, row_scale=None,
+                     rows_dtype=None):
     num_tiles = corpus.shape[0] // tile
     dev = corpus.device
     vals, ids = [], []
@@ -224,7 +284,8 @@ def _tile_topk_plain(q, corpus, size, tile, tile_k, row_scale=None):
     for t0 in range(0, num_tiles, step):
         tile_ids = torch.arange(t0, min(num_tiles, t0 + step), device=dev)
         v, c = _extract_tiles_plain(q, corpus, size, tile, tile_k, tile_ids,
-                                    row_scale=row_scale)
+                                    row_scale=row_scale,
+                                    rows_dtype=rows_dtype)
         vals.append(v)
         ids.append(c + (tile_ids * tile).to(torch.int32)[:, None, None])
     return torch.cat(vals), torch.cat(ids)
@@ -241,8 +302,8 @@ def packed_extract_int8_plain(q8: torch.Tensor, q_scale: torch.Tensor,
                               corpus: torch.Tensor, row_scale: torch.Tensor,
                               size, tile: int, groups: int) -> torch.Tensor:
     """K3's function in PyTorch: K1's packed words [T, 2, B] of the scores
-    ``(float(q8 . c8) * row_scale) * q_scale`` (the dot exact in f32)."""
-    return packed_extract_plain(q8.float(), corpus, size, tile, groups,
+    ``(float(q8 . c8) * row_scale) * q_scale`` (the dot exact)."""
+    return packed_extract_plain(q8, corpus, size, tile, groups,
                                 row_scale=row_scale, q_scale=q_scale)
 
 
@@ -250,18 +311,55 @@ def extract_int8_plain(q8: torch.Tensor, q_scale: torch.Tensor,
                        corpus: torch.Tensor, row_scale: torch.Tensor, size,
                        tile: int, rounds: int, tiles: torch.Tensor):
     """K5b's function in PyTorch: K4 scored as K3."""
-    return _extract_tiles_plain(q8.float(), corpus, size, tile, rounds,
+    return _extract_tiles_plain(q8, corpus, size, tile, rounds,
                                 tiles.long(), check_range=True,
                                 row_scale=row_scale, q_scale=q_scale)
+
+
+def packed_extract_scaled_plain(q: torch.Tensor, corpus: torch.Tensor,
+                                row_scale: torch.Tensor, size, tile: int,
+                                groups: int) -> torch.Tensor:
+    """K2's function in PyTorch: K1's packed words [T, 2, B] of ``q``
+    (already rounded to bf16, in f32) against the rows rounded to bf16,
+    an f32 sum, ``* row_scale``."""
+    return packed_extract_plain(q, corpus, size, tile, groups,
+                                row_scale=row_scale,
+                                rows_dtype=scaled_rows_dtype(corpus))
+
+
+def extract_scaled_plain(q: torch.Tensor, corpus: torch.Tensor,
+                         row_scale: torch.Tensor, size, tile: int,
+                         rounds: int, tiles: torch.Tensor):
+    """K5a's function in PyTorch: K4 scored as K2."""
+    return _extract_tiles_plain(q, corpus, size, tile, rounds, tiles.long(),
+                                check_range=True, row_scale=row_scale,
+                                rows_dtype=scaled_rows_dtype(corpus))
 
 
 def tile_topk_scaled_plain(q: torch.Tensor, corpus: torch.Tensor,
                            row_scale: torch.Tensor, size, tile: int,
                            tile_k: int):
-    """K7's function in PyTorch: K6 with ``q`` (already rounded to bf16,
-    in f32) against the int8 codes, an f32 sum, then ``* row_scale``."""
+    """K7's function in PyTorch: K6 scored as K2."""
     return _tile_topk_plain(q, corpus, size, tile, tile_k,
-                            row_scale=row_scale)
+                            row_scale=row_scale,
+                            rows_dtype=scaled_rows_dtype(corpus))
+
+
+def scan_floor_plain(q: torch.Tensor, corpus: torch.Tensor,
+                     tile: int) -> torch.Tensor:
+    """F's function in PyTorch: f32 [T, 1, B], each tile's largest score
+    of each query (every row counts)."""
+    n, _ = corpus.shape
+    b = q.shape[0]
+    num_tiles = n // tile
+    out = torch.empty((num_tiles, 1, b), dtype=torch.float32,
+                      device=corpus.device)
+    step = _tiles_per_block(b, tile)
+    for t0 in range(0, num_tiles, step):
+        t1 = min(num_tiles, t0 + step)
+        s = _score(q, corpus[t0 * tile:t1 * tile]).view(b, t1 - t0, tile)
+        out[t0:t1, 0] = s.amax(dim=-1).T
+    return out
 
 
 # ------------------------------------------------------------------ wrappers
@@ -269,6 +367,11 @@ def tile_topk_scaled_plain(q: torch.Tensor, corpus: torch.Tensor,
 def _scan_queries(queries: torch.Tensor, corpus: torch.Tensor):
     """Queries in the corpus dtype, widened back to float32."""
     return queries.to(corpus.dtype).float().contiguous()
+
+
+def _bf16_queries(queries: torch.Tensor):
+    """Queries rounded to bf16, in float32 (the scaled kernels' operand)."""
+    return queries.to(torch.bfloat16).float().contiguous()
 
 
 def _size_arg(size, n: int, device) -> torch.Tensor:
@@ -280,11 +383,30 @@ def _size_arg(size, n: int, device) -> torch.Tensor:
                       dtype=torch.int32, device=device)
 
 
-_FLOAT_ROWS = (torch.float32, torch.bfloat16)
+def new_flag(device) -> torch.Tensor:
+    """A cleared range flag (int32 [1]) for K1, K2 and K3 to set."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def _flag_arg(flag, device) -> torch.Tensor:
+    if flag is None:
+        return new_flag(device)
+    if (flag.dtype != torch.int32 or flag.numel() != 1
+            or flag.device != device):
+        raise ValueError(f"flag: {tuple(flag.shape)} {flag.dtype} on "
+                         f"{flag.device}, want int32 [1] on {device}")
+    return flag
+
+
+_FLOAT_ROWS = (torch.float32, torch.bfloat16, torch.float16)
+_SCALED_ROWS = _FLOAT_ROWS + (torch.int8,)
+# Corpus dtype codes of the entry points (csrc/topk_common.cuh Dtype).
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+               torch.int8: 3}
 
 
 def _check_cuda(q: torch.Tensor, corpus: torch.Tensor, tile: int,
-                max_tile: int | None = None, dtypes=_FLOAT_ROWS) -> None:
+                dtypes=_FLOAT_ROWS, extract: bool = False) -> None:
     if corpus.device.type != "cuda":
         raise ValueError(f"no kernel for a corpus on {corpus.device}")
     if corpus.dtype not in dtypes:
@@ -301,25 +423,36 @@ def _check_cuda(q: torch.Tensor, corpus: torch.Tensor, tile: int,
     if tile < 128 or tile & (tile - 1) or n % tile:
         raise ValueError(f"tile={tile} must be a power of two >= 128 "
                          f"dividing N={n}")
-    if max_tile is not None and tile > max_tile:
-        raise ValueError(f"tile={tile} exceeds {max_tile}: the tile's "
-                         "scores must fit in shared memory")
+    if extract and tile > MAX_EXTRACT_TILE:
+        raise ValueError(f"tile={tile} exceeds {MAX_EXTRACT_TILE}, the "
+                         "largest tile whose scores fit in shared memory")
+
+
+def _check_groups(tile: int, groups: int) -> None:
+    if groups < 1 or tile % groups:
+        raise ValueError(f"tile={tile} must be a multiple of groups={groups}")
+    if tile // groups > MAX_UNITS:
+        raise ValueError(f"tile/groups={tile // groups} exceeds {MAX_UNITS}, "
+                         "the most unit winners a block keeps in shared "
+                         "memory")
+
+
+def _check_rounds(rounds: int, tile: int, what: str = "rounds") -> None:
+    if not 1 <= rounds <= tile:
+        raise ValueError(f"{what}={rounds} outside [1, tile={tile}]")
 
 
 def _check_scales(corpus: torch.Tensor, row_scale: torch.Tensor,
                   q8: torch.Tensor | None = None,
                   q_scale: torch.Tensor | None = None) -> None:
-    """The int8 kernels' extra operands: f32 row scales [N]; for the
-    int8-native ones, int8 query codes [B, D] with D % 4 == 0 (four codes
-    a __dp4a word), f32 query scales [B], a 4-byte aligned corpus."""
+    """The int8 and scaled kernels' extra operands: f32 row scales [N]; for
+    the int8-native ones, int8 query codes [B, D] and f32 query scales
+    [B]."""
     n, d = corpus.shape
     checks = [(row_scale, (n,), torch.float32, "row_scale")]
     if q8 is not None:
         checks += [(q8, (q8.shape[0], d), torch.int8, "query codes"),
                    (q_scale, (q8.shape[0],), torch.float32, "q_scale")]
-        if d % 4 or corpus.data_ptr() % 4:
-            raise ValueError(f"int8-native kernels need D % 4 == 0 and an "
-                             f"aligned corpus; D={d}")
     for t, shape, dtype, what in checks:
         if (tuple(t.shape) != shape or t.dtype != dtype
                 or t.device != corpus.device):
@@ -342,24 +475,25 @@ def _launch(name: str, fn, corpus: torch.Tensor, *args) -> None:
 
 
 def packed_extract(queries: torch.Tensor, corpus: torch.Tensor, size,
-                   tile: int, groups: int = 8) -> torch.Tensor:
+                   tile: int, groups: int = 8, flag=None) -> torch.Tensor:
     """Per-tile top-2 packed unit winners, int32 [T, 2, B] (the bits
-    ``_packed_pass`` returns as float32)."""
+    ``_packed_pass`` returns as float32). ``flag`` (int32 [1], on the card)
+    is set to 1 when a live score lies outside (-2, 2)."""
     q = _scan_queries(queries, corpus)
     if corpus.device.type == "cpu":
         return packed_extract_plain(q, corpus, size, tile, groups)
     _check_cuda(q, corpus, tile)
-    if tile % groups:
-        raise ValueError(f"tile={tile} must be a multiple of groups={groups}")
+    _check_groups(tile, groups)
     n, d = corpus.shape
     b = q.shape[0]
     qT = q.T.contiguous()
     size_t = _size_arg(size, n, corpus.device)
+    flag_t = _flag_arg(flag, corpus.device)
     out = torch.empty((n // tile, 2, b), dtype=torch.int32,
                       device=corpus.device)
     _launch("packed_extract", "orag_packed_extract", corpus, qT.data_ptr(),
-            corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
-            size_t.data_ptr(), out.data_ptr(), b, n, d, tile, groups)
+            corpus.data_ptr(), _DTYPE_CODE[corpus.dtype], size_t.data_ptr(),
+            out.data_ptr(), flag_t.data_ptr(), b, n, d, tile, groups)
     return out
 
 
@@ -370,9 +504,8 @@ def extract(queries: torch.Tensor, corpus: torch.Tensor, size, tile: int,
     q = _scan_queries(queries, corpus)
     if corpus.device.type == "cpu":
         return extract_plain(q, corpus, size, tile, rounds, tiles)
-    _check_cuda(q, corpus, tile, max_tile=1024)
-    if not 1 <= rounds <= tile:
-        raise ValueError(f"rounds={rounds} outside [1, tile={tile}]")
+    _check_cuda(q, corpus, tile, extract=True)
+    _check_rounds(rounds, tile)
     tiles = tiles.to(device=corpus.device, dtype=torch.int32).contiguous()
     n, d = corpus.shape
     b, u = q.shape[0], tiles.shape[0]
@@ -382,9 +515,9 @@ def extract(queries: torch.Tensor, corpus: torch.Tensor, size, tile: int,
                       device=corpus.device)
     col = torch.empty((u, rounds, b), dtype=torch.int32, device=corpus.device)
     _launch("extract", "orag_extract", corpus, qT.data_ptr(),
-            corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
-            size_t.data_ptr(), tiles.data_ptr(), u, val.data_ptr(),
-            col.data_ptr(), b, n, d, tile, rounds)
+            corpus.data_ptr(), _DTYPE_CODE[corpus.dtype], size_t.data_ptr(),
+            tiles.data_ptr(), u, val.data_ptr(), col.data_ptr(), b, n, d,
+            tile, rounds)
     return val, col
 
 
@@ -395,9 +528,8 @@ def tile_topk(queries: torch.Tensor, corpus: torch.Tensor, size, tile: int,
     q = _scan_queries(queries, corpus)
     if corpus.device.type == "cpu":
         return tile_topk_plain(q, corpus, size, tile, tile_k)
-    _check_cuda(q, corpus, tile, max_tile=1024)
-    if not 1 <= tile_k <= tile:
-        raise ValueError(f"tile_k={tile_k} outside [1, tile={tile}]")
+    _check_cuda(q, corpus, tile, extract=True)
+    _check_rounds(tile_k, tile, "tile_k")
     n, d = corpus.shape
     b = q.shape[0]
     qT = q.T.contiguous()
@@ -407,20 +539,23 @@ def tile_topk(queries: torch.Tensor, corpus: torch.Tensor, size, tile: int,
     i = torch.empty((n // tile, tile_k, b), dtype=torch.int32,
                     device=corpus.device)
     _launch("tile_topk", "orag_tile_topk", corpus, qT.data_ptr(),
-            corpus.data_ptr(), int(corpus.dtype == torch.bfloat16),
-            size_t.data_ptr(), s.data_ptr(), i.data_ptr(), b, n, d, tile,
-            tile_k)
+            corpus.data_ptr(), _DTYPE_CODE[corpus.dtype], size_t.data_ptr(),
+            s.data_ptr(), i.data_ptr(), b, n, d, tile, tile_k)
     return s, i
 
 
 def _int8_words(q8: torch.Tensor) -> torch.Tensor:
-    """Query codes [B, D] as int32 words of 4 codes, transposed [D/4, B]."""
-    return q8.contiguous().view(torch.int32).T.contiguous()
+    """Query codes [B, D] as int32 words of 4 codes (zero codes past D),
+    transposed [ceil(D/4), B]."""
+    pad = (-q8.shape[1]) % 4
+    q8 = torch.nn.functional.pad(q8, (0, pad)) if pad else q8.contiguous()
+    return q8.view(torch.int32).T.contiguous()
 
 
 def packed_extract_int8(q8: torch.Tensor, q_scale: torch.Tensor,
                         corpus: torch.Tensor, row_scale: torch.Tensor, size,
-                        tile: int, groups: int = 8) -> torch.Tensor:
+                        tile: int, groups: int = 8,
+                        flag=None) -> torch.Tensor:
     """K3: K1's packed words [T, 2, B] of int8 codes ``q8`` [B, D] (scales
     ``q_scale`` [B]) against an int8 corpus (scales ``row_scale`` [N])."""
     if corpus.device.type == "cpu":
@@ -428,19 +563,20 @@ def packed_extract_int8(q8: torch.Tensor, q_scale: torch.Tensor,
                                          size, tile, groups)
     _check_cuda(q8, corpus, tile, dtypes=(torch.int8,))
     _check_scales(corpus, row_scale, q8, q_scale)
-    if tile % groups:
-        raise ValueError(f"tile={tile} must be a multiple of groups={groups}")
+    _check_groups(tile, groups)
     n, d = corpus.shape
     b = q8.shape[0]
     # Operands stay bound to names until the launch is enqueued: a freed
     # temporary could be reallocated by another thread first.
     qwT, qs, cs = _int8_words(q8), q_scale.contiguous(), row_scale.contiguous()
     size_t = _size_arg(size, n, corpus.device)
+    flag_t = _flag_arg(flag, corpus.device)
     out = torch.empty((n // tile, 2, b), dtype=torch.int32,
                       device=corpus.device)
     _launch("packed_extract_int8", "orag_packed_extract_int8", corpus,
             qwT.data_ptr(), qs.data_ptr(), corpus.data_ptr(), cs.data_ptr(),
-            size_t.data_ptr(), out.data_ptr(), b, n, d, tile, groups)
+            size_t.data_ptr(), out.data_ptr(), flag_t.data_ptr(), b, n, d,
+            tile, groups)
     return out
 
 
@@ -452,10 +588,9 @@ def extract_int8(q8: torch.Tensor, q_scale: torch.Tensor,
     if corpus.device.type == "cpu":
         return extract_int8_plain(q8, q_scale, corpus, row_scale, size, tile,
                                   rounds, tiles)
-    _check_cuda(q8, corpus, tile, max_tile=1024, dtypes=(torch.int8,))
+    _check_cuda(q8, corpus, tile, dtypes=(torch.int8,), extract=True)
     _check_scales(corpus, row_scale, q8, q_scale)
-    if not 1 <= rounds <= tile:
-        raise ValueError(f"rounds={rounds} outside [1, tile={tile}]")
+    _check_rounds(rounds, tile)
     tiles = tiles.to(device=corpus.device, dtype=torch.int32).contiguous()
     n, d = corpus.shape
     b, u = q8.shape[0], tiles.shape[0]
@@ -471,18 +606,71 @@ def extract_int8(q8: torch.Tensor, q_scale: torch.Tensor,
     return val, col
 
 
+def packed_extract_scaled(queries: torch.Tensor, corpus: torch.Tensor,
+                          row_scale: torch.Tensor, size, tile: int,
+                          groups: int = 8, flag=None) -> torch.Tensor:
+    """K2: K1's packed words [T, 2, B] of the queries rounded to bf16
+    against the rows rounded to bf16 (int8 codes, or float rows), an f32
+    sum, ``* row_scale`` [N]."""
+    q = _bf16_queries(queries)
+    if corpus.device.type == "cpu":
+        return packed_extract_scaled_plain(q, corpus, row_scale, size, tile,
+                                           groups)
+    _check_cuda(q, corpus, tile, dtypes=_SCALED_ROWS)
+    _check_scales(corpus, row_scale)
+    _check_groups(tile, groups)
+    n, d = corpus.shape
+    b = q.shape[0]
+    qT, cs = q.T.contiguous(), row_scale.contiguous()
+    size_t = _size_arg(size, n, corpus.device)
+    flag_t = _flag_arg(flag, corpus.device)
+    out = torch.empty((n // tile, 2, b), dtype=torch.int32,
+                      device=corpus.device)
+    _launch("packed_extract_scaled", "orag_packed_extract_scaled", corpus,
+            qT.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype],
+            cs.data_ptr(), size_t.data_ptr(), out.data_ptr(),
+            flag_t.data_ptr(), b, n, d, tile, groups)
+    return out
+
+
+def extract_scaled(queries: torch.Tensor, corpus: torch.Tensor,
+                   row_scale: torch.Tensor, size, tile: int, rounds: int,
+                   tiles: torch.Tensor):
+    """K5a: ``extract`` scored as K2: (val f32, col int32 tile-local),
+    each [U, rounds, B]."""
+    q = _bf16_queries(queries)
+    if corpus.device.type == "cpu":
+        return extract_scaled_plain(q, corpus, row_scale, size, tile, rounds,
+                                    tiles)
+    _check_cuda(q, corpus, tile, dtypes=_SCALED_ROWS, extract=True)
+    _check_scales(corpus, row_scale)
+    _check_rounds(rounds, tile)
+    tiles = tiles.to(device=corpus.device, dtype=torch.int32).contiguous()
+    n, d = corpus.shape
+    b, u = q.shape[0], tiles.shape[0]
+    qT, cs = q.T.contiguous(), row_scale.contiguous()
+    size_t = _size_arg(size, n, corpus.device)
+    val = torch.empty((u, rounds, b), dtype=torch.float32,
+                      device=corpus.device)
+    col = torch.empty((u, rounds, b), dtype=torch.int32, device=corpus.device)
+    _launch("extract_scaled", "orag_extract_scaled", corpus, qT.data_ptr(),
+            corpus.data_ptr(), _DTYPE_CODE[corpus.dtype], cs.data_ptr(),
+            size_t.data_ptr(), tiles.data_ptr(), u, val.data_ptr(),
+            col.data_ptr(), b, n, d, tile, rounds)
+    return val, col
+
+
 def tile_topk_scaled(queries: torch.Tensor, corpus: torch.Tensor,
                      row_scale: torch.Tensor, size, tile: int, tile_k: int):
-    """K7: per-tile top-``tile_k`` of an int8 corpus, the queries rounded
-    to bf16: (s f32, i int32 global ids), each [T, tile_k, B]."""
-    q = queries.to(torch.bfloat16).float().contiguous()
+    """K7: per-tile top-``tile_k`` scored as K2: (s f32, i int32 global
+    ids), each [T, tile_k, B]."""
+    q = _bf16_queries(queries)
     if corpus.device.type == "cpu":
         return tile_topk_scaled_plain(q, corpus, row_scale, size, tile,
                                       tile_k)
-    _check_cuda(q, corpus, tile, max_tile=1024, dtypes=(torch.int8,))
+    _check_cuda(q, corpus, tile, dtypes=_SCALED_ROWS, extract=True)
     _check_scales(corpus, row_scale)
-    if not 1 <= tile_k <= tile:
-        raise ValueError(f"tile_k={tile_k} outside [1, tile={tile}]")
+    _check_rounds(tile_k, tile, "tile_k")
     n, d = corpus.shape
     b = q.shape[0]
     qT, cs = q.T.contiguous(), row_scale.contiguous()
@@ -492,7 +680,26 @@ def tile_topk_scaled(queries: torch.Tensor, corpus: torch.Tensor,
     i = torch.empty((n // tile, tile_k, b), dtype=torch.int32,
                     device=corpus.device)
     _launch("tile_topk_scaled", "orag_tile_topk_scaled", corpus,
-            qT.data_ptr(), corpus.data_ptr(), cs.data_ptr(),
-            size_t.data_ptr(), s.data_ptr(), i.data_ptr(), b, n, d, tile,
-            tile_k)
+            qT.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype],
+            cs.data_ptr(), size_t.data_ptr(), s.data_ptr(), i.data_ptr(), b,
+            n, d, tile, tile_k)
     return s, i
+
+
+def scan_floor(queries: torch.Tensor, corpus: torch.Tensor,
+               tile: int) -> torch.Tensor:
+    """F: each tile's largest score of each query, f32 [T, 1, B], the
+    queries cast to the corpus dtype (the scan's speed floor)."""
+    q = _scan_queries(queries, corpus)
+    if corpus.device.type == "cpu":
+        return scan_floor_plain(q, corpus, tile)
+    _check_cuda(q, corpus, tile)
+    n, d = corpus.shape
+    b = q.shape[0]
+    qT = q.T.contiguous()
+    out = torch.empty((n // tile, 1, b), dtype=torch.float32,
+                      device=corpus.device)
+    _launch("scan_floor", "orag_scan_floor", corpus, qT.data_ptr(),
+            corpus.data_ptr(), _DTYPE_CODE[corpus.dtype], out.data_ptr(), b,
+            n, d, tile)
+    return out

@@ -297,16 +297,6 @@ def test_certified_multi_int8_matches_jax(rng):
     assert pt.shape == (13, 10) and pt[-1, 0] == 0
 
 
-def test_scaled_certified_route_waits_for_k2_k5a(rng):
-    q, c8, cs, _, _ = _int8_problem(rng, b=2, n_tiles=8)
-    with pytest.raises(NotImplementedError, match="K2 and K5a"):
-        T.topk_certified(*_t(q, c8), 4, tile=TILE,
-                         row_scale=torch.from_numpy(cs), int8_native=False)
-    with pytest.raises(NotImplementedError, match="K2 and K5a"):
-        T.topk_certified(*_t(q, c8.astype(np.float32)), 4, tile=TILE,
-                         row_scale=torch.from_numpy(cs))
-
-
 def test_dispatch_row_scale_routes_like_jax(rng):
     """64*k tiles and more: certified int8-native in both packages (the
     certificate deferred); fewer: the tiled K7 search."""

@@ -15,7 +15,11 @@ within 1e-5 of a quantisation boundary (``packed_word_faults``). K4 and K6
 scores within 1e-5, with ids equal except between rows whose scores differ
 by less than that drift, where the kernel's row must score its value.
 K3's words and K5b's values and columns are bit for bit their twins' (the
-int8-native score is exact in float32); K7 is held as K6 is.
+int8-native score is exact, at any width); K7 is held as K6 is. K2 is held
+as K1 is and K5a as K4 is, scored as the scaled route (bf16 operands, f32
+sum, x row scale): the kernels sum in ascending feature order and the twins
+by a matmul, so their f32 sums may differ in the last bits. F within 1e-5
+of its twin (the same scores; the max is order-free).
 """
 
 import numpy as np
@@ -47,16 +51,24 @@ def _clustered(seed, b, d=384, tile=128, tiles=64, k=10):
     return q, c / np.linalg.norm(c, axis=1, keepdims=True)
 
 
-def _agree(q, c, rows, vals, rows_ref, vals_ref, tol=1e-5):
+def _agree(q, c, rows, vals, rows_ref, vals_ref, tol=1e-5, row_scale=None):
+    """Scores within ``tol``; where ids differ, the kernel's row must score
+    its value (rows rounded to bf16 and scaled for the scaled kernels)."""
     assert float((vals - vals_ref).abs().max()) <= tol
     mism = rows != rows_ref
     if bool(mism.any()):
         b_idx = torch.arange(q.shape[0], device=q.device).expand_as(rows)
-        s = (c[rows[mism].long()].float() * q[b_idx[mism]]).sum(-1)
+        r = c[rows[mism].long()]
+        if row_scale is not None and r.dtype != torch.int8:
+            r = r.to(torch.bfloat16)
+        s = (r.float() * q[b_idx[mism]]).sum(-1)
+        if row_scale is not None:
+            s = s * row_scale[rows[mism].long()]
         assert float((s - vals[mism]).abs().max()) <= tol
 
 
-@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16,
+                                  torch.float16])
 @pytest.mark.parametrize("b", [1, 33, 64, 130])
 def test_kernels_match_twins(cuda_device, tdt, b):
     q, c = _clustered(b, b)
@@ -161,18 +173,240 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="power of two"):
         K.packed_extract(q, torch.randn(300, 64, device=cuda_device), None,
                          100, 4)
+    big = 2 * K.MAX_EXTRACT_TILE
     with pytest.raises(ValueError, match="shared memory"):
-        K.tile_topk(q, torch.randn(4096, 64, device=cuda_device), None,
-                    2048, 4)
+        K.tile_topk(q, torch.randn(big, 64, device=cuda_device), None, big,
+                    4)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.packed_extract(q, torch.randn(big, 64, device=cuda_device), None,
+                         big, 8)
     with pytest.raises(TypeError, match="dtype"):
-        K.tile_topk(q, torch.randn(1024, 64, device=cuda_device).half(),
-                    None, 1024, 4)
+        K.tile_topk(q, torch.zeros((1024, 64), dtype=torch.int8,
+                                   device=cuda_device), None, 1024, 4)
     c8 = torch.zeros((1024, 66), dtype=torch.int8, device=cuda_device)
     cs = torch.ones(1024, device=cuda_device)
     q8 = torch.zeros((4, 66), dtype=torch.int8, device=cuda_device)
-    qs = torch.ones(4, device=cuda_device)
-    with pytest.raises(ValueError, match="D % 4"):
-        K.packed_extract_int8(q8, qs, c8, cs, None, 128, 8)
+    with pytest.raises(ValueError, match="q_scale"):
+        K.packed_extract_int8(q8, cs[:3], c8, cs, None, 128, 8)
     with pytest.raises(ValueError, match="row_scale"):
         K.tile_topk_scaled(q, c8[:, :64].contiguous(), cs[:512], None, 128,
                            4)
+    with pytest.raises(ValueError, match="row_scale"):
+        K.packed_extract_scaled(q, c8[:, :64].contiguous(), cs[:512], None,
+                                128, 8)
+
+
+@pytest.mark.parametrize("cdt", [torch.int8, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 33, 64, 130])
+def test_scaled_kernels_match_twins(cuda_device, cdt, b):
+    """K2 and K5a (the scaled route) against their twins: K2's words by
+    value and by the row their column names, K5a's values within 1e-5."""
+    q, c = _clustered(b, b)
+    qt = torch.from_numpy(q).to(cuda_device)
+    c32 = torch.from_numpy(c).to(cuda_device)
+    if cdt == torch.int8:
+        ct, cs = quantize_int8(c32)
+    else:
+        ct = c32.to(cdt)
+        cs = torch.rand(c.shape[0], device=cuda_device) * 0.5 + 0.5
+    size = c.shape[0] - 100
+    qb = qt.to(torch.bfloat16).float()
+    rows_dtype = K.scaled_rows_dtype(ct)
+    K.reset_launch_counts()
+    w = K.packed_extract_scaled(qt, ct, cs, size, 128, 8)
+    w_p = K.packed_extract_scaled_plain(qb, ct, cs, size, 128, 8)
+    diff = (T._unpack_lb(w, 128) - T._unpack_lb(w_p, 128)).abs().max()
+    assert float(diff) <= 2.0 ** -12
+    faults, _ = K.packed_word_faults(qb, ct, size, 128, w, w_p,
+                                     row_scale=cs, rows_dtype=rows_dtype)
+    assert faults == 0
+    tiles = torch.tensor([5, 0, 63, 3, 17], device=cuda_device)
+    for rounds in (10, 64):
+        v, col = K.extract_scaled(qt, ct, cs, size, 128, rounds, tiles)
+        v_p, col_p = K.extract_scaled_plain(qb, ct, cs, size, 128, rounds,
+                                            tiles)
+        base = (tiles * 128)[:, None, None]
+        _agree(qb, ct, col + base, v, col_p + base, v_p, row_scale=cs)
+    s, i = K.tile_topk_scaled(qt, ct, cs, size, 128, 10)
+    s_p, i_p = K.tile_topk_scaled_plain(qb, ct, cs, size, 128, 10)
+    _agree(qb, ct, i, s, i_p, s_p, row_scale=cs)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert (counts["packed_extract_scaled"], counts["extract_scaled"],
+            counts["tile_topk_scaled"]) == (1, 2, 1)
+
+
+@pytest.mark.parametrize("tile", [2048, 4096, 8192, 16384])
+def test_large_tiles_match_twins(cuda_device, tile):
+    """K4, K5a, K5b, K6 and K7 at tiles whose [32, tile] scores would not
+    fit in shared memory: 8 queries a block up to 4096, 2 up to
+    MAX_EXTRACT_TILE."""
+    b, d = 33, 128
+    q, c = _clustered(tile, b, d=d, tile=tile, tiles=16)
+    qt = torch.from_numpy(q).to(cuda_device)
+    c32 = torch.from_numpy(c).to(cuda_device)
+    cb = c32.to(torch.bfloat16)
+    c8, cs = quantize_int8(c32)
+    q8, qs = quantize_int8(qt)
+    size = c.shape[0] - 100
+    qsb, qb = K._scan_queries(qt, cb), qt.to(torch.bfloat16).float()
+    tiles = torch.tensor([5, 0, 15, 3], device=cuda_device)
+    base = (tiles * tile)[:, None, None]
+    v, col = K.extract(qt, cb, size, tile, 10, tiles)
+    v_p, col_p = K.extract_plain(qsb, cb, size, tile, 10, tiles)
+    _agree(qsb, cb, col + base, v, col_p + base, v_p)
+    v, col = K.extract_scaled(qt, c8, cs, size, tile, 10, tiles)
+    v_p, col_p = K.extract_scaled_plain(qb, c8, cs, size, tile, 10, tiles)
+    _agree(qb, c8, col + base, v, col_p + base, v_p, row_scale=cs)
+    v, col = K.extract_int8(q8, qs, c8, cs, size, tile, 64, tiles)
+    v_p, col_p = K.extract_int8_plain(q8, qs, c8, cs, size, tile, 64, tiles)
+    assert torch.equal(v, v_p) and torch.equal(col, col_p)
+    s, i = K.tile_topk(qt, cb, size, tile, 10)
+    s_p, i_p = K.tile_topk_plain(qsb, cb, size, tile, 10)
+    _agree(qsb, cb, i, s, i_p, s_p)
+    s, i = K.tile_topk_scaled(qt, c8, cs, size, tile, 10)
+    s_p, i_p = K.tile_topk_scaled_plain(qb, c8, cs, size, tile, 10)
+    _agree(qb, c8, i, s, i_p, s_p, row_scale=cs)
+
+
+@pytest.mark.parametrize("tile,groups", [(4096, 4), (4096, 2), (16384, 8)])
+def test_packed_scans_with_many_units_match_twins(cuda_device, tile, groups):
+    """K1, K2 and K3 where 64 queries' unit winners (tile / groups of them,
+    up to MAX_UNITS) would not fit in shared memory: 16 queries a block."""
+    b, d = 33, 128
+    q, c = _clustered(groups, b, d=d, tile=tile, tiles=8)
+    qt = torch.from_numpy(q).to(cuda_device)
+    c32 = torch.from_numpy(c).to(cuda_device)
+    size = c.shape[0] - 100
+    for ct in (c32, c32.to(torch.bfloat16)):
+        qs = K._scan_queries(qt, ct)
+        w = K.packed_extract(qt, ct, size, tile, groups)
+        w_p = K.packed_extract_plain(qs, ct, size, tile, groups)
+        diff = (T._unpack_lb(w, tile) - T._unpack_lb(w_p, tile)).abs().max()
+        assert float(diff) <= 2.0 ** -12
+        assert K.packed_word_faults(qs, ct, size, tile, w, w_p)[0] == 0
+    c8, cs = quantize_int8(c32)
+    q8, q_scale = quantize_int8(qt)
+    w = K.packed_extract_int8(q8, q_scale, c8, cs, size, tile, groups)
+    w_p = K.packed_extract_int8_plain(q8, q_scale, c8, cs, size, tile, groups)
+    assert torch.equal(w, w_p)
+    qb = qt.to(torch.bfloat16).float()
+    w = K.packed_extract_scaled(qt, c8, cs, size, tile, groups)
+    w_p = K.packed_extract_scaled_plain(qb, c8, cs, size, tile, groups)
+    diff = (T._unpack_lb(w, tile) - T._unpack_lb(w_p, tile)).abs().max()
+    assert float(diff) <= 2.0 ** -12
+    assert K.packed_word_faults(qb, c8, size, tile, w, w_p,
+                                row_scale=cs)[0] == 0
+
+
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16,
+                                  torch.float16])
+def test_scan_floor_matches_twin(cuda_device, tdt):
+    q, c = _clustered(5, 70)
+    qt = torch.from_numpy(q).to(cuda_device)
+    ct = torch.from_numpy(c).to(cuda_device, tdt)
+    K.reset_launch_counts()
+    f = K.scan_floor(qt, ct, 1024)
+    f_p = K.scan_floor_plain(K._scan_queries(qt, ct), ct, 1024)
+    assert f.shape == (c.shape[0] // 1024, 1, 70)
+    assert float((f - f_p).abs().max()) <= 1e-5
+    assert K.launch_counts()["scan_floor"] == 1
+
+
+@pytest.mark.parametrize("d,offset", [(390, 0), (390, 1), (1100, 0)])
+def test_int8_kernels_at_any_width(cuda_device, d, offset):
+    """K3's words and K5b's values bit for bit their twins' where D is no
+    multiple of 4, rows are not 4-byte aligned, or D * 127**2 >= 2**24."""
+    q, c = _clustered(d, 33, d=d, tiles=16)
+    c8, cs = quantize_int8(torch.from_numpy(c).to(cuda_device))
+    if offset:                        # the same codes one byte off alignment
+        buf = torch.zeros(c8.numel() + offset, dtype=torch.int8,
+                          device=cuda_device)
+        buf[offset:] = c8.reshape(-1)
+        c8 = buf[offset:].view(c8.shape)
+        assert c8.data_ptr() % 4
+    qt = torch.from_numpy(q).to(cuda_device)
+    q8, qs = quantize_int8(qt)
+    size = c.shape[0] - 100
+    w = K.packed_extract_int8(q8, qs, c8, cs, size, 128, 8)
+    w_p = K.packed_extract_int8_plain(q8, qs, c8, cs, size, 128, 8)
+    assert torch.equal(w, w_p)
+    tiles = torch.tensor([5, 0, 15, 3], device=cuda_device)
+    v, col = K.extract_int8(q8, qs, c8, cs, size, 128, 16, tiles)
+    v_p, col_p = K.extract_int8_plain(q8, qs, c8, cs, size, 128, 16, tiles)
+    assert torch.equal(v, v_p) and torch.equal(col, col_p)
+
+
+def _scaled_oracle(q, c, cs, k):
+    rows = c if c.dtype == torch.int8 else c.to(torch.bfloat16)
+    ref = (q.to(torch.bfloat16).float() @ rows.float().T) * cs[None, :]
+    s, i = torch.sort(ref, dim=1, descending=True, stable=True)
+    return s[:, :k], i[:, :k]
+
+
+@pytest.mark.parametrize("route", ["bf16", "scaled_int8", "scaled_f32",
+                                   "native_int8"])
+def test_certified_at_tile_4096_on_card_is_exact(cuda_device, route):
+    """The certified path at the reference's default tile on each route,
+    against its route's oracle."""
+    q, c = _clustered(11, 16, d=64, tile=4096, tiles=40, k=10)
+    qt = torch.from_numpy(q).to(cuda_device)
+    c32 = torch.from_numpy(c).to(cuda_device)
+    kw = {}
+    if route == "bf16":
+        ct = c32.to(torch.bfloat16)
+        o_s, o_i = T.exact_topk(qt.to(torch.bfloat16).float(), ct, 10)
+    elif route == "scaled_f32":
+        ct = c32
+        kw["row_scale"] = torch.rand(c.shape[0], device=cuda_device) + 0.5
+        o_s, o_i = _scaled_oracle(qt, ct, kw["row_scale"], 10)
+    else:
+        ct, kw["row_scale"] = quantize_int8(c32)
+        kw["int8_native"] = route == "native_int8"
+        if kw["int8_native"]:
+            q8, qs = quantize_int8(qt)
+            ref = ((q8.float() @ ct.float().T) * kw["row_scale"][None, :]
+                   * qs[:, None])
+            o_s, o_i = torch.sort(ref, dim=1, descending=True, stable=True)
+            o_s, o_i = o_s[:, :10], o_i[:, :10]
+        else:
+            o_s, o_i = _scaled_oracle(qt, ct, kw["row_scale"], 10)
+    s, ids = T.topk_certified(qt, ct, 10, tile=4096, **kw)
+    assert T.certificate_uncovered(ids) == 0
+    assert torch.equal(ids[:-1], o_i)
+    assert float((s - o_s).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("route", ["f32", "native_int8", "scaled_int8"])
+def test_range_flag_raises_on_card(cuda_device, route):
+    """One unnormalised row (a score of -3): the kernel flags it, and the
+    certificate's reader raises the twins' ValueError."""
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((2, 32)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    c = rng.standard_normal((128 * 300, 32)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    c[77] = -3.0 * q[0]                 # 300 tiles: dispatch certifies
+    qt = torch.from_numpy(q).to(cuda_device)
+    ct = torch.from_numpy(c).to(cuda_device)
+    kw = {}
+    if route != "f32":
+        ct, kw["row_scale"] = quantize_int8(ct)
+        kw["int8_native"] = route == "native_int8"
+    s, ids = T.topk_certified(qt, ct, 4, tile=128, **kw)
+    assert int(ids[-1, 0]) == -1
+    with pytest.raises(ValueError, match=r"\(-2, 2\)"):
+        T.certificate_uncovered(ids)
+    with pytest.raises(ValueError, match=r"\(-2, 2\)"):
+        T.dispatch_topk(qt, ct, 4, prefer_kernel=True, tile=128, **{
+            k: v for k, v in kw.items() if k == "row_scale"})
+    with pytest.raises(ValueError, match=r"\(-2, 2\)"):
+        T.topk_ann(qt, ct, 4, tile=128, **{
+            k: v for k, v in kw.items() if k == "row_scale"})
+    flag = K.new_flag(cuda_device)
+    if route == "f32":
+        K.packed_extract(qt, ct, None, 128, 8, flag)
+        assert int(flag[0]) == 1
+        flag.zero_()
+        K.packed_extract(qt, ct, 77, 128, 8, flag)   # the row is padding
+        assert int(flag[0]) == 0

@@ -50,7 +50,8 @@ Phases, each printing one JSON line with its seconds:
                codes on the int8-native (union 64, pad_r 26) and scaled
                (K2 -> K5a) routes, and F; every certified or verified answer
                equals its route's oracle, a nonzero certificate's rerun
-               too; qps and ms per route and batch. Every kernel call the
+               too, and its rerun is timed in the route's record; qps and
+               ms per route and batch. Every kernel call the
                routes make is recorded, and one call of each distinct
                shape is held against its twin and timed there.
 
@@ -60,9 +61,10 @@ kernel at each shape a user path gives it (the served slices' paths:
 QueryServer rounds, DenseIndex.search and the small indexes; and each
 shape of bench_shape's routes), its numbers measured at that shape and its
 ``launches`` counted on those paths alone (``launches_by_path`` gives each
-path); and last the ``{"ok": true, ...}`` line. Any failure raises: the
-traceback is printed and the exit code is not 0. A watchdog interrupts the
-script after DEADLINE_S seconds.
+path), its ``bound_share`` (bound_ms / ms) and its ``library_factor``
+(ms / library_ms); and last the ``{"ok": true, ...}`` line. Any failure
+raises: the traceback is printed and the exit code is not 0. A watchdog
+interrupts the script after DEADLINE_S seconds.
 """
 
 from __future__ import annotations
@@ -591,7 +593,7 @@ def phase_build():
     t0 = time.perf_counter()
     _build.load_library()
     usage = [ln.strip() for ln in _build.build_info["ptxas"].splitlines()
-             if "Used" in ln or "Compiling entry" in ln]
+             if "Used" in ln or "Compiling entry" in ln or "spill" in ln]
     emit({"phase": "build", "nvcc": _build.build_info["nvcc"],
           "library": os.path.relpath(_build.build_info["library"], HERE),
           "ptxas": usage, "seconds": time.perf_counter() - t0})
@@ -1318,7 +1320,9 @@ def phase_bench_shape(K_, T_, dev):
         """``call()`` -> (scores, ids with the certificate row), counted as
         path ``name`` together with the exact ``rerun()`` where the
         certificate is not 0; the answer held against its oracle (``want``,
-        or ``want_rerun`` for a rerun answer); then ``call`` timed alone."""
+        or ``want_rerun`` for a rerun answer); then ``call`` timed alone,
+        and where the certificate was not 0 the rerun too (``rerun_ms``;
+        ``path_ms`` is the two together)."""
         def path():
             s, packed = call()
             uncovered = T_.certificate_uncovered(packed)
@@ -1334,6 +1338,10 @@ def phase_bench_shape(K_, T_, dev):
         routes[name] = {"B": q.shape[0], "uncovered": uncovered,
                         "route": "fallback" if uncovered else "certified",
                         "ms": ms, "qps": q.shape[0] / ms * 1e3}
+        if uncovered:          # what the failed certificate costs on top
+            rerun_ms = median_ms(rerun, 3)
+            routes[name].update(rerun_ms=rerun_ms, path_ms=ms + rerun_ms,
+                                path_qps=q.shape[0] / (ms + rerun_ms) * 1e3)
 
     # 1. Certified at tile 4096, groups 8 (K1 -> K4; K6 on a nonzero
     # certificate), b1024, b512 and two sub-batches of 512.
@@ -1485,7 +1493,9 @@ def kernel_entry(name, where, by_path, rec):
              "launches_by_path": by_path,
              **{key: rec[key] for key in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")}}
+                 "library_ms")},
+             "bound_share": rec["bound_ms"] / rec["ms"],
+             "library_factor": rec["ms"] / rec["library_ms"]}
     if name == "scan_floor":
         entry["also_replaces"] = "benchmarks/sweep_r4c.py:157"
     return entry

@@ -7,77 +7,32 @@
 // (:1021-1034), the same rounds scored as K2 (ScaledOps: the cover of the
 // scaled route); K5b replaces `_extract_int8_kernel` (:1037-1050), the same
 // rounds scored as K3 (Int8Ops). For each listed tile id and each query: the
-// exact top-`rounds` rows of the tile by repeated max / argmax (lowest
-// column on ties) / mask; rows at or after `size` score -1e30.
+// exact top-`rounds` rows of the tile in the order of repeated max / argmax
+// (lowest column on ties) / mask; rows at or after `size` score -1e30; a
+// slot whose id is negative or past N writes (-1e30, 0).
 //
 // Output: val f32 [U, rounds, B] and col int32 [U, rounds, B], the column
 // local to its tile.
 //
-// Design: one block per (listed tile, group of QB queries). The block reads
-// its tile id from `tiles` itself (the TPU kernel's scalar prefetch), keeps
-// the tile's [QB x tile] scores in shared memory, and runs the rounds one
-// warp per query (extract_tile). QB follows the tile so that the scores
-// fit: 32 queries up to tile 1024 (128 KB), 8 up to 4096, 2 up to 16384.
-// The rounds loop takes any count up to the tile: the int8 search asks for
-// 64 (a 4x oversample of QueryServer's k bucket of 16).
+// Design: the streaming selection of topk_common.cuh (stream_topk_kernel):
+// one block per (listed tile, 64 queries), reading its tile id from `tiles`
+// itself (the TPU kernel's scalar prefetch); bf16 and f16 rows filtered on
+// the tensor cores and rescored by the FMA chain. At the served shape (B=64,
+// U=32) that is 32 blocks for 132 SMs, so each tile's rows are split over a
+// cluster of 2 blocks whose lists rank 0 merges through distributed shared
+// memory. Any rounds up to the tile work: above 64 in passes of 64.
 //
 // K4 bound at the f32 search path's shape (B=64, U=32 tiles of 1024 rows,
 // D=384, H100 SXM): 2*B*U*tile*D = 1.6 GFLOP of f32 FMA at 67 TFLOP/s is 24
 // us, against 50 MB of tiles at 3.35 TB/s, 15 us: operations bind. A bf16
-// corpus could use the tensor cores and bytes would bind (7.5 us).
+// corpus is scored on the tensor cores, where bytes bind (7.5 us).
 // K5b at the int8 path's shape (B=64, U=32, rounds=64): 12.6 MB of codes
 // and scales, 3.8 us, against 1.6 G int8 operations at 1,979 TOP/s, 0.8 us:
-// bytes bind; the 64 extraction rounds, not the dot, set this kernel's time.
-// K5a at the reference benchmark's int8 shape (B=1024, U=32 tiles of 4096,
-// D=128, rounds=10): 17 MB of codes and scales, 5 us, against 34 GFLOP of
-// bf16 products at 989 TFLOP/s, 35 us: operations bind; on the CUDA cores'
-// f32 FMA, as it scores here, 0.5 ms at least.
+// bytes bind. K5a at the reference benchmark's int8 shape (B=1024, U=32
+// tiles of 4096, D=128, rounds=10): 17 MB of codes and scales, 5 us,
+// against 34 GFLOP of bf16 products at 989 TFLOP/s, 35 us: operations bind;
+// on the CUDA cores' f32 FMA, as it scores here, 0.5 ms at least.
 #include "topk_common.cuh"
-
-namespace orag {
-
-template <typename Ops, int QB>
-__global__ void __launch_bounds__(kThreads)
-    extract_kernel(const Ops ops, const int* __restrict__ size_ptr,
-                   const int* __restrict__ tiles, float* __restrict__ val,
-                   int* __restrict__ col, int B, int N, int Dw, int tile,
-                   int rounds) {
-  const int slot = blockIdx.x;
-  const int t = tiles[slot];
-  if (t < 0 || (long long)t * tile >= N) {  // block-uniform: no sync skipped
-    for (int i = threadIdx.x; i < rounds * QB; i += kThreads) {
-      const int r = i / QB, b = blockIdx.y * QB + i % QB;
-      if (b < B) {
-        val[((long long)slot * rounds + r) * B + b] = kNegInf;
-        col[((long long)slot * rounds + r) * B + b] = 0;
-      }
-    }
-    return;
-  }
-  extract_tile<Ops, QB>(ops, *size_ptr, B, Dw, tile, t, slot, rounds, 0,
-                        val, col);
-}
-
-template <typename Ops>
-static int launch(const Ops& ops, const int* size, const int* tiles, int U,
-                  float* val, int* col, int B, int N, int D, int tile,
-                  int rounds, cudaStream_t stream) {
-  const int Dw = row_words<Ops>(D);
-  return with_extract_qb(tile, [&](auto qb) {
-    constexpr int QB = decltype(qb)::value;
-    const size_t smem = extract_smem_bytes<QB>(tile);
-    cudaError_t err = cudaFuncSetAttribute(
-        extract_kernel<Ops, QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid(U, (B + QB - 1) / QB);
-    extract_kernel<Ops, QB><<<grid, kThreads, smem, stream>>>(
-        ops, size, tiles, val, col, B, N, Dw, tile, rounds);
-    return (int)cudaGetLastError();
-  });
-}
-
-}  // namespace orag
 
 // K4. qT: [D, B] f32 queries already rounded to the corpus dtype; corpus:
 // [N, D] f32, bf16 or f16 (dtype code, topk_common.cuh).
@@ -87,8 +42,8 @@ extern "C" int orag_extract(const float* qT, const void* corpus, int dtype,
                             int tile, int rounds, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return orag::with_dense_ops(qT, corpus, dtype, D, [&](auto ops) {
-    return orag::launch(ops, size, tiles, U, val, col, B, N, D, tile, rounds,
-                        s);
+    return orag::launch_stream(ops, size, tiles, U, val, col, B, N, D, tile,
+                               rounds, false, s);
   });
 }
 
@@ -101,8 +56,8 @@ extern "C" int orag_extract_scaled(const float* qT, const void* corpus,
                                    int tile, int rounds, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return orag::with_scaled_ops(qT, corpus, dtype, cs, D, [&](auto ops) {
-    return orag::launch(ops, size, tiles, U, val, col, B, N, D, tile, rounds,
-                        s);
+    return orag::launch_stream(ops, size, tiles, U, val, col, B, N, D, tile,
+                               rounds, false, s);
   });
 }
 
@@ -113,7 +68,7 @@ extern "C" int orag_extract_int8(const int* qwT, const float* qs,
                                  const int* size, const int* tiles, int U,
                                  float* val, int* col, int B, int N, int D,
                                  int tile, int rounds, void* stream) {
-  return orag::launch(orag::int8_ops(qwT, qs, corpus, cs, D), size, tiles,
-                      U, val, col, B, N, D, tile, rounds,
-                      static_cast<cudaStream_t>(stream));
+  return orag::launch_stream(orag::int8_ops(qwT, qs, corpus, cs, D), size,
+                             tiles, U, val, col, B, N, D, tile, rounds,
+                             false, static_cast<cudaStream_t>(stream));
 }

@@ -54,8 +54,10 @@ NEG_INF = -1e30
 KERNELS = ("packed_extract", "extract", "tile_topk", "packed_extract_int8",
            "extract_int8", "tile_topk_scaled", "packed_extract_scaled",
            "extract_scaled", "scan_floor")
-# The largest tile whose [QB, tile] scores fit in a block's shared memory
-# (two queries a block; csrc/topk_common.cuh with_extract_qb).
+# The largest tile the selection kernels (K4, K5a, K5b, K6, K7) take. They
+# stream a tile in chunks of 128 rows at 64 queries a block, so neither
+# their shared memory nor their queries a block depend on the tile; the
+# limit is the largest tile the card tests hold them at.
 MAX_EXTRACT_TILE = 16384
 # The most unit winners (tile / groups) a packed-scan block keeps for each
 # of its 16 queries (csrc/packed_extract.cu).
@@ -425,7 +427,7 @@ def _check_cuda(q: torch.Tensor, corpus: torch.Tensor, tile: int,
                          f"dividing N={n}")
     if extract and tile > MAX_EXTRACT_TILE:
         raise ValueError(f"tile={tile} exceeds {MAX_EXTRACT_TILE}, the "
-                         "largest tile whose scores fit in shared memory")
+                         "largest tile the selection kernels are held at")
 
 
 def _check_groups(tile: int, groups: int) -> None:

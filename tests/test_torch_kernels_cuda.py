@@ -13,8 +13,10 @@ packed word names a live row whose exact score quantises to the word's
 value within 1e-5, and equals the twin's word except where a row scores
 within 1e-5 of a quantisation boundary (``packed_word_faults``). K4 and K6
 scores within 1e-5, with ids equal except between rows whose scores differ
-by less than that drift, where the kernel's row must score its value.
-K3's words and K5b's values and columns are bit for bit their twins' (the
+by less than that drift, where the kernel's row must score its value
+(K4 and K6 score bf16 and f16 rows on the tensor cores, which sum in their
+own order); exact duplicate rows in the order of their rows, the padding
+tail (-1e30, column 0) exact. K3's words and K5b's values and columns are bit for bit their twins' (the
 int8-native score is exact, at any width); K7 is held as K6 is. K2 is held
 as K1 is and K5a as K4 is, scored as the scaled route (bf16 operands, f32
 sum, x row scale): the kernels sum in ascending feature order and the twins
@@ -174,7 +176,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         K.packed_extract(q, torch.randn(300, 64, device=cuda_device), None,
                          100, 4)
     big = 2 * K.MAX_EXTRACT_TILE
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match=f"exceeds {K.MAX_EXTRACT_TILE}"):
         K.tile_topk(q, torch.randn(big, 64, device=cuda_device), None, big,
                     4)
     with pytest.raises(ValueError, match="shared memory"):
@@ -238,9 +240,8 @@ def test_scaled_kernels_match_twins(cuda_device, cdt, b):
 
 @pytest.mark.parametrize("tile", [2048, 4096, 8192, 16384])
 def test_large_tiles_match_twins(cuda_device, tile):
-    """K4, K5a, K5b, K6 and K7 at tiles whose [32, tile] scores would not
-    fit in shared memory: 8 queries a block up to 4096, 2 up to
-    MAX_EXTRACT_TILE."""
+    """K4, K5a, K5b, K6 and K7 at tiles above 1024, up to
+    MAX_EXTRACT_TILE (64 queries a block at every tile)."""
     b, d = 33, 128
     q, c = _clustered(tile, b, d=d, tile=tile, tiles=16)
     qt = torch.from_numpy(q).to(cuda_device)
@@ -410,3 +411,130 @@ def test_range_flag_raises_on_card(cuda_device, route):
         flag.zero_()
         K.packed_extract(qt, ct, 77, 128, 8, flag)   # the row is padding
         assert int(flag[0]) == 0
+
+
+# ------------------------------------------------ streaming selection corners
+
+def _corner_data(seed, b, d, tile, tiles=6):
+    """Clustered rows with two exact duplicate pairs aimed at queries 0 and
+    1: rows tile+5 and tile+9 (one chunk of 128 rows) and rows 2*tile+127
+    and 2*tile+128 (either side of a chunk border; of a tile border at tile
+    128). Returns the pairs inside one tile and a ``size`` that leaves 5
+    live rows in tile tiles-2 and none in the last tile."""
+    q, c = _clustered(seed, b, d=d, tile=tile, tiles=tiles)
+    rng = np.random.default_rng(seed + 1)
+    pairs = ((tile + 5, tile + 9), (2 * tile + 127, 2 * tile + 128))
+    for qi, (lo, hi) in enumerate(pairs):
+        row = q[qi % b] + 0.05 * rng.standard_normal(d).astype(np.float32)
+        c[lo] = c[hi] = row / np.linalg.norm(row)
+    same_tile = tuple((lo, hi) for lo, hi in pairs if lo // tile == hi // tile)
+    return q, c, same_tile, (tiles - 2) * tile + 5
+
+
+def _lower_twin_first(ids, pairs):
+    """Every exact duplicate pair: where the higher row is selected for a
+    query, the lower row is selected for it too, and earlier."""
+    ids = ids.long()
+    for lo, hi in pairs:
+        has_hi = (ids == hi).any(dim=-2)                  # [S, B]
+        if not bool(has_hi.any()):
+            continue
+        pos = torch.arange(ids.shape[-2], device=ids.device)[None, :, None]
+        big = ids.shape[-2]
+        p_lo = torch.where(ids == lo, pos, big).amin(dim=-2)
+        p_hi = torch.where(ids == hi, pos, big).amin(dim=-2)
+        assert bool((p_lo[has_hi] < p_hi[has_hi]).all()), (lo, hi)
+
+
+def _hold_selections(dev, q, c, size, tile, rounds, pairs):
+    """K4, K5a, K5b, K6 and K7 on one input against their twins; the
+    duplicate pairs in row order; the padding tail and the dead tile of K6
+    exact. K4/K6 over f32 rows (FMA) and bf16 rows (tensor cores)."""
+    qt = torch.from_numpy(q).to(dev)
+    c32 = torch.from_numpy(c).to(dev)
+    c8, cs = quantize_int8(c32)
+    q8, qs = quantize_int8(qt)
+    n_tiles = c.shape[0] // tile
+    tiles = torch.tensor([1, n_tiles - 2, 2, n_tiles - 1, 0], device=dev)
+    base = (tiles * tile)[:, None, None]
+    qb = qt.to(torch.bfloat16).float()
+    for ct in (c32, c32.to(torch.bfloat16)):
+        qk = K._scan_queries(qt, ct)
+        v, col = K.extract(qt, ct, size, tile, rounds, tiles)
+        v_p, col_p = K.extract_plain(qk, ct, size, tile, rounds, tiles)
+        _agree(qk, ct, col + base, v, col_p + base, v_p)
+        _lower_twin_first(col + base, pairs)
+        s, i = K.tile_topk(qt, ct, size, tile, rounds)
+        s_p, i_p = K.tile_topk_plain(qk, ct, size, tile, rounds)
+        _agree(qk, ct, i, s, i_p, s_p)
+        _lower_twin_first(i, pairs)
+        live = 5                               # rows of tile n_tiles - 2
+        if rounds > live:                      # the padding tail
+            assert bool((s[n_tiles - 2, live:] == K.NEG_INF).all())
+            assert bool((i[n_tiles - 2, live:] == (n_tiles - 2) * tile).all())
+            assert bool((v[1, live:] == K.NEG_INF).all())
+            assert bool((col[1, live:] == 0).all())
+        assert bool((s[n_tiles - 1] == K.NEG_INF).all())      # a dead tile
+        assert bool((i[n_tiles - 1] == (n_tiles - 1) * tile).all())
+    v, col = K.extract_scaled(qt, c8, cs, size, tile, rounds, tiles)
+    v_p, col_p = K.extract_scaled_plain(qb, c8, cs, size, tile, rounds, tiles)
+    _agree(qb, c8, col + base, v, col_p + base, v_p, row_scale=cs)
+    _lower_twin_first(col + base, pairs)
+    v, col = K.extract_int8(q8, qs, c8, cs, size, tile, rounds, tiles)
+    v_p, col_p = K.extract_int8_plain(q8, qs, c8, cs, size, tile, rounds,
+                                      tiles)
+    assert torch.equal(v, v_p) and torch.equal(col, col_p)
+    s, i = K.tile_topk_scaled(qt, c8, cs, size, tile, rounds)
+    s_p, i_p = K.tile_topk_scaled_plain(qb, c8, cs, size, tile, rounds)
+    _agree(qb, c8, i, s, i_p, s_p, row_scale=cs)
+    _lower_twin_first(i, pairs)
+
+
+@pytest.mark.parametrize("b", [1, 33, 64, 130, 1024])
+@pytest.mark.parametrize("tile", [128, 1024, 4096, 16384])
+def test_stream_selection_matches_twins(cuda_device, tile, b):
+    """K4, K5a, K5b, K6 and K7 at 10 and 64 rounds, at every tile from 128
+    to MAX_EXTRACT_TILE and batches from 1 to 1024 (one to 16 blocks of 64
+    queries; the clusters that split a tile where blocks are few): a tile
+    with fewer live rows than rounds, a dead tile, exact duplicate rows in
+    one chunk and across a chunk border."""
+    q, c, pairs, size = _corner_data(tile + b, b, 64, tile)
+    for rounds in (10, 64):
+        _hold_selections(cuda_device, q, c, size, tile, rounds, pairs)
+
+
+@pytest.mark.parametrize("rounds", [100, "tile"])
+@pytest.mark.parametrize("tile", [128, 1024])
+def test_stream_selection_in_passes_matches_twins(cuda_device, tile, rounds):
+    """rounds above the 64 a running list holds: passes of 64 below a
+    floor, up to rounds equal to the tile; D=100 stages bf16 rows value by
+    value (rows not 16-byte aligned)."""
+    rounds = tile if rounds == "tile" else rounds
+    q, c, pairs, size = _corner_data(tile + 7, 33, 100, tile)
+    _hold_selections(cuda_device, q, c, size, tile, rounds, pairs)
+
+
+def test_extract_writes_padding_for_absent_tiles(cuda_device):
+    """A listed tile id below 0 or past N gives (-1e30, 0) in every round."""
+    q, c = _clustered(3, 70, d=64, tiles=8)
+    qt = torch.from_numpy(q).to(cuda_device)
+    for ct in (torch.from_numpy(c).to(cuda_device),
+               torch.from_numpy(c).to(cuda_device, torch.bfloat16)):
+        tiles = torch.tensor([-1, 2, 8, 5], device=cuda_device)
+        v, col = K.extract(qt, ct, None, 128, 16, tiles)
+        for slot in (0, 2):
+            assert bool((v[slot] == K.NEG_INF).all())
+            assert bool((col[slot] == 0).all())
+        ok = tiles[[1, 3]]
+        v_p, col_p = K.extract_plain(K._scan_queries(qt, ct), ct, None, 128,
+                                     16, ok)
+        base = (ok * 128)[:, None, None]
+        _agree(K._scan_queries(qt, ct), ct, col[[1, 3]] + base, v[[1, 3]],
+               col_p + base, v_p)
+
+
+def test_wide_bf16_rows_take_the_fma_stage(cuda_device):
+    """bf16 rows wider than the tensor-core stage takes (kMmaMaxD, or its
+    shared memory) are scored by FMA: the same holds at D=640."""
+    q, c, pairs, size = _corner_data(5, 70, 640, 1024)
+    _hold_selections(cuda_device, q, c, size, 1024, 16, pairs)

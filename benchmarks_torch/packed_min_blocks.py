@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the packed scans (K1, K2, K3) under their two register policies.
+"""Time the FMA packed scans (K1 over f32 rows, K2, K3) under their two
+register policies (K1 over bf16/f16 rows runs csrc/scan_mma.cuh instead).
 
     python3 benchmarks_torch/packed_min_blocks.py      # needs one CUDA card
 
@@ -9,9 +10,9 @@ blocks' shared memory fits an SM, and one block (no cap) elsewhere. This
 script builds the kernels three times, as shipped and with the policy
 forced to 3 and to 1 at every tile (``-DORAG_PACKED_MIN_BLOCKS``), and
 times each scan at the shapes its paths give it: tile 1024 at the served
-shapes (B=64, D=384; f32 and bf16 rows 4,194,304, int8 codes 16,777,216)
-and tile 4096 at the reference benchmark's (B=1024, D=128, 10,485,760 rows
-of bf16 or int8 codes). The builds' order alternates (as shipped, 3, 1, 1,
+shapes (B=64, D=384; f32 rows 4,194,304, int8 codes 16,777,216) and tile
+4096 at the reference benchmark's (B=1024, D=128, 10,485,760 rows of int8
+codes). The builds' order alternates (as shipped, 3, 1, 1,
 3, as shipped) and each time is a CUDA-event median. Prints one JSON line
 per shape, then ptxas's registers per variant, then nvidia-smi's name and
 power limit.
@@ -105,8 +106,6 @@ def main() -> None:
             shapes.append(("K1 f32", tile, lambda q=q, c=rows, t=tile:
                            K_.packed_extract(q, c, None, t, 8)))
         c16 = rows.to(torch.bfloat16)
-        shapes.append(("K1 bf16", tile, lambda q=q, c=c16, t=tile:
-                       K_.packed_extract(q, c, None, t, 8)))
         if tile == 1024:              # the served int8 index is 4x larger
             del rows
             rows = torch.cat([unit_rows(n, d, gen, dev, torch.float32)

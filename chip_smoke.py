@@ -15,7 +15,9 @@ Phases, each printing one JSON line with its seconds:
                top-k over f32 and bf16 rows (K1's words held by value and
                by the row their column bits name), F (the scan floor) over
                bf16 rows, then K3, K5b (bit for bit), K7, K2 (held as K1)
-               and K5a (as K4) over int8 rows;
+               and K5a (as K4) over int8 rows; then the tensor-core scan's
+               raw sums on adversarial operands within the rounding bound
+               of csrc/scan_mma.cuh (D=128 and 384, full and split);
 4. ``slice_f32``  the pretrained BiEncoder embeds the qa_docs chunks into a
                DenseIndex filled to 4,194,304 rows (6.4 GB f32) with clustered
                synthetic rows and contiguous near-duplicate runs; a
@@ -485,23 +487,29 @@ def hold_call(K_, T_, name, args, reps, where, plain_reps=None):
                                  "from the twin's")
         rec.update(max_abs_err=0.0, tolerance=0.0)
     elif name.startswith("packed"):
-        step = 2.0 ** -12                 # quantisation step on (2, 4)
+        step = tile * 2.0 ** -22          # quantisation step on (2, 4)
         lb_err = float((T_._unpack_lb(out, tile) - T_._unpack_lb(ref, tile))
                        .abs().max())
         faults, boundary = K_.packed_word_faults(
             qt, corpus, size, tile, out, ref, drift=TIE_TOL, row_scale=cs,
-            rows_dtype=rows_dtype)
+            rows_dtype=rows_dtype, groups=m)
         if lb_err > step or faults:
             raise AssertionError(f"{where} {name}: lower bounds differ by "
                                  f"{lb_err:.3g} (step {step:.3g}), {faults} "
                                  "words name a wrong row or value")
+        # The measured counterpart of the scan's accumulation bound: the
+        # largest difference of the words' values where both name a row.
+        same = (out & (tile - 1)) == (ref & (tile - 1))
+        score_diff = float(torch.where(
+            same, (T_._unpack_lb(out, tile) - T_._unpack_lb(ref, tile))
+            .abs(), 0.0).max())
         rec.update(max_abs_err=lb_err, tolerance=step,
-                   boundary_words=boundary)
+                   boundary_words=boundary, score_diff=score_diff)
     elif name == "scan_floor":
         err = float((out - ref).abs().max())
         if not err <= TIE_TOL:
             raise AssertionError(f"{where} scan_floor: {err:.3g} > {TIE_TOL}")
-        rec.update(max_abs_err=err, tolerance=TIE_TOL)
+        rec.update(max_abs_err=err, tolerance=TIE_TOL, score_diff=err)
     else:
         (v, i), (v_p, i_p) = out, ref
         i, i_p = i.long(), i_p.long()
@@ -654,6 +662,18 @@ def phase_kernels(K_, T_, dev):
                 emit({"phase": "kernels", "kernel": name, "dtype": "int8",
                       "launches": launches[name], **rec})
     del corpus32, centers, q_all, c8, cs
+    # The scan's tensor-core sums against the bound its certificate rests
+    # on (csrc/scan_mma.cuh), on operands that press on it.
+    from optimized_rag_tpu_torch.ops import scan_rounding as R
+    for d, mode in ((128, "full"), (DIM, "full"), (DIM, "split")):
+        q, c = R.operands(SEED + d, 1024, 16384, d, torch.bfloat16, dev)
+        ratio = R.rounding_ratio(q, c, K_.scan_sums(
+            q, c, BENCH_TILE, split=mode == "split"), mode)
+        emit({"phase": "kernels", "check": "scan_rounding", "d": d,
+              "mode": mode, "ratio_to_bound": ratio})
+        if not ratio <= 1.0:
+            raise AssertionError(f"scan rounding at D={d} ({mode}): "
+                                 f"{ratio:.3g} of its bound")
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
 
@@ -1368,7 +1388,7 @@ def phase_bench_shape(K_, T_, dev):
     w = K_.packed_extract(q_head, corpus, None, tile, GROUPS)
     w_p = K_.packed_extract_plain(qs, corpus, None, tile, GROUPS)
     faults, boundary = K_.packed_word_faults(qs, corpus, None, tile, w, w_p,
-                                             drift=TIE_TOL)
+                                             drift=TIE_TOL, groups=GROUPS)
     on_boundary = (w != w_p).any(dim=1).any(dim=0)          # [B]
     del w, w_p
     differ = (a_i != p_i).any(dim=1) | (a_s != p_s).any(dim=1)
@@ -1485,9 +1505,17 @@ SOURCES = {"packed_extract": ("optimized_rag_tpu_torch/csrc/packed_extract.cu",
                           "benchmarks/sweep_r4_kernel.py:128")}
 
 
+# K1 and F over bf16/f16 rows: the tensor-core scan.
+MMA_SCAN_SOURCE = "optimized_rag_tpu_torch/csrc/scan_mma.cuh"
+
+
 def kernel_entry(name, where, by_path, rec):
-    """One entry of the final ``kernels`` line."""
+    """One entry of the final ``kernels`` line; the packed scans' and F's
+    carry ``score_diff``, their largest score difference from the twin."""
     source, replaces = SOURCES[name]
+    if name in ("packed_extract", "scan_floor") and \
+            where.split()[0] in ("bf16", "f16"):
+        source = MMA_SCAN_SOURCE
     entry = {"name": f"{name}[{where}]", "route": "cuda", "source": source,
              "replaces": replaces, "launches": sum(by_path.values()),
              "launches_by_path": by_path,
@@ -1496,6 +1524,8 @@ def kernel_entry(name, where, by_path, rec):
                  "library_ms")},
              "bound_share": rec["bound_ms"] / rec["ms"],
              "library_factor": rec["ms"] / rec["library_ms"]}
+    if "score_diff" in rec:
+        entry["score_diff"] = rec["score_diff"]
     if name == "scan_floor":
         entry["also_replaces"] = "benchmarks/sweep_r4c.py:157"
     return entry

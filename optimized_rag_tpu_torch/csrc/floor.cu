@@ -11,6 +11,9 @@
 // scored as K1 (DenseOps: the query rounded to the corpus dtype, f32 FMA in
 // ascending order). Every row counts (the reference's floor masks nothing).
 //
+// Over bf16 and f16 rows F runs the tensor-core scan of scan_mma.cuh with
+// its max epilogue (wgmma fed by TMA). What follows is F over f32 rows.
+//
 // Design: K1's block (one block per tile and group of 64 queries, the same
 // ScoreBlock and thread layout) with a max epilogue: each thread keeps the
 // running max of its 4 queries over its rows in registers, then the 16
@@ -21,10 +24,11 @@
 // Bound at the reference benchmark's shape (B=1024, N=10,485,760, D=128,
 // bf16 rows, tile 4096, H100 SXM): 2.75 TFLOP at 989 TFLOP/s on the tensor
 // cores, 2.78 ms, against 2.68 GB of rows at 3.35 TB/s, 0.80 ms: operations
-// bind. This first kernel runs f32 FMA on the CUDA cores: at 67 TFLOP/s the
-// same work takes at least 41 ms.
+// bind: the tensor-core scan's bound. On the CUDA cores' f32 FMA, at 67
+// TFLOP/s, the same work would take at least 41 ms.
 #include <math.h>
 
+#include "scan_mma.cuh"
 #include "topk_common.cuh"
 
 namespace orag {
@@ -85,13 +89,46 @@ static int launch(const Ops& ops, float* out, int B, int N, int D, int tile,
 
 }  // namespace orag
 
-// F. qT: [D, B] f32 queries already rounded to the corpus dtype; corpus:
-// [N, D] f32, bf16 or f16 (dtype code, topk_common.cuh); out: f32 [T, 1, B].
-extern "C" int orag_scan_floor(const float* qT, const void* corpus,
-                               int dtype, float* out, int B, int N, int D,
-                               int tile, void* stream) {
+// F. qT: [D, B] f32 queries already rounded to the corpus dtype; qh: the
+// same queries [B, D] in the corpus dtype (bf16 and f16 rows; else null);
+// corpus: [N, D] f32, bf16 or f16 (dtype code, topk_common.cuh); out: f32
+// [T, 1, B]. bf16 and f16 rows take the tensor-core scan (scan_mma.cuh) in
+// the accumulation the caller picked (`split`), f32 rows the FMA kernel
+// above (split 0).
+extern "C" int orag_scan_floor(const float* qT, const void* qh,
+                               const void* corpus, int dtype, float* out,
+                               int B, int N, int D, int tile, int split,
+                               void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return orag::with_dense_ops(qT, corpus, dtype, D, [&](auto ops) {
-    return orag::launch(ops, out, B, N, D, tile, s);
-  });
+  namespace sc = orag::scan;
+  if (dtype == orag::kBF16)
+    return sc::launch<__nv_bfloat16, sc::kFloor>(
+        qT, qh, corpus, nullptr, out, nullptr, B, N, D, tile, 1, split, s);
+  if (dtype == orag::kF16)
+    return sc::launch<__half, sc::kFloor>(qT, qh, corpus, nullptr, out,
+                                          nullptr, B, N, D, tile, 1, split,
+                                          s);
+  if (dtype != orag::kF32 || split) return (int)cudaErrorInvalidValue;
+  return orag::launch(
+      orag::DenseOps<float>{qT, static_cast<const float*>(corpus), D}, out, B,
+      N, D, tile, s);
+}
+
+// The tensor-core scan's raw sums over bf16 or f16 rows, f32 [N, B], in
+// full (split 0) or split (1) accumulation: the main loop of K1 and F with
+// a store epilogue, by which the card tests hold its rounding to the bound
+// of scan_mma.cuh. Arguments as orag_scan_floor's; N a multiple of tile.
+extern "C" int orag_scan_sums(const float* qT, const void* qh,
+                              const void* corpus, int dtype, float* out,
+                              int B, int N, int D, int tile, int split,
+                              void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  namespace sc = orag::scan;
+  if (dtype == orag::kBF16)
+    return sc::launch<__nv_bfloat16, sc::kRaw>(
+        qT, qh, corpus, nullptr, out, nullptr, B, N, D, tile, 1, split, s);
+  if (dtype == orag::kF16)
+    return sc::launch<__half, sc::kRaw>(qT, qh, corpus, nullptr, out,
+                                        nullptr, B, N, D, tile, 1, split, s);
+  return (int)cudaErrorInvalidValue;
 }

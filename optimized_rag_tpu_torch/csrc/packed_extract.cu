@@ -18,6 +18,10 @@
 // *flag = 1 when a live row scores outside (-2, 2) (the certified path's
 // precondition, which the reference leaves unchecked on the device).
 //
+// K1 over bf16 and f16 rows runs the tensor-core scan of scan_mma.cuh
+// (wgmma fed by TMA, register packing); what follows is K1 over f32 rows,
+// K2 and K3.
+//
 // Design: one block per (tile, group of QB queries), QB = 64, or 16 where
 // 64 queries' unit winners [64, tile/G] would not fit in shared memory
 // (tile/G > 768). The block walks its tile in chunks of 128 rows; each
@@ -31,14 +35,14 @@
 // SXM): 2*B*N*D = 206 GFLOP of f32 FMA on the CUDA cores (TF32 is a
 // different function) at 67 TFLOP/s is 3.1 ms, against 6.4 GB of corpus at
 // 3.35 TB/s, 1.9 ms: operations bind. A bf16 corpus halves the bytes (1.0
-// ms), and its bf16 x bf16 products could run on the tensor cores, so bytes
-// bind there. This first kernel scores on the CUDA cores in both cases.
+// ms), and its bf16 x bf16 products run on the tensor cores
+// (scan_mma.cuh), so bytes bind there.
 //
 // K1 and K2 at the reference benchmark's shape (B=1024, N=10,485,760,
 // D=128, bf16 rows or int8 codes, tile 4096): 2.75 TFLOP, 2.78 ms on the
 // tensor cores at 989 TFLOP/s against 0.80 ms of bf16 bytes (0.41 ms of
-// codes and scales): operations bind. On the CUDA cores' f32 FMA, as both
-// score here, the same work cannot take less than 41 ms.
+// codes and scales): operations bind. On the CUDA cores' f32 FMA, as K2
+// scores here, the same work cannot take less than 41 ms.
 //
 // K3 bound at the int8 search path's shape (B=64, N=16,777,216, D=384):
 // 6.44 GB of codes plus 67 MB of row scales at 3.35 TB/s is 1.9 ms, against
@@ -46,6 +50,7 @@
 // bind. This first K3 scores on the CUDA cores with __dp4a (4 multiply-adds
 // an instruction, exact in int32), which is not enough for the byte bound:
 // the tensor cores' s8 x s8 -> s32 path is the later step.
+#include "scan_mma.cuh"
 #include "topk_common.cuh"
 
 namespace orag {
@@ -170,16 +175,30 @@ static int launch(const Ops& ops, const int* size, int* out, int* flag,
 
 }  // namespace orag
 
-// K1. qT: [D, B] f32 queries already rounded to the corpus dtype; corpus:
-// [N, D] f32, bf16 or f16 (dtype code, topk_common.cuh); flag: int32 [1].
-extern "C" int orag_packed_extract(const float* qT, const void* corpus,
-                                   int dtype, const int* size, int* out,
-                                   int* flag, int B, int N, int D, int tile,
-                                   int groups, void* stream) {
+// K1. qT: [D, B] f32 queries already rounded to the corpus dtype; qh: the
+// same queries [B, D] in the corpus dtype (bf16 and f16 rows; else null);
+// corpus: [N, D] f32, bf16 or f16 (dtype code, topk_common.cuh); flag:
+// int32 [1]. bf16 and f16 rows take the tensor-core scan (scan_mma.cuh) in
+// the accumulation the caller picked from that header's bound (`split`);
+// f32 rows the FMA kernel above (split 0).
+extern "C" int orag_packed_extract(const float* qT, const void* qh,
+                                   const void* corpus, int dtype,
+                                   const int* size, int* out, int* flag,
+                                   int B, int N, int D, int tile, int groups,
+                                   int split, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return orag::with_dense_ops(qT, corpus, dtype, D, [&](auto ops) {
-    return orag::launch(ops, size, out, flag, B, N, D, tile, groups, s);
-  });
+  namespace sc = orag::scan;
+  if (dtype == orag::kBF16)
+    return sc::launch<__nv_bfloat16, sc::kPack>(qT, qh, corpus, size, out,
+                                                flag, B, N, D, tile, groups,
+                                                split, s);
+  if (dtype == orag::kF16)
+    return sc::launch<__half, sc::kPack>(qT, qh, corpus, size, out, flag, B,
+                                         N, D, tile, groups, split, s);
+  if (dtype != orag::kF32 || split) return (int)cudaErrorInvalidValue;
+  return orag::launch(
+      orag::DenseOps<float>{qT, static_cast<const float*>(corpus), D}, size,
+      out, flag, B, N, D, tile, groups, s);
 }
 
 // K2. qT: [D, B] f32 queries already rounded to bf16; corpus: [N, D] int8

@@ -1,6 +1,7 @@
 // Shared device code of the top-k kernels (packed_extract.cu, extract.cu,
 // tile_topk.cu, floor.cu): the score block, its three operand policies and
-// the streaming per-tile selection of K4, K5a, K5b, K6 and K7.
+// the streaming per-tile selection of K4, K5a, K5b, K6 and K7. The
+// tensor-core scan of K1 and F over 16-bit rows is in scan_mma.cuh.
 //
 // Scoring functions, each identical in its kernels and in the PyTorch code
 // that rescores their candidates:
@@ -8,12 +9,17 @@
 // * DenseOps (K1, K4, K6, F; f32, bf16 or f16 rows): queries arrive as f32
 //   values already rounded to the corpus dtype; bf16 and f16 corpus values
 //   are widened to f32 (a bf16 x bf16 or f16 x f16 product is exact in
-//   f32); every dot product accumulates in f32 FMA over the feature axis in
-//   ascending order, except in the selection kernels K4 and K6, which score
-//   bf16 and f16 rows on the tensor cores (exact products, f32 accumulation
-//   in the tensor cores' order). No TF32 anywhere: the packed certificate's
-//   cushion is two quantisation steps (~2.4e-4 at tile=1024), and TF32
-//   rounding (~1e-3) would exceed it.
+//   f32); over f32 rows every dot product accumulates in f32 FMA over the
+//   feature axis in ascending order. Over bf16 and f16 rows the products
+//   run on the tensor cores (exact products, f32 accumulation in the tensor
+//   cores' order): the selections K4 and K6 use them as a filter and
+//   rescore every possible entrant by the ascending FMA chain (MmaStage
+//   below); the packed scan K1 and the floor F keep the tensor cores' sums
+//   (scan_mma.cuh, whose header bounds their rounding within one
+//   quantisation step of the certificate, and refuses the (tile, D) pairs
+//   where it is not). No TF32 anywhere: the packed certificate's cushion is
+//   two quantisation steps (~2.4e-4 at tile=1024), and TF32 rounding
+//   (~1e-3) would exceed it.
 // * Int8Ops (K3, K5b; int8-native): int8 query codes against int8 row codes,
 //   an exact int32 dot by __dp4a (4 codes a word; a last partial word is
 //   padded with zero codes), then (float(i32) * row_scale) * query_scale,

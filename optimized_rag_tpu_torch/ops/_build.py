@@ -36,8 +36,10 @@ build_info: dict = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # qT, corpus, dtype, size, out, flag, B, N, D, tile, groups, stream
-    "orag_packed_extract": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qT, qh, corpus, dtype, size, out, flag, B, N, D, tile, groups, split,
+    # stream
+    "orag_packed_extract": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _P],
     # qT, corpus, dtype, cs, size, out, flag, B, N, D, tile, groups, stream
     "orag_packed_extract_scaled": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _P],
@@ -60,8 +62,10 @@ _SIGNATURES = {
     # qT, corpus, dtype, cs, size, s, idx, B, N, D, tile, tile_k, stream
     "orag_tile_topk_scaled": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _P],
-    # qT, corpus, dtype, out, B, N, D, tile, stream
-    "orag_scan_floor": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
+    # qT, qh, corpus, dtype, out, B, N, D, tile, split, stream
+    "orag_scan_floor": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # qT, qh, corpus, dtype, out, B, N, D, tile, split, stream
+    "orag_scan_sums": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

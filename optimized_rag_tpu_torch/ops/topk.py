@@ -319,11 +319,16 @@ def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     Ports ``pallas_topk_certified``.
 
     queries [B, D] normalised (scores in (-2, 2)); corpus [N, D] with
-    N % tile == 0 and 2*(N/tile) > k. Returns (scores [B, k] f32,
-    ids [B+1, k] int64) with ids[B, 0] the uncovered count: 0 means exact
-    for the scan's scoring; otherwise rerun with ``tiled_topk``. Read it
-    with ``certificate_uncovered``, which raises when a live score lay
-    outside (-2, 2) (the count then reads -1).
+    N % tile == 0 and 2*(N/tile) > k. Over bf16/f16 rows on the card the
+    scan keeps the tensor cores' sums, whose rounding bound
+    (csrc/scan_mma.cuh) needs rows of norm at most 1 + 2**-8, as
+    ``DenseIndex.add`` makes them, and queries within
+    ``topk_kernels.scan_query_norm_limit`` (checked on the card). Returns
+    (scores [B, k] f32, ids [B+1, k] int64) with ids[B, 0] the uncovered
+    count: 0 means exact for the scan's scoring; otherwise rerun with
+    ``tiled_topk``. Read it with ``certificate_uncovered``, which raises
+    when a live score lay outside (-2, 2) or a query's norm past that limit
+    (the count then reads -1).
 
     c1 rescored exactly the top-R candidates with their full strided units;
     c2 takes the exact per-tile top-k (K4) of the union of tiles whose

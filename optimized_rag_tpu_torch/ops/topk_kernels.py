@@ -23,6 +23,15 @@ sweeps:
   ``benchmarks/sweep_r4c.py:157`` (F2), one function: the per-tile max of
   K1's scores.
 
+K1 and F over bf16/f16 rows score on the tensor cores (wgmma fed by TMA,
+f32 accumulation, ``csrc/scan_mma.cuh``) and keep those sums: K1's words
+are quantised bounds, and ``scan_accumulation`` admits only the (tile, D)
+pairs where the tensor cores' rounding plus the c1 rescore's stays within
+one quantisation step, for normalised queries and rows (the card checks
+the queries' norms into the range flag). Over f32 rows they run f32 FMA on
+the CUDA cores. ``scan_sums`` exposes the tensor cores' raw sums, by which
+the card tests hold that rounding to its bound.
+
 K1, K4, K6 and F cast the queries to the corpus dtype (the TPU kernels'
 operand cast) and widen them to float32; K2, K5a and K7 round them to bf16.
 A CPU corpus takes the plain twin (``*_plain``, torch.matmul in float32 plus
@@ -62,8 +71,9 @@ MAX_EXTRACT_TILE = 16384
 # The most unit winners (tile / groups) a packed-scan block keeps for each
 # of its 16 queries (csrc/packed_extract.cu).
 MAX_UNITS = 2048
-RANGE_ERROR = ("certified top-k needs every score in (-2, 2); normalize "
-               "queries and corpus rows")
+RANGE_ERROR = ("certified top-k needs every score in (-2, 2), and over "
+               "bf16/f16 rows on the card normalised queries (the scan's "
+               "rounding bound); normalize queries and corpus rows")
 
 _counts_lock = threading.Lock()
 _launches = dict.fromkeys(KERNELS, 0)
@@ -201,40 +211,105 @@ def _named_row_scores(q, corpus, words, tile, row_scale=None,
     return rows.view(words.shape), s.view(words.shape)
 
 
+# The most (tile, query) pairs whose differing words ``packed_word_faults``
+# examines against every row of their tile.
+_MAX_PAIRS_HELD = 1 << 14
+
+
+def _tile_scores(q, corpus, t, b, tile, row_scale, rows_dtype):
+    """f32 scores [P, tile] of every row of tile t[p] for query b[p], by the
+    rowwise dot of ``_named_row_scores``."""
+    rows = t[:, None] * tile + torch.arange(tile, device=corpus.device)
+    r = corpus[rows]
+    if rows_dtype is not None:
+        r = r.to(rows_dtype)
+    s = (r.float() * q[b][:, None, :]).sum(-1)
+    if row_scale is not None:
+        s = s * row_scale[rows]
+    return rows, s
+
+
+def _pairs_admissible(q, corpus, size, tile, groups, words, t, b, drift,
+                      row_scale, rows_dtype, block_rows=1 << 16):
+    """bool [P]: whether the two words of (tile t[p], query b[p]) are K1's
+    exact packing of that tile for some scores each within ``drift`` of
+    the row's own (dead rows pack to their column alone): both words
+    reachable by the rows they name, in distinct units, the first above the
+    second, and every other row's lowest reachable word below the first
+    (in the first's unit) or below the second (elsewhere)."""
+    small = tile // groups
+    cols = torch.arange(tile, device=corpus.device, dtype=torch.int32)
+    unit = cols % small
+    ok = torch.zeros(t.shape[0], dtype=torch.bool, device=corpus.device)
+    step = max(1, block_rows // tile)
+    for lo in range(0, t.shape[0], step):
+        tt, bb = t[lo:lo + step], b[lo:lo + step]
+        rows, s = _tile_scores(q, corpus, tt, bb, tile, row_scale,
+                               rows_dtype)
+        live = rows < size
+        low = torch.where(live, _quantise(s - drift, tile), 0) | cols
+        high = torch.where(live, _quantise(s + drift, tile), 0) | cols
+        w1, w2 = words[tt, 0, bb], words[tt, 1, bb]
+        c1, c2 = (w1 & (tile - 1)).long(), (w2 & (tile - 1)).long()
+
+        def reachable(w, c):
+            return ((low.gather(1, c[:, None])[:, 0] <= w)
+                    & (w <= high.gather(1, c[:, None])[:, 0]))
+        good = (w1 > w2) & reachable(w1, c1)
+        others = cols[None, :] != c1[:, None]
+        if small > 1:
+            good &= reachable(w2, c2) & (unit[c1] != unit[c2])
+            others &= cols[None, :] != c2[:, None]
+        else:                          # one unit: no second winner
+            good &= w2 == 0
+        below = torch.where(unit[None, :] == unit[c1][:, None], w1[:, None],
+                            w2[:, None])
+        good &= ~(others & (low >= below)).any(dim=1)
+        ok[lo:lo + step] = good
+    return ok
+
+
 def packed_word_faults(q: torch.Tensor, corpus: torch.Tensor, size,
                        tile: int, words: torch.Tensor, ref: torch.Tensor,
                        drift: float = 1e-5, row_scale=None,
-                       rows_dtype=None):
+                       rows_dtype=None, groups: int = 8):
     """Hold packed words [T, 2, B] (K1's, or K2's with ``row_scale`` and
     ``rows_dtype``) against the rows they name.
 
     ``q`` are the scan queries (``_scan_queries``, or rounded to bf16 for
-    K2); ``words`` and ``ref`` are two computations of the scan's function,
-    a kernel's and its twin's. A word is at fault when its value bits are
-    nonzero and its column names a row at or after ``size``, or a row whose
-    exact score, moved by up to ``drift`` either way, does not quantise to
-    those bits; or when it differs from ``ref`` although neither word's row
-    scores within ``drift`` of a quantisation boundary (words of dead rows
-    must be equal).
+    K2); ``words`` and ``ref`` are two computations of the scan's function
+    at ``groups``, a kernel's and its twin's. A word is at fault when its
+    value bits are nonzero and its column names a row at or after
+    ``size``, or a row whose exact score, moved by up to ``drift`` either
+    way, does not quantise to those bits; or when it differs from ``ref``
+    and the two words of its tile and query are not the exact packing of
+    that tile for any scores within ``drift`` of the exact ones
+    (``_pairs_admissible``). So a row within ``drift`` of a quantisation
+    boundary may move its own word by one step, and the words' order with
+    it (one scan ranks it first where the other ranks it below two rows of
+    its lower step), but no other word may stand in for it. Past
+    ``_MAX_PAIRS_HELD`` differing (tile, query) pairs (a kernel that far
+    off is at fault anyway) the rest count as faults unexamined.
 
     Returns (faults, boundary): the count of words at fault, and of words
-    that differ from ``ref`` only where a row sits on a boundary.
+    that differ from ``ref`` only as such a boundary row explains.
     """
     size = corpus.shape[0] if size is None else size
-    live, near = [], []
-    for w in (words, ref):
-        rows, s = _named_row_scores(q, corpus, w, tile, row_scale,
-                                    rows_dtype)
-        lo, hi = _quantise(s - drift, tile), _quantise(s + drift, tile)
-        value = w & -tile
-        live.append(value != 0)
-        near.append(lo != hi)
-        if w is words:
-            wrong = live[0] & ((rows >= size) | (value < lo) | (value > hi))
+    rows, s = _named_row_scores(q, corpus, words, tile, row_scale,
+                                rows_dtype)
+    lo, hi = _quantise(s - drift, tile), _quantise(s + drift, tile)
+    value = words & -tile
+    wrong = (value != 0) & ((rows >= size) | (value < lo) | (value > hi))
     differ = words != ref
-    on_boundary = differ & live[0] & live[1] & (near[0] | near[1])
-    fault = wrong | (differ & ~on_boundary)
-    return int(fault.sum()), int((on_boundary & ~fault).sum())
+    t, b = differ.any(dim=1).nonzero(as_tuple=True)
+    t, b = t[:_MAX_PAIRS_HELD], b[:_MAX_PAIRS_HELD]
+    pair_ok = torch.zeros(differ.shape[0], differ.shape[2], dtype=torch.bool,
+                          device=words.device)
+    pair_ok[t, b] = _pairs_admissible(q, corpus, size, tile, groups, words,
+                                      t, b, drift, row_scale, rows_dtype)
+    explained = differ & pair_ok[:, None, :]
+    fault = wrong | (differ & ~explained)
+    return int(fault.sum()), int((explained & ~fault).sum())
 
 
 def _extract_rounds_plain(s: torch.Tensor, rounds: int):
@@ -439,6 +514,82 @@ def _check_groups(tile: int, groups: int) -> None:
                          "memory")
 
 
+# The widest rows (in features, rounded up to 16) the tensor-core scan sums
+# in full accumulation: its truncation drifts one way, about a unit in the
+# last place a k16 step (csrc/scan_mma.cuh).
+MAX_FULL_ACCUMULATION_D = 640
+
+
+def scan_accumulation(tile: int | None, d: int) -> str | None:
+    """How K1 (``tile``) or F (``tile`` None) over bf16/f16 rows accumulates
+    on the tensor cores at D: "full", "split" (each k16 step apart, then an
+    f32 sum), or None where neither bound on the tensor cores' rounding,
+    plus the c1 rescore's, stays within one quantisation step of K1's
+    certificate. Full only to D16 = ``MAX_FULL_ACCUMULATION_D``; F has no
+    certificate (csrc/scan_mma.cuh, its header's argument). The one home
+    of that rule: the wrappers pass the mode to the kernel."""
+    d16 = (d + 15) // 16 * 16
+    if tile is None:
+        return "full" if d16 <= MAX_FULL_ACCUMULATION_D else "split"
+    quantum = 4.0 * tile
+    if (d16 <= MAX_FULL_ACCUMULATION_D
+            and 1.01 * (2.5 * d16 + d) <= quantum):
+        return "full"
+    if 1.01 * (40.0 + d16 / 16 + d) <= quantum:
+        return "split"
+    return None
+
+
+def scan_rounding_units(d: int, mode: str) -> float:
+    """delta(D) / (u S) of csrc/scan_mma.cuh's bound, u = 2**-24 and S the
+    sum of |q_i c_i|: 2.5 D16 in full accumulation, 40 + D16/16 split."""
+    d16 = (d + 15) // 16 * 16
+    return 2.5 * d16 if mode == "full" else 40.0 + d16 / 16
+
+
+def scan_drift_bound(tile: int, d: int) -> float:
+    """delta(D): the bound of csrc/scan_mma.cuh on |tensor-core sum - exact
+    sum| of one K1 score over normalised bf16/f16 operands, at the
+    accumulation ``scan_accumulation`` picks (u = 2**-24, |q||c| < 1.01)."""
+    mode = scan_accumulation(tile, d)
+    if mode is None:
+        raise ValueError(f"tile={tile}, D={d}: no accumulation is covered")
+    return 1.01 * scan_rounding_units(d, mode) * 2.0 ** -24
+
+
+def scan_query_norm_limit(tile: int, d: int) -> float:
+    """The largest query norm for which K1's bound holds at (tile, D),
+    against rows of norm at most 1 + 2**-8: S (delta(D) + D) u <= one
+    quantum, S <= |q| |c|."""
+    mode = scan_accumulation(tile, d)
+    if mode is None:
+        raise ValueError(f"tile={tile}, D={d}: no accumulation is covered")
+    s_max = 4.0 * tile / (scan_rounding_units(d, mode) + d)
+    return s_max / (1.0 + 2.0 ** -8)
+
+
+def _scan_split(corpus: torch.Tensor, tile: int) -> int:
+    """K1's accumulation over bf16/f16 rows (1 split, 0 full); raises at
+    (tile, D) pairs its bound does not cover. f32 rows: 0 (FMA)."""
+    if corpus.dtype == torch.float32:
+        return 0
+    mode = scan_accumulation(tile, corpus.shape[1])
+    if mode is None:
+        raise ValueError(f"tile={tile}, D={corpus.shape[1]}: the tensor "
+                         "cores' rounding could exceed the certificate's "
+                         "quantisation step (csrc/scan_mma.cuh); use a "
+                         "larger tile")
+    return int(mode == "split")
+
+
+def _half_queries(q: torch.Tensor, corpus: torch.Tensor):
+    """The scan queries [B, D] as the corpus' 16-bit values (exact: they are
+    already rounded to it), for the tensor-core scan; None over f32 rows."""
+    if corpus.dtype == torch.float32:
+        return None
+    return q.to(corpus.dtype).contiguous()
+
+
 def _check_rounds(rounds: int, tile: int, what: str = "rounds") -> None:
     if not 1 <= rounds <= tile:
         raise ValueError(f"{what}={rounds} outside [1, tile={tile}]")
@@ -472,30 +623,40 @@ def _launch(name: str, fn, corpus: torch.Tensor, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.orag_error_string(err).decode()}")
-    with _counts_lock:
-        _launches[name] += 1
+    if name in _launches:
+        with _counts_lock:
+            _launches[name] += 1
 
 
 def packed_extract(queries: torch.Tensor, corpus: torch.Tensor, size,
                    tile: int, groups: int = 8, flag=None) -> torch.Tensor:
     """Per-tile top-2 packed unit winners, int32 [T, 2, B] (the bits
     ``_packed_pass`` returns as float32). ``flag`` (int32 [1], on the card)
-    is set to 1 when a live score lies outside (-2, 2)."""
+    is set to 1 when a live score lies outside (-2, 2), and over bf16/f16
+    rows also when a query's norm exceeds ``scan_query_norm_limit``: the
+    tensor-core scan's rounding bound needs normalised queries and rows of
+    norm at most 1 + 2**-8."""
     q = _scan_queries(queries, corpus)
     if corpus.device.type == "cpu":
         return packed_extract_plain(q, corpus, size, tile, groups)
     _check_cuda(q, corpus, tile)
     _check_groups(tile, groups)
+    split = _scan_split(corpus, tile)
     n, d = corpus.shape
     b = q.shape[0]
-    qT = q.T.contiguous()
+    qT, qh = q.T.contiguous(), _half_queries(q, corpus)
     size_t = _size_arg(size, n, corpus.device)
     flag_t = _flag_arg(flag, corpus.device)
+    if qh is not None:           # on the card, no host sync
+        limit = scan_query_norm_limit(tile, d)
+        flag_t.bitwise_or_((q.square().sum(1).amax() > limit * limit)
+                           .to(torch.int32))
     out = torch.empty((n // tile, 2, b), dtype=torch.int32,
                       device=corpus.device)
     _launch("packed_extract", "orag_packed_extract", corpus, qT.data_ptr(),
-            corpus.data_ptr(), _DTYPE_CODE[corpus.dtype], size_t.data_ptr(),
-            out.data_ptr(), flag_t.data_ptr(), b, n, d, tile, groups)
+            None if qh is None else qh.data_ptr(), corpus.data_ptr(),
+            _DTYPE_CODE[corpus.dtype], size_t.data_ptr(), out.data_ptr(),
+            flag_t.data_ptr(), b, n, d, tile, groups, split)
     return out
 
 
@@ -698,10 +859,36 @@ def scan_floor(queries: torch.Tensor, corpus: torch.Tensor,
     _check_cuda(q, corpus, tile)
     n, d = corpus.shape
     b = q.shape[0]
-    qT = q.T.contiguous()
+    qT, qh = q.T.contiguous(), _half_queries(q, corpus)
+    split = int(qh is not None and scan_accumulation(None, d) == "split")
     out = torch.empty((n // tile, 1, b), dtype=torch.float32,
                       device=corpus.device)
     _launch("scan_floor", "orag_scan_floor", corpus, qT.data_ptr(),
-            corpus.data_ptr(), _DTYPE_CODE[corpus.dtype], out.data_ptr(), b,
-            n, d, tile)
+            None if qh is None else qh.data_ptr(), corpus.data_ptr(),
+            _DTYPE_CODE[corpus.dtype], out.data_ptr(), b, n, d, tile, split)
+    return out
+
+
+def scan_sums_plain(q: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """Twin of ``scan_sums``: f32 [N, B], torch.matmul in float32."""
+    return (corpus.float() @ q.T).contiguous()
+
+
+def scan_sums(queries: torch.Tensor, corpus: torch.Tensor, tile: int,
+              split: bool = False) -> torch.Tensor:
+    """The tensor-core scan's raw f32 sums [N, B] over bf16/f16 rows, in full
+    or split accumulation: the main loop of K1 and F with a store epilogue,
+    for holding its rounding to csrc/scan_mma.cuh's bound (no launch count:
+    no search path runs it). ``tile`` only sets the grid."""
+    q = _scan_queries(queries, corpus)
+    if corpus.device.type == "cpu":
+        return scan_sums_plain(q, corpus)
+    _check_cuda(q, corpus, tile, dtypes=(torch.bfloat16, torch.float16))
+    n, d = corpus.shape
+    b = q.shape[0]
+    qT, qh = q.T.contiguous(), _half_queries(q, corpus)
+    out = torch.empty((n, b), dtype=torch.float32, device=corpus.device)
+    _launch("scan_sums", "orag_scan_sums", corpus, qT.data_ptr(),
+            qh.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype],
+            out.data_ptr(), b, n, d, tile, int(split))
     return out

@@ -21,7 +21,11 @@ int8-native score is exact, at any width); K7 is held as K6 is. K2 is held
 as K1 is and K5a as K4 is, scored as the scaled route (bf16 operands, f32
 sum, x row scale): the kernels sum in ascending feature order and the twins
 by a matmul, so their f32 sums may differ in the last bits. F within 1e-5
-of its twin (the same scores; the max is order-free).
+of its twin (the same scores; the max is order-free). K1 and F over bf16
+and f16 rows run on the tensor cores (csrc/scan_mma.cuh), which sum in
+their own order: a row on a quantisation boundary may quantise one step
+(tile * 2**-22) apart from the twin's, which ``packed_word_faults`` counts
+as a boundary word.
 """
 
 import numpy as np
@@ -29,6 +33,7 @@ import pytest
 import torch
 
 from optimized_rag_tpu_torch.ops import topk as T
+from optimized_rag_tpu_torch.ops import scan_rounding as R
 from optimized_rag_tpu_torch.ops import topk_kernels as K
 from optimized_rag_tpu_torch.ops.quantize import quantize_int8
 
@@ -285,7 +290,8 @@ def test_packed_scans_with_many_units_match_twins(cuda_device, tile, groups):
         w_p = K.packed_extract_plain(qs, ct, size, tile, groups)
         diff = (T._unpack_lb(w, tile) - T._unpack_lb(w_p, tile)).abs().max()
         assert float(diff) <= 2.0 ** -12
-        assert K.packed_word_faults(qs, ct, size, tile, w, w_p)[0] == 0
+        assert K.packed_word_faults(qs, ct, size, tile, w, w_p,
+                                    groups=groups)[0] == 0
     c8, cs = quantize_int8(c32)
     q8, q_scale = quantize_int8(qt)
     w = K.packed_extract_int8(q8, q_scale, c8, cs, size, tile, groups)
@@ -297,7 +303,7 @@ def test_packed_scans_with_many_units_match_twins(cuda_device, tile, groups):
     diff = (T._unpack_lb(w, tile) - T._unpack_lb(w_p, tile)).abs().max()
     assert float(diff) <= 2.0 ** -12
     assert K.packed_word_faults(qb, c8, size, tile, w, w_p,
-                                row_scale=cs)[0] == 0
+                                row_scale=cs, groups=groups)[0] == 0
 
 
 @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16,
@@ -538,3 +544,135 @@ def test_wide_bf16_rows_take_the_fma_stage(cuda_device):
     shared memory) are scored by FMA: the same holds at D=640."""
     q, c, pairs, size = _corner_data(5, 70, 640, 1024)
     _hold_selections(cuda_device, q, c, size, 1024, 16, pairs)
+
+
+# (tile, groups, B, D): tile/G from 2 to 2048 (units inside one 64-row chunk
+# and units of whole chunks), one or two warpgroups of queries, k-slices cut
+# short (D=100, 390), rows no multiple of 16 bytes (D=100, 390, 1540: the
+# producer warp copies them), split accumulation (tile 128 at D=384 and
+# 390, tile 1024 at D=1536 and 2048), and rows too wide for the queries to
+# stay in shared memory (D=1536, 1540, 2048: they stream through the ring).
+_MMA_SCAN_CASES = [(128, 64, 1, 64), (128, 8, 33, 100), (128, 2, 130, 384),
+                   (128, 1, 8, 390), (1024, 512, 64, 128),
+                   (1024, 8, 130, 384), (1024, 16, 1024, 640),
+                   (4096, 8, 1024, 128), (4096, 2, 8, 390),
+                   (16384, 8, 33, 64), (16384, 512, 1, 100),
+                   (1024, 8, 130, 1536), (1024, 16, 33, 2048),
+                   (4096, 8, 64, 2048), (4096, 4, 1, 1540)]
+
+
+@pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("tile,groups,b,d", _MMA_SCAN_CASES)
+def test_tensor_core_scans_match_twins(cuda_device, tdt, tile, groups, b, d):
+    """K1 and F over 16-bit rows on the tensor cores against their twins, as
+    chip_smoke.py's hold does: K1's lower bounds within one quantisation
+    step (tile * 2**-22 on (2, 4): the tensor cores sum in another order
+    than the twin's matmul, so a row within that drift of a boundary may
+    quantise one step apart) and no word at fault under
+    ``packed_word_faults`` (drift 1e-5), F within 1e-5. Also:
+    a padding tail (5 live rows in the second-to-last tile) and a dead last
+    tile; exact duplicate rows in one unit, which must give the later row
+    (the packed word's tie order), and either side of a 64-row chunk
+    border."""
+    rng = np.random.default_rng(tile + 7 * b + d)
+    tiles = 6
+    n, small = tile * tiles, tile // groups
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    c = rng.standard_normal((n, d)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    unit_pair = (tile + 5, tile + 5 + small) if groups > 1 else None
+    border = (2 * tile + 63, 2 * tile + 64)
+    c[border[0]] = c[border[1]] = q[-1]
+    if unit_pair:
+        c[unit_pair[0]] = c[unit_pair[1]] = q[0]
+    qt = torch.from_numpy(q).to(cuda_device)
+    ct = torch.from_numpy(c).to(cuda_device, tdt)
+    size = (tiles - 2) * tile + 5
+    qs = K._scan_queries(qt, ct)
+    K.reset_launch_counts()
+    w = K.packed_extract(qt, ct, size, tile, groups)
+    w_p = K.packed_extract_plain(qs, ct, size, tile, groups)
+    diff = (T._unpack_lb(w, tile) - T._unpack_lb(w_p, tile)).abs().max()
+    assert float(diff) <= tile * 2.0 ** -22
+    assert K.packed_word_faults(qs, ct, size, tile, w, w_p,
+                                groups=groups)[0] == 0
+    assert torch.equal(w[tiles - 1], w_p[tiles - 1])        # the dead tile
+    if unit_pair:                   # both copies top tile 1: the later wins
+        assert int(w[1, 0, 0]) & (tile - 1) == unit_pair[1] - tile
+    f = K.scan_floor(qt, ct, tile)
+    f_p = K.scan_floor_plain(qs, ct, tile)
+    assert float((f - f_p).abs().max()) <= 1e-5
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert (counts["packed_extract"], counts["scan_floor"]) == (1, 1)
+
+
+@pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float16])
+def test_tensor_core_scan_range_flag(cuda_device, tdt):
+    """A live row scoring -3 sets K1's flag over 16-bit rows; the same row
+    as padding does not."""
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((2, 64)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    c = rng.standard_normal((1024, 64)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    c[700] = -3.0 * q[0]
+    qt = torch.from_numpy(q).to(cuda_device)
+    ct = torch.from_numpy(c).to(cuda_device, tdt)
+    flag = K.new_flag(cuda_device)
+    K.packed_extract(qt, ct, None, 128, 8, flag)
+    assert int(flag[0]) == 1
+    flag.zero_()
+    K.packed_extract(qt, ct, 700, 128, 8, flag)     # the row is padding
+    assert int(flag[0]) == 0
+
+
+def test_tensor_core_scan_refuses_what_its_bound_does_not_cover(cuda_device):
+    """K1 over 16-bit rows raises at (tile, D) pairs where the tensor cores'
+    rounding could exceed one quantisation step; F, which has no
+    certificate, and K1 over f32 rows (the FMA kernel) take them."""
+    q = torch.randn(4, 640, device=cuda_device)
+    c = torch.randn(1024, 640, device=cuda_device)
+    assert K.scan_accumulation(128, 640) is None
+    with pytest.raises(ValueError, match="quantisation step"):
+        K.packed_extract(q, c.to(torch.bfloat16), None, 128, 8)
+    K.packed_extract(q, c, None, 128, 8)                     # f32: FMA
+    K.scan_floor(q, c.to(torch.bfloat16), 128)              # F: no bound
+
+
+@pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float16])
+def test_tensor_core_scan_flags_queries_its_bound_does_not_cover(cuda_device,
+                                                                 tdt):
+    """At tile 128, D=384 (split accumulation, the least margin) the bound
+    admits query norms up to ``scan_query_norm_limit`` (1.138) against
+    normalised rows: a query of norm 1.2 sets K1's range flag, one of norm
+    1.1 does not, and neither does any query at tile 1024."""
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((3, 384)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    c = rng.standard_normal((1024, 384)).astype(np.float32) * 0.05
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    ct = torch.from_numpy(c).to(cuda_device, tdt)
+    assert 1.1 < K.scan_query_norm_limit(128, 384) < 1.2
+    for scale, tile, want in ((1.2, 128, 1), (1.1, 128, 0), (1.2, 1024, 0)):
+        qt = torch.from_numpy(q).to(cuda_device)
+        qt[1] *= scale
+        flag = K.new_flag(cuda_device)
+        K.packed_extract(qt, ct, None, tile, 8, flag)
+        assert int(flag[0]) == want, (scale, tile)
+
+
+@pytest.mark.parametrize("mode", ["full", "split"])
+@pytest.mark.parametrize("d", [64, 100, 128, 384, 1536, 2048])
+@pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float16])
+def test_tensor_core_sums_within_rounding_bound(cuda_device, tdt, d, mode):
+    """The main loop of K1 and F (``scan_sums``: its accumulators stored),
+    in full and split accumulation, on operands that press on alignment
+    and truncation (``ops/scan_rounding.operands``: mixed exponents in one
+    k16 step, a large product beside small ones, cancellation): every sum
+    within csrc/scan_mma.cuh's bound of the float64 sum of the exact
+    products, with each pair's own S (ratio at most 1)."""
+    q, c = R.operands(d, 130, 4096, d, tdt, cuda_device)
+    sums = K.scan_sums(q, c, 1024, split=mode == "split")
+    assert R.rounding_ratio(q, c, sums, mode) <= 1.0

@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Time the FMA packed scans (K1 over f32 rows, K2, K3) under their two
-register policies (K1 over bf16/f16 rows runs csrc/scan_mma.cuh instead).
+"""Time the FMA packed scan (K1 over f32 rows) under its two register
+policies (K1 over bf16/f16 rows, K2 over int8 codes and bf16 rows, and K3
+run csrc/scan_mma.cuh instead; K2 over f16 and f32 rows, which keeps the
+FMA kernel, has no search path at a measured shape).
 
     python3 benchmarks_torch/packed_min_blocks.py      # needs one CUDA card
 
@@ -9,13 +11,11 @@ register policies (K1 over bf16/f16 rows runs csrc/scan_mma.cuh instead).
 blocks' shared memory fits an SM, and one block (no cap) elsewhere. This
 script builds the kernels three times, as shipped and with the policy
 forced to 3 and to 1 at every tile (``-DORAG_PACKED_MIN_BLOCKS``), and
-times each scan at the shapes its paths give it: tile 1024 at the served
-shapes (B=64, D=384; f32 rows 4,194,304, int8 codes 16,777,216) and tile
-4096 at the reference benchmark's (B=1024, D=128, 10,485,760 rows of int8
-codes). The builds' order alternates (as shipped, 3, 1, 1,
-3, as shipped) and each time is a CUDA-event median. Prints one JSON line
-per shape, then ptxas's registers per variant, then nvidia-smi's name and
-power limit.
+times the scan at the shape its path gives it: tile 1024 at the served
+shape (B=64, D=384, 4,194,304 f32 rows). The builds' order alternates (as
+shipped, 3, 1, 1, 3, as shipped) and each time is a CUDA-event median.
+Prints one JSON line, then ptxas's registers per variant, then
+nvidia-smi's name and power limit.
 """
 
 from __future__ import annotations
@@ -93,46 +93,21 @@ def main() -> None:
     import optimized_rag_tpu_torch  # noqa: F401  (turns TF32 off)
     from optimized_rag_tpu_torch.ops import _build
     from optimized_rag_tpu_torch.ops import topk_kernels as K_
-    from optimized_rag_tpu_torch.ops.quantize import quantize_int8
     dev = torch.device("cuda", 0)
     libs = {name: build(flags) for name, flags in VARIANTS.items()}
     gen = torch.Generator(device=dev).manual_seed(7)
-    shapes = []
-    for n, d, b, tile in ((4_194_304, 384, 64, 1024),
-                          (10_485_760, 128, 1024, 4096)):
-        q = unit_rows(b, d, gen, dev, torch.float32)
-        rows = unit_rows(n, d, gen, dev, torch.float32)
-        if tile == 1024:
-            shapes.append(("K1 f32", tile, lambda q=q, c=rows, t=tile:
-                           K_.packed_extract(q, c, None, t, 8)))
-        c16 = rows.to(torch.bfloat16)
-        if tile == 1024:              # the served int8 index is 4x larger
-            del rows
-            rows = torch.cat([unit_rows(n, d, gen, dev, torch.float32)
-                              .to(torch.bfloat16) for _ in range(3)]
-                             + [c16])
-        c8, cs = torch.empty(rows.shape, dtype=torch.int8, device=dev), \
-            torch.empty(rows.shape[0], device=dev)
-        for lo in range(0, rows.shape[0], 1 << 20):
-            c8[lo:lo + (1 << 20)], cs[lo:lo + (1 << 20)] = quantize_int8(
-                rows[lo:lo + (1 << 20)].float())
-        del rows
-        q8, qs = quantize_int8(q)
-        shapes.append(("K3 int8", tile, lambda q8=q8, qs=qs, c=c8, s=cs,
-                       t=tile: K_.packed_extract_int8(q8, qs, c, s, None, t,
-                                                      8)))
-        shapes.append(("K2 int8", tile, lambda q=q, c=c8, s=cs, t=tile:
-                       K_.packed_extract_scaled(q, c, s, None, t, 8)))
-    for what, tile, fn in shapes:
-        times = {name: [] for name in VARIANTS}
-        for name in ORDER:
-            _build._lib = libs[name][0]
-            times[name].append(median_ms(fn))
-        _build._lib = None
-        print(json.dumps({"kernel": what, "tile": tile, "ms": times,
-                          "mean_ms": {k: sum(v) / len(v)
-                                      for k, v in times.items()}}),
-              flush=True)
+    n, d, b, tile = 4_194_304, 384, 64, 1024
+    q = unit_rows(b, d, gen, dev, torch.float32)
+    rows = unit_rows(n, d, gen, dev, torch.float32)
+    times = {name: [] for name in VARIANTS}
+    for name in ORDER:
+        _build._lib = libs[name][0]
+        times[name].append(median_ms(
+            lambda: K_.packed_extract(q, rows, None, tile, 8)))
+    _build._lib = None
+    print(json.dumps({"kernel": "K1 f32", "tile": tile, "ms": times,
+                      "mean_ms": {k: sum(v) / len(v)
+                                  for k, v in times.items()}}), flush=True)
     print(json.dumps({"ptxas_registers": {k: v[1] for k, v in libs.items()}}),
           flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

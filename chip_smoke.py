@@ -17,7 +17,9 @@ Phases, each printing one JSON line with its seconds:
                bf16 rows, then K3, K5b (bit for bit), K7, K2 (held as K1)
                and K5a (as K4) over int8 rows; then the tensor-core scan's
                raw sums on adversarial operands within the rounding bound
-               of csrc/scan_mma.cuh (D=128 and 384, full and split);
+               of csrc/scan_mma.cuh (D=128 and 384, full and split): K1's
+               main loop over bf16 rows and K2's over int8 codes (raw,
+               and scaled at mixed row scales);
 4. ``slice_f32``  the pretrained BiEncoder embeds the qa_docs chunks into a
                DenseIndex filled to 4,194,304 rows (6.4 GB f32) with clustered
                synthetic rows and contiguous near-duplicate runs; a
@@ -486,6 +488,8 @@ def hold_call(K_, T_, name, args, reps, where, plain_reps=None):
             raise AssertionError(f"{where} {name}: {differ} values differ "
                                  "from the twin's")
         rec.update(max_abs_err=0.0, tolerance=0.0)
+        if name.startswith("packed"):     # K3: the sums are exact
+            rec["score_diff"] = 0.0
     elif name.startswith("packed"):
         step = tile * 2.0 ** -22          # quantisation step on (2, 4)
         lb_err = float((T_._unpack_lb(out, tile) - T_._unpack_lb(ref, tile))
@@ -663,17 +667,30 @@ def phase_kernels(K_, T_, dev):
                       "launches": launches[name], **rec})
     del corpus32, centers, q_all, c8, cs
     # The scan's tensor-core sums against the bound its certificate rests
-    # on (csrc/scan_mma.cuh), on operands that press on it.
+    # on (csrc/scan_mma.cuh), on operands that press on it: K1's main loop
+    # over bf16 rows, and K2's over int8 codes (the raw sums, and the
+    # scaled scores at mixed row scales).
     from optimized_rag_tpu_torch.ops import scan_rounding as R
-    for d, mode in ((128, "full"), (DIM, "full"), (DIM, "split")):
-        q, c = R.operands(SEED + d, 1024, 16384, d, torch.bfloat16, dev)
-        ratio = R.rounding_ratio(q, c, K_.scan_sums(
-            q, c, BENCH_TILE, split=mode == "split"), mode)
-        emit({"phase": "kernels", "check": "scan_rounding", "d": d,
-              "mode": mode, "ratio_to_bound": ratio})
-        if not ratio <= 1.0:
-            raise AssertionError(f"scan rounding at D={d} ({mode}): "
-                                 f"{ratio:.3g} of its bound")
+    for rows in ("bf16", "int8"):
+        for d, mode in ((128, "full"), (DIM, "full"), (DIM, "split")):
+            if rows == "bf16":
+                q, c = R.operands(SEED + d, 1024, 16384, d, torch.bfloat16,
+                                  dev)
+                scales = (None,)
+            else:
+                q, c, cs = R.code_operands(SEED + d, 1024, 16384, d, dev)
+                scales = (None, cs)
+            sums = K_.scan_sums(q, c, BENCH_TILE, split=mode == "split")
+            for cs in scales:
+                ratio = R.rounding_ratio(q, c, sums, mode, row_scale=cs)
+                emit({"phase": "kernels", "check": "scan_rounding",
+                      "rows": rows, "scaled": cs is not None, "d": d,
+                      "mode": mode, "ratio_to_bound": ratio})
+                if not ratio <= 1.0:
+                    raise AssertionError(
+                        f"scan rounding over {rows} rows at D={d} ({mode}, "
+                        f"scaled {cs is not None}): {ratio:.3g} of its "
+                        "bound")
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
 
@@ -1505,16 +1522,20 @@ SOURCES = {"packed_extract": ("optimized_rag_tpu_torch/csrc/packed_extract.cu",
                           "benchmarks/sweep_r4_kernel.py:128")}
 
 
-# K1 and F over bf16/f16 rows: the tensor-core scan.
+# The tensor-core scan: K1 and F over bf16/f16 rows, K2 over int8 codes and
+# bf16 rows, K3.
 MMA_SCAN_SOURCE = "optimized_rag_tpu_torch/csrc/scan_mma.cuh"
+MMA_SCAN_ROWS = {"packed_extract": ("bf16", "f16"),
+                 "scan_floor": ("bf16", "f16"),
+                 "packed_extract_scaled": ("int8", "bf16"),
+                 "packed_extract_int8": ("int8",)}
 
 
 def kernel_entry(name, where, by_path, rec):
     """One entry of the final ``kernels`` line; the packed scans' and F's
     carry ``score_diff``, their largest score difference from the twin."""
     source, replaces = SOURCES[name]
-    if name in ("packed_extract", "scan_floor") and \
-            where.split()[0] in ("bf16", "f16"):
+    if where.split()[0] in MMA_SCAN_ROWS.get(name, ()):
         source = MMA_SCAN_SOURCE
     entry = {"name": f"{name}[{where}]", "route": "cuda", "source": source,
              "replaces": replaces, "launches": sum(by_path.values()),

@@ -89,8 +89,9 @@ static int launch(const Ops& ops, float* out, int B, int N, int D, int tile,
 
 }  // namespace orag
 
-// F. qT: [D, B] f32 queries already rounded to the corpus dtype; qh: the
-// same queries [B, D] in the corpus dtype (bf16 and f16 rows; else null);
+// F. qT: [D, B] f32 queries already rounded to the corpus dtype (f32 rows;
+// else null); qh: the same queries [B, D] in the corpus dtype (bf16 and f16
+// rows; else null);
 // corpus: [N, D] f32, bf16 or f16 (dtype code, topk_common.cuh); out: f32
 // [T, 1, B]. bf16 and f16 rows take the tensor-core scan (scan_mma.cuh) in
 // the accumulation the caller picked (`split`), f32 rows the FMA kernel
@@ -102,33 +103,43 @@ extern "C" int orag_scan_floor(const float* qT, const void* qh,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   namespace sc = orag::scan;
   if (dtype == orag::kBF16)
-    return sc::launch<__nv_bfloat16, sc::kFloor>(
-        qT, qh, corpus, nullptr, out, nullptr, B, N, D, tile, 1, split, s);
+    return sc::launch<__nv_bfloat16, __nv_bfloat16, sc::kFloor, sc::kNone>(
+        qh, corpus, nullptr, nullptr, nullptr, out, nullptr, B, N, D, tile,
+        1, split, s);
   if (dtype == orag::kF16)
-    return sc::launch<__half, sc::kFloor>(qT, qh, corpus, nullptr, out,
-                                          nullptr, B, N, D, tile, 1, split,
-                                          s);
+    return sc::launch<__half, __half, sc::kFloor, sc::kNone>(
+        qh, corpus, nullptr, nullptr, nullptr, out, nullptr, B, N, D, tile,
+        1, split, s);
   if (dtype != orag::kF32 || split) return (int)cudaErrorInvalidValue;
   return orag::launch(
       orag::DenseOps<float>{qT, static_cast<const float*>(corpus), D}, out, B,
       N, D, tile, s);
 }
 
-// The tensor-core scan's raw sums over bf16 or f16 rows, f32 [N, B], in
-// full (split 0) or split (1) accumulation: the main loop of K1 and F with
-// a store epilogue, by which the card tests hold its rounding to the bound
-// of scan_mma.cuh. Arguments as orag_scan_floor's; N a multiple of tile.
-extern "C" int orag_scan_sums(const float* qT, const void* qh,
-                              const void* corpus, int dtype, float* out,
-                              int B, int N, int D, int tile, int split,
-                              void* stream) {
+// The tensor-core scan's raw sums, f32 [N, B], in full (split 0) or split
+// (1) accumulation: the main loop of K1 and F over bf16 or f16 rows, or of
+// K2 over int8 codes (dtype int8: bf16 queries, the codes widened to bf16),
+// with a store epilogue, by which the card tests hold its rounding to the
+// bound of scan_mma.cuh. qh: the queries [B, D] as the rows' 16-bit type,
+// or as bf16 for codes; N a multiple of tile.
+extern "C" int orag_scan_sums(const void* qh, const void* corpus, int dtype,
+                              float* out, int B, int N, int D, int tile,
+                              int split, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   namespace sc = orag::scan;
-  if (dtype == orag::kBF16)
-    return sc::launch<__nv_bfloat16, sc::kRaw>(
-        qT, qh, corpus, nullptr, out, nullptr, B, N, D, tile, 1, split, s);
-  if (dtype == orag::kF16)
-    return sc::launch<__half, sc::kRaw>(qT, qh, corpus, nullptr, out,
-                                        nullptr, B, N, D, tile, 1, split, s);
+  switch (dtype) {
+    case orag::kBF16:
+      return sc::launch<__nv_bfloat16, __nv_bfloat16, sc::kRaw, sc::kNone>(
+          qh, corpus, nullptr, nullptr, nullptr, out, nullptr, B, N, D, tile,
+          1, split, s);
+    case orag::kF16:
+      return sc::launch<__half, __half, sc::kRaw, sc::kNone>(
+          qh, corpus, nullptr, nullptr, nullptr, out, nullptr, B, N, D, tile,
+          1, split, s);
+    case orag::kI8:
+      return sc::launch<int8_t, __nv_bfloat16, sc::kRaw, sc::kNone>(
+          qh, corpus, nullptr, nullptr, nullptr, out, nullptr, B, N, D, tile,
+          1, split, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

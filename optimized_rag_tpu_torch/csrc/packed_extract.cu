@@ -7,8 +7,7 @@
 // rounded to bf16 times the rows rounded to bf16, an f32 sum, x row scale;
 // K3 replaces `_packed_extract_int8_kernel` (:548-573), the same scan over
 // an int8 corpus with an int8-native dot. Per corpus tile of `tile` rows and
-// per query: the score s (DenseOps for K1, ScaledOps for K2, Int8Ops for
-// K3; topk_common.cuh), shifted to max(s + 2, 0) (rows at or after `size`
+// per query: the score s, shifted to max(s + 2, 0) (rows at or after `size`
 // become 0), the f32 bits with the low log2(tile) bits replaced by the
 // tile-local column, the max over each strided unit {u, u + tile/G, ...},
 // and the two largest unit winners. A packed value is a non-negative int,
@@ -18,38 +17,28 @@
 // *flag = 1 when a live row scores outside (-2, 2) (the certified path's
 // precondition, which the reference leaves unchecked on the device).
 //
-// K1 over bf16 and f16 rows runs the tensor-core scan of scan_mma.cuh
-// (wgmma fed by TMA, register packing); what follows is K1 over f32 rows,
-// K2 and K3.
+// The dispatch is by dtype. On the tensor cores (scan_mma.cuh: wgmma fed by
+// TMA, register packing): K1 over bf16 and f16 rows, K2 over int8 codes and
+// bf16 rows, and K3. On the CUDA cores, the FMA kernel below: K1 over f32
+// rows (the tensor cores would need TF32, a different function), and K2
+// over f16 and f32 rows, which would need a stage that rounds them to bf16
+// (ROADMAP.md, Queue 2); no search path of the port gives K2 such rows at
+// a measured shape.
 //
-// Design: one block per (tile, group of QB queries), QB = 64, or 16 where
-// 64 queries' unit winners [64, tile/G] would not fit in shared memory
-// (tile/G > 768). The block walks its tile in chunks of 128 rows; each
-// chunk's [QB x 128] scores come from ScoreBlock (QB/16 x 8 outputs a
-// thread) and are packed in registers, then folded into per-unit winners
-// with shared-memory atomicMax (any tile/G works; max is order-free, so the
+// Design of the FMA kernel: one block per (tile, group of QB queries), QB
+// = 64, or 16 where 64 queries' unit winners [64, tile/G] would not fit in
+// shared memory (tile/G > 768). The block walks its tile in chunks of 128
+// rows; each chunk's [QB x 128] scores come from ScoreBlock (QB/16 x 8
+// outputs a thread; DenseOps for K1, ScaledOps for K2, topk_common.cuh) and
+// are packed in registers, then folded into per-unit winners with
+// shared-memory atomicMax (any tile/G works; max is order-free, so the
 // result is deterministic). One warp per query then takes the top two
-// units. The packing epilogue is the same code for all three scorers.
+// units.
 //
 // K1 bound at the f32 search path's shape (B=64, N=4,194,304, D=384, H100
 // SXM): 2*B*N*D = 206 GFLOP of f32 FMA on the CUDA cores (TF32 is a
 // different function) at 67 TFLOP/s is 3.1 ms, against 6.4 GB of corpus at
-// 3.35 TB/s, 1.9 ms: operations bind. A bf16 corpus halves the bytes (1.0
-// ms), and its bf16 x bf16 products run on the tensor cores
-// (scan_mma.cuh), so bytes bind there.
-//
-// K1 and K2 at the reference benchmark's shape (B=1024, N=10,485,760,
-// D=128, bf16 rows or int8 codes, tile 4096): 2.75 TFLOP, 2.78 ms on the
-// tensor cores at 989 TFLOP/s against 0.80 ms of bf16 bytes (0.41 ms of
-// codes and scales): operations bind. On the CUDA cores' f32 FMA, as K2
-// scores here, the same work cannot take less than 41 ms.
-//
-// K3 bound at the int8 search path's shape (B=64, N=16,777,216, D=384):
-// 6.44 GB of codes plus 67 MB of row scales at 3.35 TB/s is 1.9 ms, against
-// 824 G int8 operations at 1,979 TOP/s on the tensor cores, 0.42 ms: bytes
-// bind. This first K3 scores on the CUDA cores with __dp4a (4 multiply-adds
-// an instruction, exact in int32), which is not enough for the byte bound:
-// the tensor cores' s8 x s8 -> s32 path is the later step.
+// 3.35 TB/s, 1.9 ms: operations bind.
 #include "scan_mma.cuh"
 #include "topk_common.cuh"
 
@@ -165,22 +154,21 @@ template <typename Ops>
 static int launch(const Ops& ops, const int* size, int* out, int* flag,
                   int B, int N, int D, int tile, int groups,
                   cudaStream_t stream) {
-  const int Dw = row_words<Ops>(D);
   if (packed_smem_bytes<Ops, 64>(tile, groups) <= (size_t)kMaxSmem)
-    return launch_qb<Ops, 64>(ops, size, out, flag, B, N, Dw, tile, groups,
+    return launch_qb<Ops, 64>(ops, size, out, flag, B, N, D, tile, groups,
                               stream);
-  return launch_qb<Ops, 16>(ops, size, out, flag, B, N, Dw, tile, groups,
+  return launch_qb<Ops, 16>(ops, size, out, flag, B, N, D, tile, groups,
                             stream);
 }
 
 }  // namespace orag
 
-// K1. qT: [D, B] f32 queries already rounded to the corpus dtype; qh: the
-// same queries [B, D] in the corpus dtype (bf16 and f16 rows; else null);
-// corpus: [N, D] f32, bf16 or f16 (dtype code, topk_common.cuh); flag:
-// int32 [1]. bf16 and f16 rows take the tensor-core scan (scan_mma.cuh) in
-// the accumulation the caller picked from that header's bound (`split`);
-// f32 rows the FMA kernel above (split 0).
+// K1. qT: [D, B] f32 queries already rounded to the corpus dtype (f32
+// rows; else null); qh: the same queries [B, D] in the corpus dtype (bf16
+// and f16 rows; else null); corpus: [N, D] f32, bf16 or f16 (dtype code,
+// topk_common.cuh); flag: int32 [1]. bf16 and f16 rows take the tensor-core
+// scan in the accumulation the caller picked from its header's bound
+// (`split`); f32 rows the FMA kernel above (split 0).
 extern "C" int orag_packed_extract(const float* qT, const void* qh,
                                    const void* corpus, int dtype,
                                    const int* size, int* out, int* flag,
@@ -189,40 +177,66 @@ extern "C" int orag_packed_extract(const float* qT, const void* qh,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   namespace sc = orag::scan;
   if (dtype == orag::kBF16)
-    return sc::launch<__nv_bfloat16, sc::kPack>(qT, qh, corpus, size, out,
-                                                flag, B, N, D, tile, groups,
-                                                split, s);
+    return sc::launch<__nv_bfloat16, __nv_bfloat16, sc::kPack, sc::kNone>(
+        qh, corpus, nullptr, nullptr, size, out, flag, B, N, D, tile, groups,
+        split, s);
   if (dtype == orag::kF16)
-    return sc::launch<__half, sc::kPack>(qT, qh, corpus, size, out, flag, B,
-                                         N, D, tile, groups, split, s);
+    return sc::launch<__half, __half, sc::kPack, sc::kNone>(
+        qh, corpus, nullptr, nullptr, size, out, flag, B, N, D, tile, groups,
+        split, s);
   if (dtype != orag::kF32 || split) return (int)cudaErrorInvalidValue;
   return orag::launch(
       orag::DenseOps<float>{qT, static_cast<const float*>(corpus), D}, size,
       out, flag, B, N, D, tile, groups, s);
 }
 
-// K2. qT: [D, B] f32 queries already rounded to bf16; corpus: [N, D] int8
-// codes or f32/bf16/f16 rows (dtype code); cs: [N] row scales.
-extern "C" int orag_packed_extract_scaled(const float* qT, const void* corpus,
-                                          int dtype, const float* cs,
-                                          const int* size, int* out,
-                                          int* flag, int B, int N, int D,
-                                          int tile, int groups,
-                                          void* stream) {
+// K2. qT: [D, B] f32 queries already rounded to bf16 (f16 and f32 rows;
+// else null); qh: the same queries [B, D] as bf16 (int8 codes and bf16
+// rows; else null); corpus: [N, D] int8 codes or f32/bf16/f16 rows (dtype
+// code); cs: [N] row scales. int8 codes and bf16 rows take the tensor-core
+// scan in the accumulation the caller picked (`split`); f16 and f32 rows
+// the FMA kernel (split 0).
+extern "C" int orag_packed_extract_scaled(const float* qT, const void* qh,
+                                          const void* corpus, int dtype,
+                                          const float* cs, const int* size,
+                                          int* out, int* flag, int B, int N,
+                                          int D, int tile, int groups,
+                                          int split, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return orag::with_scaled_ops(qT, corpus, dtype, cs, D, [&](auto ops) {
-    return orag::launch(ops, size, out, flag, B, N, D, tile, groups, s);
-  });
+  namespace sc = orag::scan;
+  switch (dtype) {
+    case orag::kI8:
+      return sc::launch<int8_t, __nv_bfloat16, sc::kPack, sc::kRow>(
+          qh, corpus, cs, nullptr, size, out, flag, B, N, D, tile, groups,
+          split, s);
+    case orag::kBF16:
+      return sc::launch<__nv_bfloat16, __nv_bfloat16, sc::kPack, sc::kRow>(
+          qh, corpus, cs, nullptr, size, out, flag, B, N, D, tile, groups,
+          split, s);
+    case orag::kF16:
+      if (split) break;
+      return orag::launch(orag::ScaledOps<__half>{qT,
+                              static_cast<const __half*>(corpus), cs, D},
+                          size, out, flag, B, N, D, tile, groups, s);
+    case orag::kF32:
+      if (split) break;
+      return orag::launch(orag::ScaledOps<float>{qT,
+                              static_cast<const float*>(corpus), cs, D},
+                          size, out, flag, B, N, D, tile, groups, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// K3. qwT: [ceil(D/4), B] int32 words of 4 query codes (zero codes past
-// D); qs: [B] query scales; corpus: [N, D] int8 codes; cs: [N] row scales.
-extern "C" int orag_packed_extract_int8(const int* qwT, const float* qs,
+// K3 on the tensor cores. q8: [B, D] int8 query codes; qs: [B] query
+// scales; corpus: [N, D] int8 codes; cs: [N] row scales. The int32 sums
+// are exact (D <= 131,071).
+extern "C" int orag_packed_extract_int8(const void* q8, const float* qs,
                                         const void* corpus, const float* cs,
                                         const int* size, int* out, int* flag,
                                         int B, int N, int D, int tile,
                                         int groups, void* stream) {
-  return orag::launch(orag::int8_ops(qwT, qs, corpus, cs, D), size, out,
-                      flag, B, N, D, tile, groups,
-                      static_cast<cudaStream_t>(stream));
+  namespace sc = orag::scan;
+  return sc::launch<int8_t, int8_t, sc::kPack, sc::kRowQuery>(
+      q8, corpus, cs, qs, size, out, flag, B, N, D, tile, groups, 0,
+      static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,8 @@
 // Shared device code of the top-k kernels (packed_extract.cu, extract.cu,
 // tile_topk.cu, floor.cu): the score block, its three operand policies and
 // the streaming per-tile selection of K4, K5a, K5b, K6 and K7. The
-// tensor-core scan of K1 and F over 16-bit rows is in scan_mma.cuh.
+// tensor-core scan of K1 and F over 16-bit rows, K2 over int8 codes and
+// bf16 rows, and K3 is in scan_mma.cuh.
 //
 // Scoring functions, each identical in its kernels and in the PyTorch code
 // that rescores their candidates:
@@ -20,15 +21,19 @@
 //   where it is not). No TF32 anywhere: the packed certificate's cushion is
 //   two quantisation steps (~2.4e-4 at tile=1024), and TF32 rounding
 //   (~1e-3) would exceed it.
-// * Int8Ops (K3, K5b; int8-native): int8 query codes against int8 row codes,
+// * Int8Ops (K5b; int8-native): int8 query codes against int8 row codes,
 //   an exact int32 dot by __dp4a (4 codes a word; a last partial word is
 //   padded with zero codes), then (float(i32) * row_scale) * query_scale,
 //   rounded in that order. The dot is exact, so the score is one function
-//   whatever the summation order, at any width.
-// * ScaledOps (K2, K5a, K7): f32 queries already rounded to bf16 against
-//   the rows rounded to bf16 (int8 codes and bf16 values are exact; f32 and
-//   f16 rows round to nearest even), so every product is exact in f32; f32
-//   FMA in ascending order, then x row_scale.
+//   whatever the summation order, at any width: K3 computes it on the
+//   tensor cores (scan_mma.cuh), bit for bit the same.
+// * ScaledOps (K5a, K7, and K2 over f16 and f32 rows): f32 queries already
+//   rounded to bf16 against the rows rounded to bf16 (int8 codes and bf16
+//   values are exact; f32 and f16 rows round to nearest even), so every
+//   product is exact in f32; f32 FMA in ascending order, then x row_scale.
+//   K2 over int8 codes and bf16 rows keeps the tensor cores' sums
+//   (scan_mma.cuh, whose header bounds their rounding for the scaled
+//   score).
 //
 // K1, K2 and K3 also raise a flag when a live row scores outside (-2, 2),
 // the certified path's precondition; the host turns it into the twins'

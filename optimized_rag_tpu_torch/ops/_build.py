@@ -40,10 +40,11 @@ _SIGNATURES = {
     # stream
     "orag_packed_extract": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _P],
-    # qT, corpus, dtype, cs, size, out, flag, B, N, D, tile, groups, stream
-    "orag_packed_extract_scaled": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _I, _P],
-    # qwT, qs, corpus, cs, size, out, flag, B, N, D, tile, groups, stream
+    # qT, qh, corpus, dtype, cs, size, out, flag, B, N, D, tile, groups,
+    # split, stream
+    "orag_packed_extract_scaled": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _P],
+    # q8, qs, corpus, cs, size, out, flag, B, N, D, tile, groups, stream
     "orag_packed_extract_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _P],
     # qT, corpus, dtype, size, tiles, U, val, col, B, N, D, tile, rounds,
@@ -64,8 +65,8 @@ _SIGNATURES = {
                               _I, _P],
     # qT, qh, corpus, dtype, out, B, N, D, tile, split, stream
     "orag_scan_floor": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
-    # qT, qh, corpus, dtype, out, B, N, D, tile, split, stream
-    "orag_scan_sums": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # qh, corpus, dtype, out, B, N, D, tile, split, stream
+    "orag_scan_sums": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -323,7 +323,9 @@ def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     scan keeps the tensor cores' sums, whose rounding bound
     (csrc/scan_mma.cuh) needs rows of norm at most 1 + 2**-8, as
     ``DenseIndex.add`` makes them, and queries within
-    ``topk_kernels.scan_query_norm_limit`` (checked on the card). Returns
+    ``topk_kernels.scan_query_norm_limit`` (checked on the card); so does
+    the scaled route over int8 codes (``quantize_int8`` of such rows) and
+    over bf16 rows (whose scaled values have such norms). Returns
     (scores [B, k] f32, ids [B+1, k] int64) with ids[B, 0] the uncovered
     count: 0 means exact for the scan's scoring; otherwise rerun with
     ``tiled_topk``. Read it with ``certificate_uncovered``, which raises

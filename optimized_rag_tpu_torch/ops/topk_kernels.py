@@ -23,14 +23,16 @@ sweeps:
   ``benchmarks/sweep_r4c.py:157`` (F2), one function: the per-tile max of
   K1's scores.
 
-K1 and F over bf16/f16 rows score on the tensor cores (wgmma fed by TMA,
-f32 accumulation, ``csrc/scan_mma.cuh``) and keep those sums: K1's words
-are quantised bounds, and ``scan_accumulation`` admits only the (tile, D)
-pairs where the tensor cores' rounding plus the c1 rescore's stays within
-one quantisation step, for normalised queries and rows (the card checks
-the queries' norms into the range flag). Over f32 rows they run f32 FMA on
-the CUDA cores. ``scan_sums`` exposes the tensor cores' raw sums, by which
-the card tests hold that rounding to its bound.
+K1 and F over bf16/f16 rows and K2 over int8 codes and bf16 rows score on
+the tensor cores (wgmma fed by TMA, f32 accumulation, ``csrc/scan_mma.cuh``)
+and keep those sums: the packed words are quantised bounds, and
+``scan_accumulation`` admits only the (tile, D) pairs where the tensor
+cores' rounding plus the c1 rescore's stays within one quantisation step,
+for normalised queries and the route's rows (the card checks the queries'
+norms into the range flag). K3 runs there too, s8 x s8 -> s32, exact. K1
+and F over f32 rows, and K2 over f16 and f32 rows, run f32 FMA on the CUDA
+cores. ``scan_sums`` exposes the tensor cores' raw sums, by which the card
+tests hold that rounding to its bound.
 
 K1, K4, K6 and F cast the queries to the corpus dtype (the TPU kernels'
 operand cast) and widen them to float32; K2, K5a and K7 round them to bf16.
@@ -55,6 +57,7 @@ carries to where the certificate is read.
 
 from __future__ import annotations
 
+import math
 import threading
 
 import torch
@@ -518,24 +521,55 @@ def _check_groups(tile: int, groups: int) -> None:
 # in full accumulation: its truncation drifts one way, about a unit in the
 # last place a k16 step (csrc/scan_mma.cuh).
 MAX_FULL_ACCUMULATION_D = 640
+# The widest int8 rows K3's int32 sums hold for any codes: 128 * 128 * D
+# < 2**31.
+MAX_INT8_D = 131_071
+# The routes of the tensor-core packed scan's rounding rule: K1 ("dense"),
+# K2 over bf16 rows ("scaled") and K2 over int8 codes ("codes").
+SCAN_ROUTES = ("dense", "scaled", "codes")
 
 
-def scan_accumulation(tile: int | None, d: int) -> str | None:
-    """How K1 (``tile``) or F (``tile`` None) over bf16/f16 rows accumulates
-    on the tensor cores at D: "full", "split" (each k16 step apart, then an
-    f32 sum), or None where neither bound on the tensor cores' rounding,
-    plus the c1 rescore's, stays within one quantisation step of K1's
-    certificate. Full only to D16 = ``MAX_FULL_ACCUMULATION_D``; F has no
-    certificate (csrc/scan_mma.cuh, its header's argument). The one home
-    of that rule: the wrappers pass the mode to the kernel."""
+def _row_norm_bound(d: int, route: str) -> float:
+    """The largest norm of a row as the route scores it (K2: the row times
+    its scale): 1 + 2**-8 (DenseIndex.add normalises rows), and for codes
+    from ``quantize_int8`` the rounding of each code, up to half a scale
+    of at most (1 + 2**-8)/127, on top: (1 + 2**-8)(1 + sqrt(D)/254)."""
+    if route not in SCAN_ROUTES:
+        raise ValueError(f"route {route!r}: one of {SCAN_ROUTES}")
+    return (1.0 + 2.0 ** -8) * (1.0 + math.sqrt(d) / 254.0
+                                if route == "codes" else 1.0)
+
+
+def _scan_terms(d: int, route: str) -> tuple[float, int]:
+    """(S_max, e) of csrc/scan_mma.cuh's argument: the largest sum of
+    |products| (K2: times the row scale) a normalised query reaches on the
+    route's rows, 1.01 times the rows' bound over 1 + 2**-8; and the
+    roundings after the sum (K2's multiply by the row scale, once in the
+    scan and once in the c1 rescore)."""
+    s_max = 1.01 * _row_norm_bound(d, route) / (1.0 + 2.0 ** -8)
+    return s_max, 0 if route == "dense" else 2
+
+
+def scan_accumulation(tile: int | None, d: int,
+                      route: str = "dense") -> str | None:
+    """How K1 or K2 (``tile``) or F (``tile`` None) accumulates on the
+    tensor cores at D: "full", "split" (each k16 step apart, then an f32
+    sum), or None where neither bound on the tensor cores' rounding, plus
+    the c1 rescore's, stays within one quantisation step of the
+    certificate: S_max (units(D) + D + e) <= 4 tile (``_scan_terms``;
+    ``route`` as ``SCAN_ROUTES``). Full only to D16 =
+    ``MAX_FULL_ACCUMULATION_D``; F has no certificate (csrc/scan_mma.cuh,
+    its header's argument). The one home of that rule: the wrappers pass
+    the mode to the kernel."""
     d16 = (d + 15) // 16 * 16
     if tile is None:
         return "full" if d16 <= MAX_FULL_ACCUMULATION_D else "split"
+    s_max, e = _scan_terms(d, route)
     quantum = 4.0 * tile
     if (d16 <= MAX_FULL_ACCUMULATION_D
-            and 1.01 * (2.5 * d16 + d) <= quantum):
+            and s_max * (2.5 * d16 + d + e) <= quantum):
         return "full"
-    if 1.01 * (40.0 + d16 / 16 + d) <= quantum:
+    if s_max * (40.0 + d16 / 16 + d + e) <= quantum:
         return "split"
     return None
 
@@ -547,47 +581,75 @@ def scan_rounding_units(d: int, mode: str) -> float:
     return 2.5 * d16 if mode == "full" else 40.0 + d16 / 16
 
 
-def scan_drift_bound(tile: int, d: int) -> float:
-    """delta(D): the bound of csrc/scan_mma.cuh on |tensor-core sum - exact
-    sum| of one K1 score over normalised bf16/f16 operands, at the
-    accumulation ``scan_accumulation`` picks (u = 2**-24, |q||c| < 1.01)."""
-    mode = scan_accumulation(tile, d)
+def _covered(tile: int, d: int, route: str) -> str:
+    """``scan_accumulation``'s mode; raises where it refuses."""
+    mode = scan_accumulation(tile, d, route)
     if mode is None:
-        raise ValueError(f"tile={tile}, D={d}: no accumulation is covered")
-    return 1.01 * scan_rounding_units(d, mode) * 2.0 ** -24
+        raise ValueError(f"tile={tile}, D={d}: the tensor cores' rounding "
+                         "could exceed the certificate's quantisation step "
+                         "(csrc/scan_mma.cuh); use a larger tile")
+    return mode
 
 
-def scan_query_norm_limit(tile: int, d: int) -> float:
-    """The largest query norm for which K1's bound holds at (tile, D),
-    against rows of norm at most 1 + 2**-8: S (delta(D) + D) u <= one
-    quantum, S <= |q| |c|."""
-    mode = scan_accumulation(tile, d)
-    if mode is None:
-        raise ValueError(f"tile={tile}, D={d}: no accumulation is covered")
-    s_max = 4.0 * tile / (scan_rounding_units(d, mode) + d)
-    return s_max / (1.0 + 2.0 ** -8)
+def scan_drift_bound(tile: int, d: int, route: str = "dense") -> float:
+    """delta(D): the bound of csrc/scan_mma.cuh on |the scan's score - the
+    exact score| of one K1 or K2 score over the route's normalised operands,
+    at the accumulation ``scan_accumulation`` picks: S_max (units(D) +
+    e/2) u, u = 2**-24 (K2's score is rounded once more, by its multiply by
+    the row scale)."""
+    s_max, e = _scan_terms(d, route)
+    units = scan_rounding_units(d, _covered(tile, d, route))
+    return s_max * (units + e / 2) * 2.0 ** -24
 
 
-def _scan_split(corpus: torch.Tensor, tile: int) -> int:
-    """K1's accumulation over bf16/f16 rows (1 split, 0 full); raises at
-    (tile, D) pairs its bound does not cover. f32 rows: 0 (FMA)."""
-    if corpus.dtype == torch.float32:
-        return 0
-    mode = scan_accumulation(tile, corpus.shape[1])
-    if mode is None:
-        raise ValueError(f"tile={tile}, D={corpus.shape[1]}: the tensor "
-                         "cores' rounding could exceed the certificate's "
-                         "quantisation step (csrc/scan_mma.cuh); use a "
-                         "larger tile")
-    return int(mode == "split")
+def scan_query_norm_limit(tile: int, d: int, route: str = "dense") -> float:
+    """The largest query norm (as the scan rounds the query) for which the
+    route's bound holds at (tile, D), against its rows
+    (``_row_norm_bound``): S (units(D) + D + e) u <= one quantum, S <= |q|
+    |row|."""
+    units = scan_rounding_units(d, _covered(tile, d, route))
+    s_max = 4.0 * tile / (units + d + _scan_terms(d, route)[1])
+    return s_max / _row_norm_bound(d, route)
 
 
-def _half_queries(q: torch.Tensor, corpus: torch.Tensor):
-    """The scan queries [B, D] as the corpus' 16-bit values (exact: they are
-    already rounded to it), for the tensor-core scan; None over f32 rows."""
-    if corpus.dtype == torch.float32:
-        return None
-    return q.to(corpus.dtype).contiguous()
+def _scan_route(corpus: torch.Tensor, scaled: bool) -> str | None:
+    """The rounding rule's route of K1 (``scaled`` False) or K2 over this
+    corpus on the card, None where the scan runs FMA on the CUDA cores (K1
+    over f32 rows, K2 over f16 and f32 rows): the dispatch by dtype of
+    csrc/packed_extract.cu."""
+    if scaled:
+        return {torch.int8: "codes",
+                torch.bfloat16: "scaled"}.get(corpus.dtype)
+    return None if corpus.dtype == torch.float32 else "dense"
+
+
+def _scan_split(route: str | None, tile: int, d: int) -> int:
+    """The tensor-core scan's accumulation (1 split, 0 full); raises at
+    (tile, D) pairs its bound does not cover. FMA (route None): 0."""
+    return 0 if route is None else int(_covered(tile, d, route) == "split")
+
+
+def _flag_wide_queries(flag: torch.Tensor, q: torch.Tensor, tile: int,
+                       route: str) -> None:
+    """Set the range flag where a query's norm exceeds what the route's
+    rounding bound admits (``scan_query_norm_limit``), on the card without
+    a host sync."""
+    limit = scan_query_norm_limit(tile, q.shape[1], route)
+    flag.bitwise_or_((q.square().sum(1).amax() > limit * limit)
+                     .to(torch.int32))
+
+
+def _scan_operands(q: torch.Tensor, dtype, tensor_cores: bool):
+    """(qT, qh): the scan queries (already rounded to ``dtype``) as the
+    kernel takes them, the other None: [D, B] f32 for the FMA kernels, or
+    [B, D] as ``dtype`` values (exact) for the tensor-core scan."""
+    if tensor_cores:
+        return None, q.to(dtype).contiguous()
+    return q.T.contiguous(), None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check_rounds(rounds: int, tile: int, what: str = "rounds") -> None:
@@ -641,20 +703,19 @@ def packed_extract(queries: torch.Tensor, corpus: torch.Tensor, size,
         return packed_extract_plain(q, corpus, size, tile, groups)
     _check_cuda(q, corpus, tile)
     _check_groups(tile, groups)
-    split = _scan_split(corpus, tile)
     n, d = corpus.shape
+    route = _scan_route(corpus, scaled=False)
+    split = _scan_split(route, tile, d)
     b = q.shape[0]
-    qT, qh = q.T.contiguous(), _half_queries(q, corpus)
+    qT, qh = _scan_operands(q, corpus.dtype, route is not None)
     size_t = _size_arg(size, n, corpus.device)
     flag_t = _flag_arg(flag, corpus.device)
-    if qh is not None:           # on the card, no host sync
-        limit = scan_query_norm_limit(tile, d)
-        flag_t.bitwise_or_((q.square().sum(1).amax() > limit * limit)
-                           .to(torch.int32))
+    if route is not None:
+        _flag_wide_queries(flag_t, q, tile, route)
     out = torch.empty((n // tile, 2, b), dtype=torch.int32,
                       device=corpus.device)
-    _launch("packed_extract", "orag_packed_extract", corpus, qT.data_ptr(),
-            None if qh is None else qh.data_ptr(), corpus.data_ptr(),
+    _launch("packed_extract", "orag_packed_extract", corpus, _ptr(qT),
+            _ptr(qh), corpus.data_ptr(),
             _DTYPE_CODE[corpus.dtype], size_t.data_ptr(), out.data_ptr(),
             flag_t.data_ptr(), b, n, d, tile, groups, split)
     return out
@@ -720,7 +781,9 @@ def packed_extract_int8(q8: torch.Tensor, q_scale: torch.Tensor,
                         tile: int, groups: int = 8,
                         flag=None) -> torch.Tensor:
     """K3: K1's packed words [T, 2, B] of int8 codes ``q8`` [B, D] (scales
-    ``q_scale`` [B]) against an int8 corpus (scales ``row_scale`` [N])."""
+    ``q_scale`` [B]) against an int8 corpus (scales ``row_scale`` [N]). On
+    the card the codes go to the tensor cores as they are (K-major [B, D]);
+    the int32 sums are exact up to D = ``MAX_INT8_D``."""
     if corpus.device.type == "cpu":
         return packed_extract_int8_plain(q8, q_scale, corpus, row_scale,
                                          size, tile, groups)
@@ -728,16 +791,20 @@ def packed_extract_int8(q8: torch.Tensor, q_scale: torch.Tensor,
     _check_scales(corpus, row_scale, q8, q_scale)
     _check_groups(tile, groups)
     n, d = corpus.shape
+    if d > MAX_INT8_D:
+        raise ValueError(f"D={d} exceeds {MAX_INT8_D}: int8 sums could "
+                         "overflow int32")
     b = q8.shape[0]
     # Operands stay bound to names until the launch is enqueued: a freed
     # temporary could be reallocated by another thread first.
-    qwT, qs, cs = _int8_words(q8), q_scale.contiguous(), row_scale.contiguous()
+    q8c, qs, cs = (q8.contiguous(), q_scale.contiguous(),
+                   row_scale.contiguous())
     size_t = _size_arg(size, n, corpus.device)
     flag_t = _flag_arg(flag, corpus.device)
     out = torch.empty((n // tile, 2, b), dtype=torch.int32,
                       device=corpus.device)
     _launch("packed_extract_int8", "orag_packed_extract_int8", corpus,
-            qwT.data_ptr(), qs.data_ptr(), corpus.data_ptr(), cs.data_ptr(),
+            q8c.data_ptr(), qs.data_ptr(), corpus.data_ptr(), cs.data_ptr(),
             size_t.data_ptr(), out.data_ptr(), flag_t.data_ptr(), b, n, d,
             tile, groups)
     return out
@@ -774,7 +841,11 @@ def packed_extract_scaled(queries: torch.Tensor, corpus: torch.Tensor,
                           groups: int = 8, flag=None) -> torch.Tensor:
     """K2: K1's packed words [T, 2, B] of the queries rounded to bf16
     against the rows rounded to bf16 (int8 codes, or float rows), an f32
-    sum, ``* row_scale`` [N]."""
+    sum, ``* row_scale`` [N]. Over int8 codes and bf16 rows on the card the
+    tensor cores sum (``scan_accumulation``'s "codes" and "scaled" routes:
+    it raises at (tile, D) pairs their bound does not cover, and ``flag``
+    is also set where a query's norm exceeds ``scan_query_norm_limit``);
+    over f16 and f32 rows f32 FMA."""
     q = _bf16_queries(queries)
     if corpus.device.type == "cpu":
         return packed_extract_scaled_plain(q, corpus, row_scale, size, tile,
@@ -783,16 +854,21 @@ def packed_extract_scaled(queries: torch.Tensor, corpus: torch.Tensor,
     _check_scales(corpus, row_scale)
     _check_groups(tile, groups)
     n, d = corpus.shape
+    route = _scan_route(corpus, scaled=True)
+    split = _scan_split(route, tile, d)
     b = q.shape[0]
-    qT, cs = q.T.contiguous(), row_scale.contiguous()
+    qT, qh = _scan_operands(q, torch.bfloat16, route is not None)
+    cs = row_scale.contiguous()
     size_t = _size_arg(size, n, corpus.device)
     flag_t = _flag_arg(flag, corpus.device)
+    if route is not None:
+        _flag_wide_queries(flag_t, q, tile, route)
     out = torch.empty((n // tile, 2, b), dtype=torch.int32,
                       device=corpus.device)
     _launch("packed_extract_scaled", "orag_packed_extract_scaled", corpus,
-            qT.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype],
-            cs.data_ptr(), size_t.data_ptr(), out.data_ptr(),
-            flag_t.data_ptr(), b, n, d, tile, groups)
+            _ptr(qT), _ptr(qh), corpus.data_ptr(),
+            _DTYPE_CODE[corpus.dtype], cs.data_ptr(), size_t.data_ptr(),
+            out.data_ptr(), flag_t.data_ptr(), b, n, d, tile, groups, split)
     return out
 
 
@@ -859,13 +935,14 @@ def scan_floor(queries: torch.Tensor, corpus: torch.Tensor,
     _check_cuda(q, corpus, tile)
     n, d = corpus.shape
     b = q.shape[0]
-    qT, qh = q.T.contiguous(), _half_queries(q, corpus)
+    qT, qh = _scan_operands(q, corpus.dtype,
+                            corpus.dtype != torch.float32)
     split = int(qh is not None and scan_accumulation(None, d) == "split")
     out = torch.empty((n // tile, 1, b), dtype=torch.float32,
                       device=corpus.device)
-    _launch("scan_floor", "orag_scan_floor", corpus, qT.data_ptr(),
-            None if qh is None else qh.data_ptr(), corpus.data_ptr(),
-            _DTYPE_CODE[corpus.dtype], out.data_ptr(), b, n, d, tile, split)
+    _launch("scan_floor", "orag_scan_floor", corpus, _ptr(qT), _ptr(qh),
+            corpus.data_ptr(), _DTYPE_CODE[corpus.dtype], out.data_ptr(), b,
+            n, d, tile, split)
     return out
 
 
@@ -876,19 +953,23 @@ def scan_sums_plain(q: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
 
 def scan_sums(queries: torch.Tensor, corpus: torch.Tensor, tile: int,
               split: bool = False) -> torch.Tensor:
-    """The tensor-core scan's raw f32 sums [N, B] over bf16/f16 rows, in full
-    or split accumulation: the main loop of K1 and F with a store epilogue,
-    for holding its rounding to csrc/scan_mma.cuh's bound (no launch count:
-    no search path runs it). ``tile`` only sets the grid."""
-    q = _scan_queries(queries, corpus)
+    """The tensor-core scan's raw f32 sums [N, B], in full or split
+    accumulation: over bf16/f16 rows the main loop of K1 and F, over int8
+    codes K2's (the queries rounded to bf16, the codes widened to bf16),
+    with a store epilogue, for holding its rounding to csrc/scan_mma.cuh's
+    bound (no launch count: no search path runs it). ``tile`` only sets the
+    grid."""
+    codes = corpus.dtype == torch.int8
+    q = _bf16_queries(queries) if codes else _scan_queries(queries, corpus)
     if corpus.device.type == "cpu":
         return scan_sums_plain(q, corpus)
-    _check_cuda(q, corpus, tile, dtypes=(torch.bfloat16, torch.float16))
+    _check_cuda(q, corpus, tile,
+                dtypes=(torch.bfloat16, torch.float16, torch.int8))
     n, d = corpus.shape
     b = q.shape[0]
-    qT, qh = q.T.contiguous(), _half_queries(q, corpus)
+    qh = q.to(torch.bfloat16 if codes else corpus.dtype).contiguous()
     out = torch.empty((n, b), dtype=torch.float32, device=corpus.device)
-    _launch("scan_sums", "orag_scan_sums", corpus, qT.data_ptr(),
-            qh.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype],
-            out.data_ptr(), b, n, d, tile, int(split))
+    _launch("scan_sums", "orag_scan_sums", corpus, qh.data_ptr(),
+            corpus.data_ptr(), _DTYPE_CODE[corpus.dtype], out.data_ptr(), b,
+            n, d, tile, int(split))
     return out

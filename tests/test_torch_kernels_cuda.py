@@ -16,16 +16,17 @@ scores within 1e-5, with ids equal except between rows whose scores differ
 by less than that drift, where the kernel's row must score its value
 (K4 and K6 score bf16 and f16 rows on the tensor cores, which sum in their
 own order); exact duplicate rows in the order of their rows, the padding
-tail (-1e30, column 0) exact. K3's words and K5b's values and columns are bit for bit their twins' (the
-int8-native score is exact, at any width); K7 is held as K6 is. K2 is held
-as K1 is and K5a as K4 is, scored as the scaled route (bf16 operands, f32
-sum, x row scale): the kernels sum in ascending feature order and the twins
-by a matmul, so their f32 sums may differ in the last bits. F within 1e-5
-of its twin (the same scores; the max is order-free). K1 and F over bf16
-and f16 rows run on the tensor cores (csrc/scan_mma.cuh), which sum in
-their own order: a row on a quantisation boundary may quantise one step
-(tile * 2**-22) apart from the twin's, which ``packed_word_faults`` counts
-as a boundary word.
+tail (-1e30, column 0) exact. K3's words and K5b's values and columns are
+bit for bit their twins' (the int8-native score is exact, at any width,
+on the tensor cores too); K7 is held as K6 is. K2 is held as K1 is and K5a
+as K4 is, scored as the scaled route (bf16 operands, f32 sum, x row
+scale): the kernels sum in their own order and the twins by a matmul, so
+their f32 sums may differ in the last bits. F within 1e-5 of its twin (the
+same scores; the max is order-free). K1 and F over bf16 and f16 rows, and
+K2 over int8 codes and bf16 rows, run on the tensor cores
+(csrc/scan_mma.cuh), which sum in their own order: a row on a
+quantisation boundary may quantise one step (tile * 2**-22) apart from the
+twin's, which ``packed_word_faults`` counts as a boundary word.
 """
 
 import numpy as np
@@ -676,3 +677,191 @@ def test_tensor_core_sums_within_rounding_bound(cuda_device, tdt, d, mode):
     q, c = R.operands(d, 130, 4096, d, tdt, cuda_device)
     sums = K.scan_sums(q, c, 1024, split=mode == "split")
     assert R.rounding_ratio(q, c, sums, mode) <= 1.0
+
+
+# ------------------------------------------- K3 and K2 on the tensor cores
+
+# (tile, groups, B, D, byte offset of the corpus): tile/G from 2 to 2048,
+# one or two warpgroups of queries, slices cut short (D=100, 390, 1100),
+# rows TMA cannot describe (D % 16 != 0, or a corpus 1-3 bytes off 16-byte
+# alignment: the producer warp copies them), and queries too wide to stay
+# in shared memory (K3 past D=2816, K2 over codes past D=1408: they stream
+# through the ring).
+_PACKED_MMA_CASES = [(128, 64, 1, 64, 0), (128, 8, 33, 100, 1),
+                     (128, 2, 130, 384, 0), (128, 1, 8, 390, 2),
+                     (1024, 512, 64, 128, 0), (1024, 8, 130, 384, 3),
+                     (1024, 16, 1024, 1100, 0), (4096, 8, 1024, 128, 0),
+                     (4096, 2, 8, 390, 0), (16384, 8, 33, 64, 1),
+                     (16384, 512, 1, 100, 0), (1024, 8, 130, 2048, 0),
+                     (4096, 4, 64, 2048, 2)]
+# Only K3 (exact) takes these: queries streamed at D=3100 and 4000.
+_INT8_WIDE_CASES = [(1024, 8, 33, 4000, 0), (1024, 8, 8, 3100, 1)]
+
+
+def _packed_case_data(tile, groups, b, d, tiles=6):
+    """Unit queries and rows; rows tile+5 and tile+5+tile/G (one unit) equal
+    to query 0, rows 2*tile+63 and 2*tile+64 (a 64-row chunk border) equal
+    to the last query; and a ``size`` that leaves 5 live rows in tile
+    tiles-2 and none in the last tile."""
+    rng = np.random.default_rng(tile + 7 * b + d)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    c = rng.standard_normal((tile * tiles, d)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    small = tile // groups
+    unit_pair = (tile + 5, tile + 5 + small) if groups > 1 else None
+    c[2 * tile + 63] = c[2 * tile + 64] = q[-1]
+    if unit_pair:
+        c[unit_pair[0]] = c[unit_pair[1]] = q[0]
+    return q, c, unit_pair, (tiles - 2) * tile + 5
+
+
+def _offset(t, offset):
+    """The same values ``offset`` bytes past a 16-byte boundary."""
+    if not offset:
+        return t
+    step = offset // t.element_size() or 1
+    buf = torch.zeros(t.numel() + step, dtype=t.dtype, device=t.device)
+    buf[step:] = t.reshape(-1)
+    out = buf[step:].view(t.shape)
+    assert out.data_ptr() % 16
+    return out
+
+
+def _hold_packed_corners(w, w_p, tile, tiles, unit_pair):
+    """The dead tile equals the twin's; of two equal rows in one unit that
+    top their tile, the later row wins (the packed word's tie order)."""
+    assert torch.equal(w[tiles - 1], w_p[tiles - 1])
+    if unit_pair:
+        assert int(w[1, 0, 0]) & (tile - 1) == unit_pair[1] - tile
+
+
+@pytest.mark.parametrize("tile,groups,b,d,offset",
+                         _PACKED_MMA_CASES + _INT8_WIDE_CASES)
+def test_int8_tensor_core_scan_matches_twin(cuda_device, tile, groups, b, d,
+                                            offset):
+    """K3 on the tensor cores (wgmma s8 x s8 -> s32): its words bit for bit
+    its twin's, with a padding tail, a dead tile and exact duplicate rows
+    in one unit and across a chunk border."""
+    q, c, unit_pair, size = _packed_case_data(tile, groups, b, d)
+    c8, cs = quantize_int8(torch.from_numpy(c).to(cuda_device))
+    c8 = _offset(c8, offset)
+    q8, qs = quantize_int8(torch.from_numpy(q).to(cuda_device))
+    K.reset_launch_counts()
+    w = K.packed_extract_int8(q8, qs, c8, cs, size, tile, groups)
+    w_p = K.packed_extract_int8_plain(q8, qs, c8, cs, size, tile, groups)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["packed_extract_int8"] == 1
+    assert torch.equal(w, w_p)
+    _hold_packed_corners(w, w_p, tile, 6, unit_pair)
+
+
+@pytest.mark.parametrize("rows", ["int8", "bf16"])
+@pytest.mark.parametrize("tile,groups,b,d,offset", _PACKED_MMA_CASES)
+def test_scaled_tensor_core_scan_matches_twin(cuda_device, rows, tile,
+                                              groups, b, d, offset):
+    """K2 on the tensor cores over int8 codes (widened to bf16 in registers)
+    and over bf16 rows with row scales, held as K1 is: lower bounds within
+    one quantisation step of the tile, no word at fault under
+    ``packed_word_faults`` (drift 1e-5), the same corners as K3's."""
+    q, c, unit_pair, size = _packed_case_data(tile, groups, b, d)
+    qt = torch.from_numpy(q).to(cuda_device)
+    c32 = torch.from_numpy(c).to(cuda_device)
+    if rows == "int8":
+        ct, cs = quantize_int8(c32)
+    else:           # scaled values of unit norm: rows / cs, times cs
+        cs = torch.rand(c.shape[0], device=cuda_device) * 0.5 + 0.5
+        for lo, hi in ((2 * tile + 63, 2 * tile + 64), unit_pair or (0, 0)):
+            cs[hi] = cs[lo]              # equal rows keep equal scores
+        ct = (c32 / cs[:, None]).to(torch.bfloat16)
+    ct = _offset(ct, offset)
+    qb = qt.to(torch.bfloat16).float()
+    rows_dtype = K.scaled_rows_dtype(ct)
+    K.reset_launch_counts()
+    w = K.packed_extract_scaled(qt, ct, cs, size, tile, groups)
+    w_p = K.packed_extract_scaled_plain(qb, ct, cs, size, tile, groups)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["packed_extract_scaled"] == 1
+    diff = (T._unpack_lb(w, tile) - T._unpack_lb(w_p, tile)).abs().max()
+    assert float(diff) <= tile * 2.0 ** -22
+    assert K.packed_word_faults(qb, ct, size, tile, w, w_p, row_scale=cs,
+                                rows_dtype=rows_dtype, groups=groups)[0] == 0
+    _hold_packed_corners(w, w_p, tile, 6, unit_pair)
+
+
+@pytest.mark.parametrize("kernel", ["int8", "scaled"])
+def test_int8_tensor_core_scans_range_flag(cuda_device, kernel):
+    """A live row of codes scoring about -3 sets K3's and K2's flag; the
+    same row as padding does not."""
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((2, 96)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    c = rng.standard_normal((1024, 96)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    qt = torch.from_numpy(q).to(cuda_device)
+    c8, cs = quantize_int8(torch.from_numpy(c).to(cuda_device))
+    q8, qs = quantize_int8(qt)
+    c8[700] = -q8[0]
+    cs[700] = 3.0 / float((q8[0].float() ** 2).sum() * qs[0])
+    for size, want in ((None, 1), (700, 0)):
+        flag = K.new_flag(cuda_device)
+        if kernel == "int8":
+            K.packed_extract_int8(q8, qs, c8, cs, size, 128, 8, flag)
+        else:
+            K.packed_extract_scaled(qt, c8, cs, size, 128, 8, flag)
+        assert int(flag[0]) == want, size
+
+
+def test_scaled_tensor_core_scan_refuses_what_its_bound_does_not_cover(
+        cuda_device):
+    """K2 over codes and bf16 rows raises at (tile, D) pairs where the
+    tensor cores' rounding could exceed one quantisation step (tile 128,
+    D=640); K2 over f32 rows (the FMA kernel) and K3 (exact) take them."""
+    q = torch.randn(4, 640, device=cuda_device)
+    c8, cs = quantize_int8(torch.randn(1024, 640, device=cuda_device))
+    assert K.scan_accumulation(128, 640, "codes") is None
+    assert K.scan_accumulation(128, 640, "scaled") is None
+    for ct in (c8, c8.to(torch.bfloat16)):
+        with pytest.raises(ValueError, match="quantisation step"):
+            K.packed_extract_scaled(q, ct, cs, None, 128, 8)
+    K.packed_extract_scaled(q, c8.float(), cs, None, 128, 8)      # FMA
+    q8, qs = quantize_int8(q)
+    K.packed_extract_int8(q8, qs, c8, cs, None, 128, 8)             # exact
+
+
+def test_scaled_tensor_core_scan_flags_queries_its_bound_does_not_cover(
+        cuda_device):
+    """At tile 128, D=384 over codes (split accumulation) the bound admits
+    query norms up to ``scan_query_norm_limit(128, 384, "codes")`` (1.052):
+    a query of norm 1.1 sets K2's range flag, one of norm 1.03 does not,
+    and neither does any query at tile 1024."""
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((3, 384)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    c = rng.standard_normal((1024, 384)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    c8, cs = quantize_int8(torch.from_numpy(c).to(cuda_device) * 0.05)
+    assert 1.03 < K.scan_query_norm_limit(128, 384, "codes") < 1.1
+    for scale, tile, want in ((1.1, 128, 1), (1.03, 128, 0), (1.1, 1024, 0)):
+        qt = torch.from_numpy(q).to(cuda_device)
+        qt[1] *= scale
+        flag = K.new_flag(cuda_device)
+        K.packed_extract_scaled(qt, c8, cs, None, tile, 8, flag)
+        assert int(flag[0]) == want, (scale, tile)
+
+
+@pytest.mark.parametrize("mode", ["full", "split"])
+@pytest.mark.parametrize("d", [64, 100, 128, 384, 1536, 2048])
+def test_scaled_tensor_core_sums_within_rounding_bound(cuda_device, d, mode):
+    """K2's main loop over int8 codes (``scan_sums`` of a code corpus: the
+    codes widened to bf16 in registers, its accumulators stored), in full
+    and split accumulation, on codes of +-127 beside small ones, sums that
+    cancel and row scales over six binades
+    (``ops/scan_rounding.code_operands``): every raw sum within
+    csrc/scan_mma.cuh's bound of the float64 sum of the exact products,
+    and every scaled score (the sum times its row scale, rounded) within
+    the scaled bound, with each pair's own S."""
+    q, c, cs = R.code_operands(d, 130, 4096, d, cuda_device)
+    sums = K.scan_sums(q, c, 1024, split=mode == "split")
+    assert R.rounding_ratio(q, c, sums, mode) <= 1.0
+    assert R.rounding_ratio(q, c, sums, mode, row_scale=cs) <= 1.0

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one GPU: the /search serving path
-and the reference benchmark's retrieval path.
+"""Smoke run of the PyTorch/CUDA port on one GPU: the /search serving path,
+the retrieval half of a chat turn, and the reference benchmark's retrieval
+path.
 
     python3 chip_smoke.py            # from any directory; needs one CUDA card
 
@@ -43,7 +44,27 @@ Phases, each printing one JSON line with its seconds:
                near-tied cc-th candidate, counted); 64 queries alone through
                the certified int8 search; recall@10 against the f32 oracle of
                the unquantized rows printed, not gated;
-7. ``bench_shape`` the reference benchmark's retrieval path at its full
+7. ``slice_hybrid`` the retrieval half of a chat turn: 262,144 chunks (the
+               qa_docs chunks and seeded 40-word filler chunks of their own
+               words, created over the last 365 days) embedded by the
+               pretrained BiEncoder on the card in batches of 128 into a
+               float32 DenseIndex (tile 1024) and added to a LexicalIndex
+               (the agent's defaults); 64 queries one at a time through
+               HybridRetriever's one-call route (the encoder forward inside
+               encode_and_retrieve) and two-call route (dual_topk, then
+               fuse_candidates), dense_only at k=2 (certified: K1 -> K4)
+               and k=10 (K6), the separate-dispatch route after 16 deletes
+               (K6 at k = 66), and FusedRerankEval with the pretrained
+               cross-encoder (checkpoints/pretrained/crossencoder.params.npz)
+               in modes ce and emb beside the modular SelectiveReranker;
+               every answer held against a float64 numpy oracle (ids equal
+               unless the oracle shows a near-tie of 1e-5, fused scores
+               within 1e-5), the two hybrid routes against each other, the
+               MMR selection, relevance and pairwise cosine against a numpy
+               oracle, fused against modular, the card's cross-encoder
+               logits against the port's CPU run; per-route host ms, per-stage
+               CUDA-event ms, ingest and lexical build seconds;
+8. ``bench_shape`` the reference benchmark's retrieval path at its full
                shape (bench.py:180-265, :540-575): 10,485,760 x 128 bf16
                rows (clustered, 300 near-duplicate runs), tile 4096, k=10,
                unit-normal queries in batches of 1024 and 512; the
@@ -62,8 +83,9 @@ Phases, each printing one JSON line with its seconds:
 Launch counts are set to 0 just before each path and read just after it.
 Then the card's nvidia-smi line; one JSON line with an entry for each
 kernel at each shape a user path gives it (the served slices' paths:
-QueryServer rounds, DenseIndex.search and the small indexes; and each
-shape of bench_shape's routes), its numbers measured at that shape and its
+QueryServer rounds, DenseIndex.search and the small indexes; each shape of
+bench_shape's routes; and each shape of slice_hybrid's dense routes), its
+numbers measured at that shape and its
 ``launches`` counted on those paths alone (``launches_by_path`` gives each
 path), its ``bound_share`` (bound_ms / ms) and its ``library_factor``
 (ms / library_ms); and last the ``{"ok": true, ...}`` line. Any failure
@@ -1498,6 +1520,548 @@ def phase_bench_shape(K_, T_, dev):
             {p: paths[p] for p in int8_paths}, held8)
 
 
+# ---------------------------------------------------------- slice_hybrid
+
+N_HYBRID = 262_144                # chunks of the hybrid slice (2**18)
+FILLER_WORDS = 40                 # words of each seeded filler chunk
+INGEST_BATCH = 128                # EmbeddingService.encode batch at ingest
+N_HYBRID_QUERIES = 64
+TOP_K, CANDIDATE_K, HALF_LIFE = 10, 50, 30.0
+N_DELETED = 16                    # k = 50 + 16 stays within the kernels' 128
+K_MMR, LAM = 5, 0.7
+HYBRID_TOL = 1e-5                 # fused, semantic, BM25 (relative) scores
+TEMPORAL_TOL = 1e-4               # now read in float32 days may step 2^-9
+LOGIT_ATOL = 0.35                 # tests/test_torch_rerank.py, bf16 trunk
+HYBRID_KERNEL_PATHS = ("dense_only_k2", "dense_only_k10", "tombstones")
+
+
+def hybrid_corpus(chunks, n):
+    """The qa_docs chunks, then seeded filler chunks of FILLER_WORDS words
+    drawn from the chunks' own words, up to ``n``."""
+    words = [w for c in chunks for w in c.split()]
+    rng = random.Random(SEED + 3)
+    return chunks + [" ".join(rng.choices(words, k=FILLER_WORDS))
+                     for _ in range(n - len(chunks))]
+
+
+def _top(scores, k):
+    """Top-k of a float64 vector, ties to the lower index: (ids, scores).
+    Candidates at or above the k-th value, in id order, then a stable
+    sort."""
+    k = min(k, scores.shape[0])
+    kth = np.partition(scores, scores.shape[0] - k)[scores.shape[0] - k]
+    cand = np.flatnonzero(scores >= kth)
+    ids = cand[np.argsort(-scores[cand], kind="stable")[:k]]
+    return ids, scores[ids]
+
+
+class HybridOracle:
+    """The hybrid query in float64 numpy, from the arrays LexicalIndex.build
+    made (copied to the host), the index's rows and the query vectors the
+    card computed: champion-list BM25, exact dense scores, the union of the
+    two top-50 lists, min-max per channel over the union, the weighted blend
+    and the top-k. The query's champion rows come from the index's host
+    analyzer (``encode_query``); nothing computed on the card is reused."""
+
+    def __init__(self, lexical, index, q_embs):
+        d = lexical._device
+        host = lambda t: t.cpu().numpy()
+        self.lexical = lexical
+        self.docs, self.valid = host(d["champ_docs"]), host(d["champ_valid"])
+        self.tf = host(d["champ_tf"]).astype(np.float64)
+        self.idf = host(d["idf"]).astype(np.float64)
+        self.dlen = host(d["doc_len"]).astype(np.float64)
+        self.avg = float(d["avg_len"])
+        self.k1, self.b = lexical.k1, lexical.b
+        self.size = index.size
+        rows = index.embeddings()[:index.size].cpu().numpy().astype(
+            np.float64)
+        self.sem = rows @ np.asarray(q_embs, np.float64).T      # [N, Q]
+        self.dead: list[int] = []
+
+    def delete(self, rows):
+        """Deleted rows are zeroed: they score 0 and leave the dense
+        ranking."""
+        self.dead = list(rows)
+        self.sem[self.dead] = 0.0
+
+    def bm25(self, text):
+        q, v = self.lexical.encode_query(text)
+        acc = np.zeros(self.size)
+        for t in q[v]:                     # a document once per row
+            m = self.valid[t]
+            docs, tf = self.docs[t][m], self.tf[t][m]
+            acc[docs] += self.idf[t] * tf * (self.k1 + 1.0) / (
+                tf + self.k1 * (1.0 - self.b + self.b * self.dlen[docs]
+                                / self.avg))
+        return acc
+
+    def dense(self, j):
+        """(scores [N], the same with deleted rows at -inf) of query j."""
+        sem = self.sem[:, j].copy()
+        rank = sem.copy()
+        rank[self.dead] = -np.inf
+        return sem, rank
+
+    def hybrid(self, j, text, ages_of, weights):
+        """The fused top-k ids of query j, each union candidate's (fused,
+        semantic, BM25, temporal) scores, and the gaps at the channels'
+        50th candidates (dense absolute, BM25 relative)."""
+        sem, rank = self.dense(j)
+        d_ids, d_s = _top(rank, CANDIDATE_K + 1)
+        b_ids, b_s = _top(self.bm25(text), CANDIDATE_K + 1)
+        kw = {int(i): float(s) for i, s in zip(b_ids[:CANDIDATE_K],
+                                                b_s[:CANDIDATE_K]) if s > 0}
+        cand = np.array(sorted(set(d_ids[:CANDIDATE_K].tolist()) | set(kw)))
+        chans = np.stack([sem[cand], [kw.get(int(c), 0.0) for c in cand],
+                          np.exp2(-ages_of(cand) / HALF_LIFE)])
+        lo, hi = chans.min(axis=1, keepdims=True), chans.max(
+            axis=1, keepdims=True)
+        normed = np.where(hi - lo < 1e-9, 0.5, (chans - lo) / np.maximum(
+            hi - lo, 1e-9))
+        w = np.asarray(weights, np.float64)
+        fused = (normed * (w / w.sum())[:, None]).sum(axis=0)
+        pos, _ = _top(fused, TOP_K)
+        return {"ids": cand[pos].tolist(),
+                "of": {int(c): (f, *ch) for c, f, ch in zip(
+                    cand, fused, chans.T)},
+                "dense_gap": float(d_s[CANDIDATE_K - 1] - d_s[CANDIDATE_K]),
+                "bm25_gap": float((b_s[CANDIDATE_K - 1] - b_s[CANDIDATE_K])
+                                  / max(b_s[CANDIDATE_K - 1], 1e-30))}
+
+
+def hold_hybrid(what, docs, want, counts):
+    """A route's answer against the oracle's: ids equal, and each doc's
+    fused, semantic, BM25 (relative) and temporal scores within their
+    tolerances of the oracle's for that doc. Differing ids are allowed
+    only where the oracle shows a near-tie of HYBRID_TOL in the fused
+    score, or at a channel's 50th candidate; such differences are counted.
+    Returns the worst fused error."""
+    ids, of = [d.doc_id for d in docs], want["of"]
+    if ids != want["ids"]:
+        if min(want["dense_gap"], want["bm25_gap"]) <= HYBRID_TOL:
+            counts["channel_boundary"] += 1
+            return 0.0
+        if len(ids) != len(want["ids"]) or any(
+                i not in of or abs(of[i][0] - of[w][0]) > HYBRID_TOL
+                for i, w in zip(ids, want["ids"])):
+            raise AssertionError(
+                f"slice_hybrid {what}: ids {ids} differ from the oracle's "
+                f"{want['ids']} with no near-tie to explain them")
+        counts["near_tie"] += 1
+    got = np.array([(d.score, d.semantic_score, d.keyword_score,
+                     d.temporal_score) for d in docs])
+    ref = np.array([of[i] for i in ids])
+    err = np.abs(got - ref)
+    err[:, 2] /= np.maximum(np.abs(ref[:, 2]), 1.0)
+    bad = dict(zip(("fused", "sem", "kw", "tmp"), err.max(axis=0).tolist()))
+    tol = {"fused": HYBRID_TOL, "sem": HYBRID_TOL, "kw": HYBRID_TOL,
+           "tmp": TEMPORAL_TOL}
+    over = {k: v for k, v in bad.items() if not v <= tol[k]}
+    if over:
+        raise AssertionError(f"slice_hybrid {what}: scores off the "
+                             f"oracle's: {over} (tolerances {tol})")
+    return bad["fused"]
+
+
+def hold_dense_only(what, docs, oracle, j, k, counts):
+    """dense_only's answer to query j against the exact float64 top-k, ties
+    to the lower row; a differing id must score within HYBRID_TOL of the
+    oracle's score at its rank (a near-tie), and is counted."""
+    sem, rank = oracle.dense(j)
+    o_ids, o_s = _top(rank, k)
+    ids = np.array([d.doc_id for d in docs])
+    vals = np.array([d.score for d in docs])
+    if len(ids) != k:
+        raise AssertionError(f"slice_hybrid {what}: {len(ids)} of {k} docs")
+    if (ids != o_ids).any():
+        if np.abs(sem[ids] - o_s).max() > HYBRID_TOL:
+            raise AssertionError(f"slice_hybrid {what}: ids {ids.tolist()} "
+                                 f"differ from the oracle's {o_ids.tolist()}")
+        counts["near_tie"] += 1
+    err = float(np.abs(vals - o_s).max())
+    if not err <= HYBRID_TOL:
+        raise AssertionError(f"slice_hybrid {what}: scores off by {err:.3g}")
+    return err
+
+
+def mmr_oracle(embs, blended, n, k):
+    """FusedRerankEval's selection in float64: candidates padded to the
+    bucket, sorted by blended score (ties to the lower index), greedy MMR
+    over the sorted list. Returns (selected indices, each step's best and
+    second-best objective)."""
+    npad = next(b for b in (8, 16, 32) if n <= b)
+    e = np.zeros((npad, embs.shape[1]))
+    e[:n] = embs
+    e /= np.maximum(np.linalg.norm(e, axis=1, keepdims=True), 1e-12)
+    bm = np.full(npad, -1e30)
+    bm[:n] = blended
+    order = np.argsort(-bm, kind="stable")
+    es, rel, ok = e[order], bm[order], order < n
+    sim = es @ es.T
+    chosen, steps, max_sim = [], [], np.full(npad, -1e30)
+    for _ in range(min(k, npad)):
+        pen = max_sim if chosen else np.zeros(npad)
+        obj = np.where(ok, LAM * rel - (1.0 - LAM) * pen, -1e30)
+        obj[chosen] = -1e30
+        j = int(np.argmax(obj))
+        if obj[j] <= -1e29:
+            break
+        steps.append(np.sort(obj)[-2:][::-1])
+        chosen.append(j)
+        max_sim = np.maximum(max_sim, sim[j])
+    if n <= k:
+        return [int(i) for i in order if i < n], steps
+    return [int(order[j]) for j in chosen], steps
+
+
+def device_busy(fn):
+    """``fn()`` under torch.profiler: host-clock wall ms (synchronised), the
+    device time of its kernels (one stream: they do not overlap), the idle
+    share, and the five kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_ms = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0)) / 1e3
+    # The kernels' own events: an operator's entry counts its kernels again.
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=dev_ms, reverse=True)
+    busy = sum(dev_ms(e) for e in events)
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall if busy else None,
+            "top_kernels_ms": {e.key[:60]: dev_ms(e) for e in events[:5]}}
+
+
+def route_stats(ms):
+    ms = sorted(ms)
+    return {"queries": len(ms), "p50_ms": statistics.median(ms),
+            "p99_ms": ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+            "mean_ms": statistics.fmean(ms)}
+
+
+def phase_slice_hybrid(K_, T_, dev, svc, chunks, queries, smi):
+    """The retrieval half of a chat turn at 262,144 chunks: ingest as the
+    agent ingests (the pretrained BiEncoder embeds every chunk on the card
+    in batches of 128 into a float32 DenseIndex at tile 1024; LexicalIndex
+    with the agent's defaults); then 64 queries one at a time through the
+    one-call and the two-call hybrid routes, dense_only at k=2 (certified:
+    K1 -> K4) and k=10 (K6), FusedRerankEval on each one-call answer (modes
+    ce and emb) beside the modular SelectiveReranker path, and the
+    separate-dispatch route after 16 deletes (K6). Every answer is held
+    against the float64 oracle; the cross-encoder's logits against the
+    port's CPU run. Launch counts are set to 0 before each path and read
+    after it. Resets the peak memory statistics. Returns the kernel
+    records of the dense routes, each with its launches by path."""
+    import dataclasses
+    from optimized_rag_tpu_torch.engine.fused import FusedRerankEval
+    from optimized_rag_tpu_torch.engine.rerank import SelectiveReranker
+    from optimized_rag_tpu_torch.engine.retriever import HybridRetriever
+    from optimized_rag_tpu_torch.engine.types import Intent, intent_weights
+    from optimized_rag_tpu_torch.index.dense import DenseIndex
+    from optimized_rag_tpu_torch.index.lexical import LexicalIndex
+    from optimized_rag_tpu_torch.models.convert import load_crossencoder
+    from optimized_rag_tpu_torch.ops import fused_query as FQ
+    from optimized_rag_tpu_torch.ops.fused_eval import rerank_eval_fused
+    from optimized_rag_tpu_torch.ops.hybrid import (
+        bm25_channel, dense_channel, score_candidates)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt = os.path.join(HERE, "checkpoints", "pretrained")
+    texts = hybrid_corpus(chunks, N_HYBRID)
+    created = (time.time() - np.random.default_rng(SEED + 3).random(
+        N_HYBRID) * 365 * 86400).tolist()
+    created32 = np.asarray([c / 86400.0 for c in created], np.float32)
+
+    # Ingest: encode in batches of 128 into the DenseIndex, then the
+    # lexical index (add, then build).
+    with svc._cache_lock:
+        svc._cache.clear()
+    index = DenseIndex(DIM, capacity_block=CAPACITY_BLOCK, tile=TILE,
+                       dtype=torch.float32, device=dev)
+    t1 = time.perf_counter()
+    for lo in range(0, N_HYBRID, INGEST_BATCH):
+        index.add(svc.encode(texts[lo:lo + INGEST_BATCH]))
+    torch.cuda.synchronize()
+    t_embed = time.perf_counter() - t1
+    lexical = LexicalIndex(device=dev)
+    t1 = time.perf_counter()
+    lexical.add(texts)
+    t_lex_add = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    lexical.build()
+    torch.cuda.synchronize()
+    t_lex_build = time.perf_counter() - t1
+    ce = load_crossencoder(ckpt, device=dev)
+    with svc._cache_lock:                 # queries miss, as a user's would
+        svc._cache.clear()
+
+    mk = lambda encoder: HybridRetriever(
+        index, lexical, svc.encode, get_text=texts.__getitem__,
+        get_created_at=created.__getitem__, half_life_days=HALF_LIFE,
+        candidate_k=CANDIDATE_K, encoder=encoder)
+    one_call, two_call = mk(svc), mk(None)
+    for r in (one_call, two_call):        # warm-up, not timed or held
+        r.retrieve("warm-up request", TOP_K, Intent.QUESTION_ANSWERING)
+        svc._cache.pop("warm-up request", None)
+    w_qa = np.asarray(intent_weights(Intent.QUESTION_ANSWERING), np.float32)
+    paths, log, times, counts, nows = {}, {}, {}, {}, [0.0] * len(queries)
+
+    def drive(name, fn, record=False):
+        """``fn(j, text)`` for every query, launches counted over the whole
+        path (and, with ``record``, every kernel call recorded); host-clock
+        ms per query. Returns the answers."""
+        calls = log.setdefault(name, [])
+        out, ms = [], []
+        with recording(T_, K_, calls) if record else contextlib.nullcontext():
+            K_.reset_launch_counts()
+            for j, text in enumerate(queries):
+                t_q = time.perf_counter()
+                out.append(fn(j, text))
+                ms.append((time.perf_counter() - t_q) * 1e3)
+            paths[name] = K_.launch_counts()
+        seen = {m: sum(c == m for c, _ in calls) for m in K_.KERNELS}
+        if record and seen != paths[name]:
+            raise AssertionError(f"slice_hybrid {name}: recorded {seen}, "
+                                 f"counted {paths[name]}")
+        times[name] = route_stats(ms)
+        return out
+
+    def hybrid(retriever, **kw):
+        """A hybrid query at question_answering's weights; the oracle
+        reads now just before the call."""
+        def ask(j, text):
+            nows[j] = time.time()
+            return retriever.retrieve(text, TOP_K, Intent.QUESTION_ANSWERING,
+                                      **{k: v[j] for k, v in kw.items()})
+        return ask
+
+    def host_ages(j):
+        """The separate routes' ages: float64 seconds on the host, then
+        float32 days."""
+        return lambda c: np.asarray([np.float32(
+            (nows[j] - created[i]) / 86400.0) for i in c], np.float64)
+
+    def hold_route(name, answers, ages_of):
+        counts[name] = {"near_tie": 0, "channel_boundary": 0}
+        return max(hold_hybrid(f"{name} query {j}", answers[j],
+                               oracle.hybrid(j, text, ages_of(j), w_qa),
+                               counts[name])
+                   for j, text in enumerate(queries))
+
+    # (a) The one-call route; the query vectors ride back in the packed
+    # result's row 5 into the encoder's cache. The one-call route's ages
+    # are float32 days on the card: now, rounded to float32, minus each
+    # row's float32 days.
+    answers_a = drive("one_call", hybrid(one_call))
+    q_emb = np.stack([svc._cache[text] for text in queries])
+    oracle = HybridOracle(lexical, index, q_emb)
+    err_a = hold_route("one_call", answers_a, lambda j: lambda c: np.maximum(
+        np.float64(np.float32(nows[j] / 86400.0))
+        - created32[c].astype(np.float64), 0.0))
+
+    # The device's busy and idle time over 16 one-call queries (under the
+    # profiler, which adds host time).
+    trace = device_busy(lambda: [one_call.retrieve(
+        text, TOP_K, Intent.QUESTION_ANSWERING) for text in queries[:16]])
+
+    # (b) The two-call route on (a)'s query vectors: the same answers.
+    answers_b = drive("two_call", hybrid(two_call, query_embedding=q_emb))
+    err_b = hold_route("two_call", answers_b, host_ages)
+    for j, (a, b) in enumerate(zip(answers_a, answers_b)):
+        if [d.doc_id for d in a] != [d.doc_id for d in b] or max(
+                abs(x.score - y.score) for x, y in zip(a, b)) > HYBRID_TOL:
+            raise AssertionError(f"slice_hybrid query {j}: the one-call and "
+                                 "two-call routes answer differently")
+
+    # (c) dense_only (use_hybrid=False intents) through DenseIndex.search:
+    # k=2 takes the certified path (K1 -> K4), k=10 the tiled search (K6).
+    for name, k, intent in (("dense_only_k2", 2, Intent.CONVERSATIONAL),
+                            ("dense_only_k10", 10, Intent.SUMMARIZATION)):
+        got = drive(name, lambda j, text, k=k, intent=intent:
+                    one_call.retrieve(text, k, intent), record=True)
+        counts[name] = {"near_tie": 0}
+        for j in range(len(queries)):
+            hold_dense_only(f"{name} query {j}", got[j], oracle, j, k,
+                            counts[name])
+
+    # (e) FusedRerankEval on each one-call answer, modes ce and emb, beside
+    # the modular SelectiveReranker.rerank -> apply_mmr on the same docs.
+    # The answers' texts are embedded first, so both paths find them in the
+    # cache (stage "embed_10_texts" times that forward), and each path runs
+    # once untimed on the warm-up answer (the first forward of a shape pays
+    # for the library's set-up).
+    mk_rr = lambda: SelectiveReranker(cross_encoder=ce, embed_fn=svc.encode,
+                                      device=dev)
+    copy = lambda docs: [dataclasses.replace(d) for d in docs]
+    svc.encode([d.text for docs in answers_a for d in docs])
+    warm = one_call.retrieve("warm-up request", TOP_K,
+                             Intent.QUESTION_ANSWERING)
+    for intent in (Intent.QUESTION_ANSWERING, Intent.SEARCH):
+        rr = mk_rr()
+        FusedRerankEval(rr, svc.encode, cross_encoder=ce).run(
+            "warm-up request", copy(warm), intent, k_mmr=K_MMR, lam=LAM)
+        rr.apply_mmr(rr.rerank("warm-up request", copy(warm), intent),
+                     k=K_MMR, lam=LAM)
+    fe = FusedRerankEval(mk_rr(), svc.encode, cross_encoder=ce)
+    for mode, intent in (("ce", Intent.QUESTION_ANSWERING),
+                         ("emb", Intent.SEARCH)):
+        def fused(j, text, intent=intent):
+            docs = copy(answers_a[j])
+            return fe.run(text, docs, intent, k_mmr=K_MMR, lam=LAM), docs
+        runs = drive(f"fused_eval_{mode}", fused)
+        rr = mk_rr()
+        modular = drive(f"modular_{mode}", lambda j, text, intent=intent,
+                        rr=rr: rr.apply_mmr(rr.rerank(
+                            text, copy(answers_a[j]), intent), k=K_MMR,
+                            lam=LAM))
+        counts[f"fused_eval_{mode}"] = {"mmr_near_tie": 0}
+        for j, text in enumerate(queries):
+            (res, docs), sel = runs[j], [d.doc_id for d in runs[j][0]["docs"]]
+            if sel != [d.doc_id for d in modular[j]]:
+                raise AssertionError(f"slice_hybrid {mode} query {j}: fused "
+                                     f"{sel} != modular "
+                                     f"{[d.doc_id for d in modular[j]]}")
+            embs = svc.encode([text] + [d.text for d in docs])
+            want, steps = mmr_oracle(embs[1:], [d.score for d in docs],
+                                     len(docs), K_MMR)
+            if sel != [docs[i].doc_id for i in want]:
+                if not any(s[0] - s[1] <= HYBRID_TOL for s in steps):
+                    raise AssertionError(f"slice_hybrid {mode} query {j}: "
+                                         "MMR selection differs from the "
+                                         "oracle's")
+                counts[f"fused_eval_{mode}"]["mmr_near_tie"] += 1
+                continue
+            dn = embs[1:][want].astype(np.float64)
+            dn /= np.maximum(np.linalg.norm(dn, axis=1, keepdims=True),
+                             1e-12)
+            qn = embs[0] / max(np.linalg.norm(embs[0]), 1e-12)
+            rel = np.clip((dn @ qn + 1.0) / 2.0, 0.0, 1.0)
+            bad = max(float(np.abs(np.asarray(res["per_doc"]) - rel).max()),
+                      float(np.abs(res["sim"] - dn @ dn.T).max()))
+            if not bad <= HYBRID_TOL:
+                raise AssertionError(f"slice_hybrid {mode} query {j}: "
+                                     f"relevance or sim off by {bad:.3g}")
+    stats = fe.reranker.stats
+    if stats["reranked"] != len(queries) or \
+            stats["embedding_reranked"] != len(queries):
+        raise AssertionError(f"slice_hybrid: fused routing {stats}")
+
+    # The cross-encoder on the card against the port's CPU run of the same
+    # pairs (8 queries x the first answer's docs).
+    ce_cpu = load_crossencoder(ckpt, device="cpu")
+    pairs = ce.tokenizer.encode_pairs(
+        [(text, d.text) for text in queries[:8] for d in answers_a[0]],
+        ce.max_len)
+    logit_err = float(np.abs(ce.logits(*pairs).cpu().numpy()
+                             - ce_cpu.logits(*pairs).numpy()).max())
+    if not logit_err <= LOGIT_ATOL:
+        raise AssertionError(f"slice_hybrid: cross-encoder logits on the "
+                             f"card off the CPU's by {logit_err:.3g}")
+    del ce_cpu
+
+    # (d) 16 deletes (rows the one-call route answered): separate calls,
+    # DenseIndex.search at k = 50 + 16 (K6), LexicalIndex.search, and
+    # fuse_candidates. BM25 still finds deleted rows; their score is 0.
+    dead = list(dict.fromkeys(d.doc_id for docs in answers_a
+                              for d in docs))[:N_DELETED]
+    index.delete(dead)
+    oracle.delete(dead)
+    answers_d = drive("tombstones", hybrid(one_call), record=True)
+    err_d = hold_route("tombstones", answers_d, host_ages)
+    require_launched(paths, ("dense_only_k2",), ("packed_extract", "extract"),
+                     "slice_hybrid dense_only k=2")
+    require_launched(paths, ("dense_only_k10",), ("tile_topk",),
+                     "slice_hybrid dense_only k=10")
+    require_launched(paths, ("tombstones",), ("tile_topk",),
+                     "slice_hybrid tombstone")
+
+    # Where a query's time goes on the card: each stage alone on the first
+    # query's inputs, CUDA events.
+    text, now_days = queries[0], time.time() / 86400.0
+    q_ids, q_mask = svc.tokenizer.encode_batch([text], svc.max_len)
+    dvc = lexical._device
+    lex_args = (*lexical.query_tensors(text), dvc["champ_docs"],
+                dvc["champ_tf"], dvc["champ_valid"], dvc["idf"],
+                dvc["doc_len"], dvc["avg_len"])
+    emb, size = index.embeddings(), index.size
+    qv = FQ.encode_query_vector(svc.model, q_ids, q_mask)
+    d_s, d_i = dense_channel(qv, emb, CANDIDATE_K, size)
+    b_s, b_i = bm25_channel(*lex_args, CANDIDATE_K, size, 1.5, 0.75)
+    created_dev = one_call._created_days()
+    w_dev = torch.as_tensor(w_qa, device=dev)
+
+    def fuse():
+        cand, ok, kw = FQ.union_candidates(d_s[0], d_i[0], b_s, b_i)
+        safe = cand.clamp_min(0)
+        ages = torch.clamp_min(now_days - created_dev[safe], 0.0)
+        return T_._topk(score_candidates(qv[0], emb, safe, kw, ages, ok,
+                                         w_dev, HALF_LIFE)[0], TOP_K)
+    docs0 = answers_a[0]
+    n0 = len(docs0)
+    pad = lambda a: np.pad(a, [(0, 16 - n0)] + [(0, 0)] * (a.ndim - 1))
+    pairs0 = ce.tokenizer.encode_pairs([(text, d.text) for d in docs0],
+                                       ce.max_len)
+    e0 = svc.encode([text] + [d.text for d in docs0])
+    texts0 = [d.text for d in docs0]
+
+    def embed_texts():                    # cache misses, as at first sight
+        with svc._cache_lock:
+            svc._cache.clear()
+        return svc.encode(texts0)
+    stages = {
+        "encoder_forward": lambda: FQ.encode_query_vector(svc.model, q_ids,
+                                                          q_mask),
+        f"embed_{n0}_texts": embed_texts,
+        "dense_channel": lambda: dense_channel(qv, emb, CANDIDATE_K, size),
+        "bm25_channel": lambda: bm25_channel(*lex_args, CANDIDATE_K, size,
+                                             1.5, 0.75),
+        "union_and_fusion": fuse,
+        "encode_and_retrieve": lambda: FQ.encode_and_retrieve(
+            svc.model, q_ids, q_mask, emb, size, *lex_args, created_dev,
+            now_days, w_qa, HALF_LIFE, matryoshka_dim=None,
+            candidate_k=CANDIDATE_K, k=TOP_K),
+        f"ce_forward_{n0}_pairs": lambda: ce.logits(*pairs0),
+        "rerank_eval_fused_ce": lambda: rerank_eval_fused(
+            ce.model, *map(pad, pairs0), pad(e0[1:]), e0[0],
+            pad(np.asarray([d.score for d in docs0], np.float32)),
+            np.arange(16) < n0, 0.3, LAM, k_mmr=K_MMR, mode="ce",
+            device=dev)}
+    stage_ms = {name: median_ms(fn, 20) for name, fn in stages.items()}
+
+    held = hold_recorded(K_, T_, {p: log[p] for p in HYBRID_KERNEL_PATHS},
+                         5, "slice_hybrid")
+    emit({"phase": "slice_hybrid", "card": smi, "chunks": index.size,
+          "dim": DIM, "tile": TILE, "queries": len(queries),
+          "top_k": TOP_K, "candidate_k": CANDIDATE_K, "deleted": len(dead),
+          "lexical_terms": len(lexical._row_of),
+          "champ_shape": list(dvc["champ_docs"].shape),
+          "ingest_chunks_per_s": index.size / t_embed,
+          "ingest_embed_seconds": t_embed,
+          "lexical_add_seconds": t_lex_add,
+          "lexical_build_seconds": t_lex_build,
+          "routes_host_ms": times, "stages_cuda_ms": stage_ms,
+          "one_call_trace_16_queries": trace,
+          "oracle_max_fused_err": {"one_call": err_a, "two_call": err_b,
+                                   "tombstones": err_d},
+          "allowed_differences": counts, "ce_logit_err_vs_cpu": logit_err,
+          "fused_eval_stats": stats, "launches_by_path": paths,
+          "peak_device_gbytes": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0})
+    for rec in held:
+        emit({"phase": "slice_hybrid", "card": smi, "kernel": rec["name"],
+              **{key: v for key, v in rec.items() if key != "name"}})
+    del index, lexical, oracle, one_call, two_call, ce, fe, emb, qv
+    torch.cuda.empty_cache()
+    return held
+
+
 SOURCES = {"packed_extract": ("optimized_rag_tpu_torch/csrc/packed_extract.cu",
                               "optimized_rag_tpu/ops/topk.py:511"),
            "extract": ("optimized_rag_tpu_torch/csrc/extract.cu",
@@ -1583,10 +2147,13 @@ def main() -> None:
     del index32
     torch.cuda.empty_cache()
     paths8, recs8 = phase_slice_int8(K_, T_, dev, svc, chunks, queries)
+    peak = torch.cuda.max_memory_allocated()   # slice_hybrid resets it
+    held_h = phase_slice_hybrid(K_, T_, dev, svc, chunks,
+                                first[:N_HYBRID_QUERIES], smi)
     del svc
     torch.cuda.empty_cache()
     bench16, held16, bench8, held8 = phase_bench_shape(K_, T_, dev)
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peak, torch.cuda.max_memory_allocated())
     emit({"phase": "done", "peak_device_gbytes": peak / 1e9,
           "seconds": time.perf_counter() - _T0})
     if peak > MAX_DEVICE_BYTES:
@@ -1597,7 +2164,8 @@ def main() -> None:
     # the served slices (QueryServer rounds and the small index for f32;
     # DenseIndex.search at both sizes for bf16; QueryServer rounds,
     # DenseIndex.search and the small index for int8), then every shape of
-    # bench_shape's routes. The direct calls of the checks are not counted.
+    # bench_shape's routes, then each shape slice_hybrid's dense routes gave
+    # K1, K4 and K6. The direct calls of the checks are not counted.
     kernels = []
     for dtype, paths, user, recs in (
             ("f32", paths32, USER_PATHS_F32, recs32),
@@ -1609,6 +2177,10 @@ def main() -> None:
     for rec in held16 + held8:
         kernels.append(kernel_entry(
             rec["name"], f"{rec['dtype']} bench_shape {rec['shape']}",
+            rec["launches_by_path"], rec))
+    for rec in held_h:
+        kernels.append(kernel_entry(
+            rec["name"], f"{rec['dtype']} slice_hybrid {rec['shape']}",
             rec["launches_by_path"], rec))
     idle = [k["name"] for k in kernels if not k["launches"]]
     missing = set(K_.KERNELS) - {k["name"].split("[")[0] for k in kernels}

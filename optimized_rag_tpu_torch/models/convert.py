@@ -2,8 +2,9 @@
 
 Held against ``optimized_rag_tpu/models/loader.py`` (:22-51, the flattened
 npz layout), ``models/pretrain.py`` (:330-352 ``load_pretrained``,
-:412-423 ``load_tokenizer``) and the parameter shapes of
-``models/encoder.py``. A checkpoint is ``<name>.config.json`` plus
+:412-423 ``load_tokenizer``), the parameter shapes of ``models/encoder.py``
+and the agent's configuration of both encoders (``agent/agent.py:92-107``,
+``:128-139``). A checkpoint is ``<name>.config.json`` plus
 ``<name>.params.npz``, whose keys are the Flax tree paths joined by ``/``
 (``params/trunk/block_0/attn/query/kernel``, ...), stored as float16.
 Weights are converted in memory; nothing is written.
@@ -19,7 +20,7 @@ import torch
 
 from optimized_rag_tpu_torch.device import resolve_device
 from optimized_rag_tpu_torch.models.encoder import (
-    EmbeddingService, TransformerConfig)
+    CrossEncoderService, EmbeddingService, TransformerConfig)
 from optimized_rag_tpu_torch.models.tokenizer import HashTokenizer
 
 
@@ -34,7 +35,9 @@ def _norm(prefix: str, p: dict) -> dict:
 
 def flax_to_torch(flat_params: dict[str, np.ndarray],
                   cfg: TransformerConfig) -> dict[str, torch.Tensor]:
-    """BiEncoder state dict from the flattened Flax params of the npz.
+    """BiEncoder or CrossEncoder state dict from the flattened Flax params
+    of the npz: the trunk, and the heads the params hold (``proj`` for the
+    BiEncoder; ``pool`` and ``score`` for the CrossEncoder).
 
     Attention kernels are [H, heads, head_dim] for query/key/value and
     [heads, head_dim, H] for out; flattening (heads, head_dim) row-major
@@ -59,8 +62,10 @@ def flax_to_torch(flat_params: dict[str, np.ndarray],
         "trunk.emb.typ.weight": emb["typ"]["embedding"],
         **_norm("trunk.emb.ln", emb["ln"]),
         **_norm("trunk.ln_f", trunk["ln_f"]),
-        **_dense("proj", tree["proj"]["kernel"], tree["proj"]["bias"]),
     }
+    for head in ("proj", "pool", "score"):
+        if head in tree:
+            out.update(_dense(head, tree[head]["kernel"], tree[head]["bias"]))
     for i in range(cfg.num_layers):
         blk = trunk[f"block_{i}"]
         pre = f"trunk.blocks.{i}"
@@ -81,7 +86,7 @@ def flax_to_torch(flat_params: dict[str, np.ndarray],
     state = {}
     for key, val in out.items():
         t = torch.from_numpy(np.ascontiguousarray(val))
-        # The trunk computes in cfg.dtype; norms and proj stay float32.
+        # The trunk computes in cfg.dtype; norms and heads stay float32.
         if key.startswith("trunk.") and ".ln" not in key:
             t = t.to(cfg.dtype)
         state[key] = t
@@ -133,5 +138,20 @@ def load_biencoder(ckpt_dir: str, device="cuda",
     return EmbeddingService(
         cfg, params=flax_to_torch(load_params(ckpt_dir), cfg),
         cache_size=cache_size, max_len=max_len,
+        tokenizer=load_tokenizer(ckpt_dir, cfg.vocab_size, max_len),
+        device=device)
+
+
+def load_crossencoder(ckpt_dir: str, device="cuda") -> CrossEncoderService:
+    """The checkpoint's CrossEncoder as a scoring service on ``device``,
+    configured as the agent does (``agent/agent.py:128-139``): the
+    checkpoint's own config, max_len min(max_seq_len, 256) and its
+    tokenizer."""
+    device = resolve_device(device)
+    cfg = load_config(ckpt_dir, "crossencoder")
+    max_len = min(cfg.max_seq_len, 256)
+    return CrossEncoderService(
+        cfg, params=flax_to_torch(load_params(ckpt_dir, "crossencoder"), cfg),
+        max_len=max_len,
         tokenizer=load_tokenizer(ckpt_dir, cfg.vocab_size, max_len),
         device=device)

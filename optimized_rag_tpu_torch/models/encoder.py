@@ -1,6 +1,7 @@
-"""Transformer bi-encoder and its batched embedding service.
+"""Transformer encoders and their services: the bi-encoder (embeddings)
+and the cross-encoder (query, document) scorer.
 
-Held against ``optimized_rag_tpu/models/encoder.py`` (:31-121, :142-253).
+Held against ``optimized_rag_tpu/models/encoder.py`` (:31-135, :142-299).
 The numerics follow the Flax modules:
 
 * the trunk's embeddings, attention and MLP run in bfloat16 (weights
@@ -12,7 +13,10 @@ The numerics follow the Flax modules:
   written as matmuls plus softmax, as the JAX package leaves it to XLA;
 * GELU is the tanh approximation;
 * pooling is a masked mean, then ``proj``, then L2 normalisation with a
-  1e-9 floor.
+  1e-9 floor;
+* the cross-encoder takes the trunk's [CLS] row (float32), then ``pool``,
+  tanh and ``score``, all in float32; its service applies the sigmoid in
+  float32.
 """
 
 from __future__ import annotations
@@ -157,6 +161,26 @@ class BiEncoder(nn.Module):
             torch.linalg.vector_norm(out, dim=-1, keepdim=True), 1e-9)
 
 
+class CrossEncoder(nn.Module):
+    """(query, doc) pair scorer: [CLS] representation -> scalar logit."""
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.trunk = _Trunk(cfg)
+        self.pool = nn.Linear(cfg.hidden_dim, cfg.hidden_dim)   # float32
+        self.score = nn.Linear(cfg.hidden_dim, 1)               # float32
+
+    def forward(self, ids, mask, type_ids):
+        cls = self.trunk(ids, mask, type_ids)[:, 0]             # [B, H] f32
+        return self.score(torch.tanh(self.pool(cls)))[:, 0]
+
+
+def _pad_rows(arrays, rows: int):
+    """Zero rows appended to each [n, L] array up to ``rows``."""
+    return [np.pad(a, ((0, rows - a.shape[0]), (0, 0))) for a in arrays]
+
+
 class EmbeddingService:
     """Batched on-device embedding with an LRU cache.
 
@@ -226,11 +250,7 @@ class EmbeddingService:
         if todo_idx:
             todo = [texts[i] for i in todo_idx]
             ids, mask = self.tokenizer.encode_batch(todo, self.max_len)
-            bsz = self._bucket_batch(len(todo))
-            if bsz > len(todo):
-                pad = bsz - len(todo)
-                ids = np.pad(ids, ((0, pad), (0, 0)))
-                mask = np.pad(mask, ((0, pad), (0, 0)))
+            ids, mask = _pad_rows((ids, mask), self._bucket_batch(len(todo)))
             emb = self._forward(ids, mask)[:len(todo)]
             if self.matryoshka_dim:
                 emb = np.array(emb[:, :self.matryoshka_dim])
@@ -252,8 +272,67 @@ class EmbeddingService:
             self._cache.pop(next(iter(self._cache)))
         self._cache[text] = vec
 
+    def encode_one(self, text: str) -> np.ndarray:
+        return self.encode([text])[0]
+
+    def cache_put(self, text: str, vec: np.ndarray) -> None:
+        """Insert an embedding computed elsewhere (the query vector that
+        comes back in the fused query's packed result, ops/fused_query.py),
+        so later stages hit the cache instead of running a forward."""
+        with self._cache_lock:
+            self._cache_insert(text, np.asarray(vec, np.float32))
+
     def cache_stats(self) -> dict:
         total = self.stats["hits"] + self.stats["misses"]
         return {**self.stats,
                 "hit_rate": self.stats["hits"] / total if total else 0.0,
                 "entries": len(self._cache)}
+
+
+class CrossEncoderService:
+    """Batched (query, doc) pair scoring on ``device``.
+
+    ``params`` is a CrossEncoder state dict (``models/convert.flax_to_torch``);
+    without it the weights are random from ``seed``. Pairs are padded to the
+    JAX service's batch buckets and scored in one forward; the logits go
+    through a float32 sigmoid.
+    """
+
+    BATCH_BUCKETS = (8, 32, 64)
+
+    def __init__(self, cfg: TransformerConfig | None = None, params=None,
+                 seed: int = 1, max_len: int = 256, tokenizer=None,
+                 device="cuda"):
+        self.cfg = cfg or TransformerConfig()
+        self.device = resolve_device(device)
+        self.max_len = max_len
+        self.tokenizer = tokenizer or HashTokenizer(self.cfg.vocab_size,
+                                                    max_len)
+        with torch.random.fork_rng(devices=[]):  # seeded init, no leak
+            torch.manual_seed(seed)
+            self.model = CrossEncoder(self.cfg)
+        if params is not None:
+            self.model.load_state_dict(params)
+        self.model = self.model.to(self.device).eval()
+
+    def _bucket_batch(self, n: int) -> int:
+        return next((b for b in self.BATCH_BUCKETS if n <= b),
+                    -(-n // self.BATCH_BUCKETS[-1]) * self.BATCH_BUCKETS[-1])
+
+    def logits(self, ids, mask, types) -> torch.Tensor:
+        """Forward of token pairs (numpy or tensors) -> [n] float32 logits
+        on the device."""
+        t = lambda a: torch.as_tensor(a).to(self.device).long()
+        with torch.inference_mode():
+            return self.model(t(ids), t(mask), t(types)).float()
+
+    def score_pairs(self, query: str, docs: list[str]) -> np.ndarray:
+        """Sigmoid relevance scores [len(docs)] in [0, 1]."""
+        if not docs:
+            return np.zeros(0, np.float32)
+        ids, mask, types = self.tokenizer.encode_pairs(
+            [(query, d) for d in docs], self.max_len)
+        n = len(docs)
+        padded = _pad_rows((ids, mask, types), self._bucket_batch(n))
+        logits = self.logits(*padded).cpu().numpy()[:n]
+        return (1.0 / (1.0 + np.exp(-logits))).astype(np.float32)

@@ -11,10 +11,13 @@ import pytest
 import torch
 
 import optimized_rag_tpu_torch
+from optimized_rag_tpu_torch.engine.rerank import SelectiveReranker
 from optimized_rag_tpu_torch.index.dense import DenseIndex
-from optimized_rag_tpu_torch.models.convert import load_biencoder
+from optimized_rag_tpu_torch.index.lexical import LexicalIndex
+from optimized_rag_tpu_torch.models.convert import (
+    load_biencoder, load_crossencoder)
 from optimized_rag_tpu_torch.models.encoder import (
-    EmbeddingService, TransformerConfig)
+    CrossEncoderService, EmbeddingService, TransformerConfig)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(optimized_rag_tpu_torch.__file__)
@@ -35,7 +38,7 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
-    assert len(_submodules()) >= 10
+    assert len(_submodules()) >= 25
 
 
 def _imported_roots(path):
@@ -62,13 +65,19 @@ def test_entry_points_default_to_cuda(monkeypatch):
     tiny = TransformerConfig(vocab_size=64, hidden_dim=16, num_layers=1,
                              num_heads=2, mlp_dim=32, max_seq_len=16,
                              out_dim=8)
+    ckpt = os.path.join(REPO, "checkpoints", "pretrained")
     for make in (lambda: DenseIndex(16, 256, tile=256),
                  lambda: EmbeddingService(tiny),
-                 lambda: load_biencoder(os.path.join(
-                     REPO, "checkpoints", "pretrained"))):
+                 lambda: load_biencoder(ckpt),
+                 lambda: LexicalIndex(),
+                 lambda: CrossEncoderService(tiny),
+                 lambda: load_crossencoder(ckpt),
+                 lambda: SelectiveReranker()):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     assert DenseIndex(16, 256, tile=256, device="cpu").device.type == "cpu"
+    assert LexicalIndex(device="cpu").device.type == "cpu"
+    assert CrossEncoderService(tiny, device="cpu").device.type == "cpu"
 
 
 def test_tf32_is_off():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: the /search serving path,
-the retrieval half of a chat turn, and the reference benchmark's retrieval
-path.
+the retrieval half of a chat turn, the components a chat turn consumes, and
+the reference benchmark's retrieval path.
 
     python3 chip_smoke.py            # from any directory; needs one CUDA card
 
@@ -9,7 +9,8 @@ Phases, each printing one JSON line with its seconds:
 
 1. ``device``  the card, and its name and power limit from nvidia-smi;
 2. ``build``   nvcc builds the top-k kernels (optimized_rag_tpu_torch/csrc)
-               into build/torch_kernels/ and ctypes loads them;
+               into build/torch_kernels/ while g++ builds the C++ analyzer
+               (native/analyzer.cpp) into build/native/; ctypes loads both;
 3. ``kernels`` each kernel against its plain PyTorch twin, N=262,144, D=384,
                B in {1, 64, 1024} at tile 1024 and B=1024 at tile 4096,
                with times: K1 packed scan, K4 union extraction and K6 tile
@@ -49,7 +50,8 @@ Phases, each printing one JSON line with its seconds:
                words, created over the last 365 days) embedded by the
                pretrained BiEncoder on the card in batches of 128 into a
                float32 DenseIndex (tile 1024) and added to a LexicalIndex
-               (the agent's defaults); 64 queries one at a time through
+               (the agent's defaults; the add counts terms in the C++
+               analyzer, as the JAX package's does); 64 queries one at a time through
                HybridRetriever's one-call route (the encoder forward inside
                encode_and_retrieve) and two-call route (dual_topk, then
                fuse_candidates), dense_only at k=2 (certified: K1 -> K4)
@@ -64,7 +66,37 @@ Phases, each printing one JSON line with its seconds:
                oracle, fused against modular, the card's cross-encoder
                logits against the port's CPU run; per-route host ms, per-stage
                CUDA-event ms, ingest and lexical build seconds;
-8. ``bench_shape`` the reference benchmark's retrieval path at its full
+8. ``slice_components`` the components a chat turn's nodes consume, with
+               the same encoder: (a) the C++ analyzer against the Python one
+               (two LexicalIndexes over slice_hybrid's 262,144 chunks: equal
+               postings, built arrays and 64 searches, except where a
+               document's stems share a hashed id: there the C++ count is
+               their sum and the Python one the last stem's, as in the JAX
+               package, and such documents are counted; the hashing and the
+               pretrained learned-vocabulary tokenizers on the qa_docs chunks
+               and 4,096 fillers: equal ids); (b) archival memory:
+               MemoryManager over MetadataStore(":memory:") and an
+               EmbedBatcher, 65,536 archived 40-word notes in batches of 128,
+               64 archival_memory_search calls one at a time (top_k 5; K6 at
+               N=65,536), one insert (the index grows to 69,632 rows) and 64
+               more (K6 at 69,632), every answer held against a float64
+               oracle over the index's rows; (c) EmbedBatcher: 8 clients x
+               16 requests of 1-24 texts, coalesced, against the same load
+               encoded directly (cosine >= 0.9999, unit rows, fewer
+               dispatches than requests); (d) ConsistencyChecker over 16
+               sets of 10 qa_docs sentences with negated and renumbered
+               copies, and semantic dedup of 512 texts with
+               near-duplicates, their pairwise cosine on the card held
+               against float64 (ties within 1e-6 of a threshold counted);
+               (e) snapshots (index/snapshot.py) of the archival index, a
+               262,144-row corpus DenseIndex of slice_hybrid's rows and the
+               native LexicalIndex, loaded back onto the card: 64 searches
+               each (K6; k=2 certified: K1 -> K4; BM25) bit-identical
+               before and after; (f) select_index_kind / build_index_for,
+               check_device_health, a device_trace of 16 archival searches
+               that must name K6's kernel once per launch (less one at the
+               window's edge), and the StageTimer spans;
+9. ``bench_shape`` the reference benchmark's retrieval path at its full
                shape (bench.py:180-265, :540-575): 10,485,760 x 128 bf16
                rows (clustered, 300 near-duplicate runs), tile 4096, k=10,
                unit-normal queries in batches of 1024 and 512; the
@@ -84,7 +116,8 @@ Launch counts are set to 0 just before each path and read just after it.
 Then the card's nvidia-smi line; one JSON line with an entry for each
 kernel at each shape a user path gives it (the served slices' paths:
 QueryServer rounds, DenseIndex.search and the small indexes; each shape of
-bench_shape's routes; and each shape of slice_hybrid's dense routes), its
+bench_shape's routes; each shape of slice_hybrid's dense routes; and each
+shape of slice_components' archival and restored indexes), its
 numbers measured at that shape and its
 ``launches`` counted on those paths alone (``launches_by_path`` gives each
 path), its ``bound_share`` (bound_ms / ms) and its ``library_factor``
@@ -107,6 +140,7 @@ import subprocess
 import sys
 import threading
 import time
+from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -553,14 +587,17 @@ def hold_call(K_, T_, name, args, reps, where, plain_reps=None):
                library_ms=median_ms(lib, plain_reps or reps), library=label)
     del lib
     # Bytes: inputs read once, outputs written once; operations: 2*B*rows*D.
+    # The kernels read only live rows (those below ``size``; F reads all).
     t = n // tile
+    live = n if size is None else min(int(size), n)
     row_bytes = d * corpus.element_size() + (0 if cs is None else 4)
     q_bytes = b * (d + 4) if kind == "int8" else b * d * 4
     if tiles is not None:
         u = tiles.shape[0]
-        rows, out_bytes = u * tile, u * 4 + 2 * u * m * b * 4
+        rows = int((live - tiles.long() * tile).clamp(0, tile).sum())
+        out_bytes = u * 4 + 2 * u * m * b * 4
     else:
-        rows = n
+        rows = live
         out_bytes = t * b * 4 * (1 if name == "scan_floor"
                                  else 2 * m if name.startswith("tile")
                                  else 2)
@@ -568,7 +605,8 @@ def hold_call(K_, T_, name, args, reps, where, plain_reps=None):
             if kind == "dense" and corpus.dtype == torch.float32
             else PEAK_BF16)
     rec.update(bytes=rows * row_bytes + q_bytes + out_bytes,
-               flops=2 * b * rows * d, B=b, N=n, D=d, tile=tile,
+               flops=2 * b * rows * d, B=b, N=n, live_rows=rows, D=d,
+               tile=tile,
                m=m, U=None if tiles is None else tiles.shape[0])
     rec["bound_ms"], rec["bound_by"] = bound_ms(rec["bytes"], rec["flops"],
                                                 peak)
@@ -623,13 +661,22 @@ def phase_device():
 
 
 def phase_build():
+    """nvcc builds the kernels, then g++ the C++ analyzer
+    (native/analyzer.cpp into build/native/)."""
+    from optimized_rag_tpu_torch import native
     from optimized_rag_tpu_torch.ops import _build
     t0 = time.perf_counter()
     _build.load_library()
+    t1 = time.perf_counter()
+    native.load_library()
+    if not native.available():
+        raise RuntimeError("the native analyzer did not build")
     usage = [ln.strip() for ln in _build.build_info["ptxas"].splitlines()
              if "Used" in ln or "Compiling entry" in ln or "spill" in ln]
     emit({"phase": "build", "nvcc": _build.build_info["nvcc"],
           "library": os.path.relpath(_build.build_info["library"], HERE),
+          "analyzer": os.path.relpath(native.library_path(), HERE),
+          "analyzer_seconds": time.perf_counter() - t1,
           "ptxas": usage, "seconds": time.perf_counter() - t0})
 
 
@@ -1758,7 +1805,8 @@ def phase_slice_hybrid(K_, T_, dev, svc, chunks, queries, smi):
     against the float64 oracle; the cross-encoder's logits against the
     port's CPU run. Launch counts are set to 0 before each path and read
     after it. Resets the peak memory statistics. Returns the kernel
-    records of the dense routes, each with its launches by path."""
+    records of the dense routes, each with its launches by path, and the
+    ingested rows (on the host) for slice_components."""
     import dataclasses
     from optimized_rag_tpu_torch.engine.fused import FusedRerankEval
     from optimized_rag_tpu_torch.engine.rerank import SelectiveReranker
@@ -1790,6 +1838,7 @@ def phase_slice_hybrid(K_, T_, dev, svc, chunks, queries, smi):
         index.add(svc.encode(texts[lo:lo + INGEST_BATCH]))
     torch.cuda.synchronize()
     t_embed = time.perf_counter() - t1
+    corpus_rows = index.embeddings()[:N_HYBRID].cpu()   # slice_components
     lexical = LexicalIndex(device=dev)
     t1 = time.perf_counter()
     lexical.add(texts)
@@ -2059,7 +2108,686 @@ def phase_slice_hybrid(K_, T_, dev, svc, chunks, queries, smi):
               **{key: v for key, v in rec.items() if key != "name"}})
     del index, lexical, oracle, one_call, two_call, ce, fe, emb, qv
     torch.cuda.empty_cache()
-    return held
+    return held, corpus_rows
+
+
+# ------------------------------------------------------- slice_components
+
+N_ARCHIVAL = 65_536               # archived notes: about a year of use
+ARCHIVAL_BATCH = 128              # bulk_insert_archival batch
+ARCHIVAL_K = 5                    # archival_memory_search's top_k
+N_ARCHIVAL_QUERIES = 64
+N_VOCAB_FILLERS = 4_096           # fillers the two tokenizers must agree on
+N_LEX_QUERIES = 64
+N_CLIENT_REQUESTS = 16            # EmbedBatcher: 8 clients x 16 requests
+MAX_REQUEST_TEXTS = 24
+N_CONSISTENCY_SETS, SET_SIZE = 16, 10
+N_DEDUP = 512
+MIN_COSINE = 0.9999               # tests/test_torch_encoder.py, bf16 trunk
+THRESHOLD_TIE = 1e-6              # float64 distance that counts a tie
+COMPONENT_KERNEL_PATHS = ("archival_65536", "archival_69632", "corpus_k2",
+                          "snapshot_corpus_k2", "snapshot_archival",
+                          "trace_archival")
+
+
+def filler_texts(chunks, n, seed):
+    """``n`` seeded FILLER_WORDS-word texts of the chunks' own words."""
+    words = [w for c in chunks for w in c.split()]
+    rng = random.Random(seed)
+    return [" ".join(rng.choices(words, k=FILLER_WORDS)) for _ in range(n)]
+
+
+@contextlib.contextmanager
+def python_path(native):
+    """The Python analyzer and tokenizers inside the block: the native
+    entry points decline every text, as they decline non-ASCII text."""
+    names = ("term_counts", "model_tokenize", "vocab_tokenize")
+    saved = [getattr(native, n) for n in names]
+    for n in names:
+        setattr(native, n, lambda *args: None)
+    try:
+        yield
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(native, n, fn)
+
+
+def hold_semantic_keep(kept, sim64, threshold):
+    """Semantic dedup's kept positions (among the texts it embedded) against
+    its rule in float64: a text stays while its cosine to every text kept
+    before it is below ``threshold``. Each decision is judged after the
+    kept list's own earlier decisions, and may differ from the rule only
+    through pairs within THRESHOLD_TIE of the threshold. Returns the number
+    of decisions that a tie settled."""
+    kept_set, final, settled = set(kept), [], 0
+    for a in range(sim64.shape[0]):
+        s = sim64[a, final]
+        dup = s >= threshold
+        tie = np.abs(s - threshold) <= THRESHOLD_TIE
+        keep = a in kept_set
+        if keep == (not dup.any()):
+            pass
+        elif (keep and (dup & ~tie).any()) or (not keep and not tie.any()):
+            raise AssertionError(f"slice_components dedup: text {a} "
+                                 f"{'kept' if keep else 'dropped'} against "
+                                 f"the rule (cosines {s[dup | tie]})")
+        else:
+            settled += 1
+        if keep:
+            final.append(a)
+    return settled
+
+
+def collision_cells(lex, lex_py, texts):
+    """The (term id, document) postings where the C++ analyzer's index
+    ``lex`` and the Python analyzer's ``lex_py`` differ. Each must be a
+    document with several stems of that hashed id, whose C++ count is their
+    sum and whose Python count is that of the stem seen last (the JAX
+    package's two paths differ so too); any other difference raises."""
+    from optimized_rag_tpu_torch.index.lexical import lexical_tokens
+    if lex._postings.keys() != lex_py._postings.keys():
+        raise AssertionError("slice_components: native and Python term "
+                             "sets differ")
+    cells = []
+    for t, p in lex._postings.items():
+        q = lex_py._postings[t]
+        if p == q:
+            continue
+        if p.keys() != q.keys():
+            raise AssertionError(f"slice_components: term {t} is in other "
+                                 "documents natively than in Python")
+        cells += [(t, d) for d in p if p[d] != q[d]]
+    for t, d in cells:
+        stems = [(w, c) for w, c in Counter(lexical_tokens(texts[d])).items()
+                 if lex_py._term_id(w) == t]
+        if not (len(stems) > 1
+                and lex._postings[t][d] == sum(c for _, c in stems)
+                and lex_py._postings[t][d] == stems[-1][1]):
+            raise AssertionError(
+                f"slice_components: term {t} of document {d} counts "
+                f"{lex._postings[t][d]} natively and {lex_py._postings[t][d]}"
+                f" in Python; its stems {stems}")
+    return cells
+
+
+def hold_archival(what, got, rows64, q, counts):
+    """An archival answer (ids, scores of the top ARCHIVAL_K) against the
+    float64 oracle over the index's rows fed the query embedding the card
+    computed: ids equal, scores within TIE_TOL; a differing id must score
+    within TIE_TOL of the oracle's score at its rank (a near-tie), and is
+    counted. Returns the worst score error."""
+    qn = np.asarray(q, np.float64)
+    qn /= max(np.linalg.norm(qn), 1e-12)
+    sem = rows64 @ qn
+    o_ids, o_s = _top(sem, ARCHIVAL_K)
+    ids, vals = np.asarray(got[0]), np.asarray(got[1], np.float64)
+    if len(ids) != len(o_ids):
+        raise AssertionError(f"slice_components {what}: {len(ids)} of "
+                             f"{len(o_ids)} hits")
+    if (ids != o_ids).any():
+        if np.abs(sem[ids] - o_s).max() > TIE_TOL:
+            raise AssertionError(f"slice_components {what}: ids "
+                                 f"{ids.tolist()} differ from the oracle's "
+                                 f"{o_ids.tolist()}")
+        counts["near_tie"] += 1
+    err = float(np.abs(vals - o_s).max())
+    if not err <= TIE_TOL:
+        raise AssertionError(f"slice_components {what}: scores off by "
+                             f"{err:.3g}")
+    return err
+
+
+def negated_and_renumbered(sentence, rng):
+    """A copy of ``sentence`` that contradicts it: "is" -> "is not" (or
+    "are" -> "are not"), else its first number changed; None if neither
+    applies."""
+    for verb in (" is ", " are "):
+        if verb in sentence and rng.random() < 0.6:
+            return sentence.replace(verb, f"{verb}not ", 1)
+    m = re.search(r"\b\d+\b", sentence)
+    if m:
+        return (sentence[:m.start()] + str(int(m.group()) + 7)
+                + sentence[m.end():])
+    for verb in (" is ", " are "):
+        if verb in sentence:
+            return sentence.replace(verb, f"{verb}not ", 1)
+    return None
+
+
+def consistency_sets(chunks, rng):
+    """N_CONSISTENCY_SETS sets of SET_SIZE qa_docs sentences, each with
+    seeded contradicting copies (``negated_and_renumbered``) of some of its
+    sentences, shuffled."""
+    sents = [s.strip() for c in chunks
+             for s in re.split(r"(?<=[.?!])\s+|\n+", c) if len(s.split()) > 3]
+    out = []
+    for _ in range(N_CONSISTENCY_SETS):
+        base = rng.sample(sents, SET_SIZE)
+        n_copies = rng.randint(2, 4)
+        keep, copies = base[:SET_SIZE - n_copies], []
+        for s in rng.sample(base[:SET_SIZE - n_copies], n_copies):
+            c = negated_and_renumbered(s, rng)
+            copies.append(c if c is not None else base[len(keep)
+                                                       + len(copies)])
+        texts = keep + copies
+        rng.shuffle(texts)
+        out.append(texts)
+    return out
+
+
+def dedup_texts(chunks, rng):
+    """N_DEDUP texts: qa_docs sentences and seeded fillers of 6-40 words,
+    followed by near-duplicates of earlier ones: case copies (exact dedup),
+    one word dropped (fuzzy), and 15-25% of the words dropped (left to the
+    semantic pass)."""
+    sents = [s.strip() for c in chunks
+             for s in re.split(r"(?<=[.?!])\s+|\n+", c) if len(s.split()) > 3]
+    words = [w for c in chunks for w in c.split()]
+    n_base = N_DEDUP * 3 // 4
+    base = sents[:n_base] + [" ".join(rng.choices(words, k=rng.randint(
+        6, 40))) for _ in range(n_base - min(n_base, len(sents)))]
+    dups = []
+    for j in range(N_DEDUP - n_base):
+        src = base[rng.randrange(n_base)].split()
+        kind = j % 4
+        if kind == 0:
+            dups.append(" ".join(src).upper())
+        elif kind == 1 and len(src) > 12:
+            del src[rng.randrange(len(src))]
+            dups.append(" ".join(src))
+        else:
+            drop = set(rng.sample(range(len(src)), max(1, len(src) // 5)))
+            dups.append(" ".join(w for i, w in enumerate(src)
+                                 if i not in drop))
+    return base + dups
+
+
+def phase_slice_components(K_, T_, dev, svc, chunks, queries, corpus_rows,
+                           smi):
+    """The components a chat turn's nodes consume, on the card at full
+    width (the pretrained BiEncoder through EmbeddingService):
+    (a) the C++ analyzer (built by g++ into build/native/) against the
+    Python one: two LexicalIndexes over slice_hybrid's 262,144 chunks, and
+    the hash and learned-vocabulary tokenizers; (b) archival memory:
+    MemoryManager over MetadataStore(":memory:") and an EmbedBatcher, 65,536
+    archived notes, 64 searches (K6 at N=65,536), one insert (the index
+    grows to 69,632 rows), 64 more (K6 at 69,632), each held against a
+    float64 oracle; (c) EmbedBatcher under 8 concurrent clients against
+    direct encodes; (d) ConsistencyChecker and semantic dedup with their
+    pairwise cosine on the card against a float64 oracle; (e) snapshots of
+    the archival index, a 262,144-row corpus DenseIndex (slice_hybrid's
+    rows; k=2 searches certify: K1 -> K4) and the native LexicalIndex,
+    loaded back onto the card, searches bit-identical; (f) the index
+    policy, the health probe, a device trace of 16 archival searches that
+    must name K6's kernel, and the phase's StageTimer spans. Launch counts
+    are set to 0 before each kernel path and read after it. Resets the
+    peak memory statistics. Returns the kernel records of its paths."""
+    import shutil
+    import tempfile
+    from optimized_rag_tpu_torch import native
+    from optimized_rag_tpu_torch.config import Settings
+    from optimized_rag_tpu_torch.engine.consistency import (
+        ConsistencyChecker, is_contradiction)
+    from optimized_rag_tpu_torch.engine.types import RetrievedDoc
+    from optimized_rag_tpu_torch.engine.wrangler import Deduplicator
+    from optimized_rag_tpu_torch.index import snapshot
+    from optimized_rag_tpu_torch.index.dense import DenseIndex
+    from optimized_rag_tpu_torch.index.lexical import LexicalIndex
+    from optimized_rag_tpu_torch.index.policy import (
+        build_index_for, select_index_kind)
+    from optimized_rag_tpu_torch.models.tokenizer import (
+        HashTokenizer, VocabTokenizer)
+    from optimized_rag_tpu_torch.ops.similarity import pairwise_cosine
+    from optimized_rag_tpu_torch.serving import EmbedBatcher
+    from optimized_rag_tpu_torch.store.db import MetadataStore
+    from optimized_rag_tpu_torch.store.memory import MemoryManager
+    from optimized_rag_tpu_torch.utils.health import check_device_health
+    from optimized_rag_tpu_torch.utils.profiling import (
+        StageTimer, device_trace)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    timer, rep, counts = StageTimer(), {}, {}
+    paths, log = {}, {}
+    rng = random.Random(SEED + 11)
+    texts = hybrid_corpus(chunks, N_HYBRID)
+    work = tempfile.mkdtemp(prefix="slice_components-",
+                            dir=os.path.join(HERE, "build"))
+
+    def drive(name, fn):
+        """``fn()`` with launch counts from 0 and every kernel call
+        recorded; the recorded calls must equal the counted launches."""
+        calls = log.setdefault(name, [])
+        with recording(T_, K_, calls):
+            K_.reset_launch_counts()
+            out = fn()
+            paths[name] = K_.launch_counts()
+        seen = {m: sum(c == m for c, _ in calls) for m in K_.KERNELS}
+        if seen != paths[name]:
+            raise AssertionError(f"slice_components {name}: recorded {seen},"
+                                 f" counted {paths[name]}")
+        return out
+
+    def cached_clear():
+        with svc._cache_lock:
+            svc._cache.clear()
+
+    try:
+        # (a) The C++ analyzer against the Python one.
+        with timer.span("native_analyzer"):
+            t1 = time.perf_counter()
+            if not native.available():
+                raise AssertionError("the native analyzer is not available")
+            lib = os.path.relpath(native.library_path(), HERE)
+            if not lib.startswith(os.path.join("build", "native") + os.sep):
+                raise AssertionError(f"native library outside build/: {lib}")
+            rep["native_load_seconds"] = time.perf_counter() - t1
+            rep["native_library"] = lib
+            lex, lex_py = (LexicalIndex(device=dev) for _ in range(2))
+            t1 = time.perf_counter()
+            lex.add(texts)
+            rep["lexical_add_native_seconds"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            with python_path(native):
+                lex_py.add(texts)
+            rep["lexical_add_python_seconds"] = time.perf_counter() - t1
+            for idx in (lex, lex_py):
+                idx.build()
+            # The two analyzers differ only where a document's stems share
+            # a hashed id (collision_cells): those documents are counted,
+            # and the champion rows and searches of those ids left out.
+            cells = collision_cells(lex, lex_py, texts)
+            if lex._row_of != lex_py._row_of or lex._doc_len != \
+                    lex_py._doc_len:
+                raise AssertionError("slice_components: native and Python "
+                                     "postings differ")
+            rows_hit = sorted({lex._row_of[t] for t, _ in cells})
+            for key, v in lex._device.items():
+                w = lex_py._device[key]
+                if key.startswith("champ"):
+                    other = torch.ones(v.shape[0], dtype=torch.bool,
+                                       device=v.device)
+                    other[rows_hit] = False
+                    v, w = v[other], w[other]
+                if not torch.equal(v, w):
+                    raise AssertionError(f"slice_components: build array "
+                                         f"{key} differs native/Python")
+            lex_queries = queries[:N_LEX_QUERIES]
+            touched = 0
+            for text in lex_queries:
+                q_rows, q_valid = lex.encode_query(text)
+                if set(q_rows[q_valid].tolist()) & set(rows_hit):
+                    touched += 1
+                    continue
+                (s1, i1), (s2, i2) = lex.search(text, 10), lex_py.search(
+                    text, 10)
+                if not (np.array_equal(i1, i2) and np.array_equal(s1, s2)):
+                    raise AssertionError(f"slice_components: lexical search "
+                                         f"{text!r} differs native/Python")
+            counts["analyzer"] = {
+                "colliding_documents": len({d for _, d in cells}),
+                "colliding_term_ids": sorted({t for t, _ in cells}),
+                "searches_over_colliding_ids": touched}
+            del lex_py
+            # The hashing tokenizer and the pretrained learned vocabulary
+            # (the service's own tokenizer), natively and in Python.
+            tok_texts = chunks + filler_texts(chunks, N_VOCAB_FILLERS,
+                                              SEED + 13)
+            vocab_tok = svc.tokenizer
+            hashed = HashTokenizer(svc.cfg.vocab_size, svc.max_len)
+            if not isinstance(vocab_tok, VocabTokenizer):
+                raise AssertionError("the pretrained tokenizer is not a "
+                                     "learned vocabulary")
+            fast = [(hashed.tokenize(t), vocab_tok.tokenize(t))
+                    for t in tok_texts]
+            if vocab_tok._native_handle is None:
+                raise AssertionError("VocabTokenizer has no native handle")
+            with python_path(native):
+                slow = [(hashed.tokenize(t), vocab_tok.tokenize(t))
+                        for t in tok_texts]
+            mismatched = sum(a != b for a, b in zip(fast, slow))
+            if mismatched:
+                raise AssertionError(f"slice_components: {mismatched} "
+                                     "tokenizations differ native/Python")
+            rep["tokenizer_texts"] = len(tok_texts)
+            # PERF.md section 5: the Python add recorded there before the
+            # C++ analyzer took the add over, for comparison.
+            rep["lexical_add_python_seconds_recorded"] = 9.64
+
+        # (b) Archival memory: a year of notes, searched one at a time.
+        with timer.span("archival_memory"):
+            notes = filler_texts(chunks, N_ARCHIVAL + 1, SEED + 17)
+            batcher = EmbedBatcher(svc.encode).start()
+            seen_q = []
+
+            def embed(batch):
+                out = batcher.encode(batch)
+                seen_q.append(out)
+                return out
+            store = MetadataStore(":memory:")
+            mem = MemoryManager(store, embed_fn=embed, device=dev)
+            t1 = time.perf_counter()
+            for lo in range(0, N_ARCHIVAL, ARCHIVAL_BATCH):
+                mem.bulk_insert_archival(notes[lo:lo + ARCHIVAL_BATCH])
+            torch.cuda.synchronize()
+            seen_q.clear()
+            rep["archival_insert_rows_per_s"] = N_ARCHIVAL / (
+                time.perf_counter() - t1)
+            counts["archival"] = {"near_tie": 0}
+            errs, search_ms = [], {}
+
+            def ask(name, texts_):
+                """archival_memory_search of each text alone; returns the
+                (ids, scores) answers and the query embeddings used."""
+                ms, answers, q_embs = [], [], []
+                for text in texts_:
+                    t_q = time.perf_counter()
+                    hits = mem.archival_memory_search(text, ARCHIVAL_K)
+                    ms.append((time.perf_counter() - t_q) * 1e3)
+                    answers.append(([d.doc_id for d in hits],
+                                    [d.score for d in hits]))
+                    q_embs.append(seen_q[-1][0])
+                search_ms[name] = route_stats(ms)
+                return answers, q_embs
+
+            def hold_all(name, answers, q_embs):
+                rows64 = mem.archival.embeddings()[:mem.archival.size] \
+                    .cpu().numpy().astype(np.float64)
+                return max(hold_archival(f"{name} query {j}", a, rows64, q,
+                                         counts["archival"])
+                           for j, (a, q) in enumerate(zip(answers, q_embs)))
+
+            if mem.archival.capacity != N_ARCHIVAL:
+                raise AssertionError(f"archival capacity "
+                                     f"{mem.archival.capacity}")
+            first_q = queries[:N_ARCHIVAL_QUERIES]
+            ans1, qe1 = drive("archival_65536", lambda: ask(
+                "archival_65536", first_q))
+            errs.append(hold_all("archival_65536", ans1, qe1))
+            new_text = notes[N_ARCHIVAL]
+            new_id = mem.archival_memory_insert(new_text, {"kind": "note"})
+            cap2 = mem.archival.capacity
+            if cap2 != N_ARCHIVAL + 4096:
+                raise AssertionError(f"archival capacity after the insert "
+                                     f"{cap2}")
+            second_q = queries[N_ARCHIVAL_QUERIES:2 * N_ARCHIVAL_QUERIES - 1] \
+                + [new_text]
+            ans2, qe2 = drive("archival_69632", lambda: ask(
+                "archival_69632", second_q))
+            errs.append(hold_all("archival_69632", ans2, qe2))
+            if ans2[-1][0][0] != new_id:
+                raise AssertionError(f"slice_components: the new note "
+                                     f"{new_id} is not first for its own "
+                                     f"text: {ans2[-1][0]}")
+            batcher.stop()
+            require_launched(paths, ("archival_65536",), ("tile_topk",),
+                             "archival search (65,536 rows)")
+            require_launched(paths, ("archival_69632",), ("tile_topk",),
+                             "archival search (69,632 rows)")
+            rep["archival"] = {"rows": mem.archival.size,
+                               "capacity": [N_ARCHIVAL, cap2],
+                               "search_host_ms": search_ms,
+                               "oracle_max_err": max(errs)}
+
+        # (c) EmbedBatcher: concurrent chat turns embedding claims.
+        with timer.span("embed_batcher"):
+            req_rng = random.Random(SEED + 19)
+            pool = iter(filler_texts(chunks, N_CLIENTS * N_CLIENT_REQUESTS
+                                     * MAX_REQUEST_TEXTS, SEED + 19))
+            requests = [[next(pool) for _ in range(req_rng.randint(
+                1, MAX_REQUEST_TEXTS))]
+                for _ in range(N_CLIENTS * N_CLIENT_REQUESTS)]
+
+            def load(encode):
+                out, errors = [None] * len(requests), []
+
+                def client(c):
+                    try:
+                        for i in range(c, len(requests), N_CLIENTS):
+                            out[i] = encode(requests[i])
+                    except BaseException as exc:   # reported below
+                        errors.append(exc)
+                threads = [threading.Thread(target=client, args=(c,),
+                                            daemon=True)
+                           for c in range(N_CLIENTS)]
+                t_l = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=300)
+                wall = time.perf_counter() - t_l
+                if errors:
+                    raise errors[0]
+                if any(t.is_alive() for t in threads):
+                    raise AssertionError("EmbedBatcher clients still alive")
+                return out, wall
+            coalescer = EmbedBatcher(svc.encode, max_texts=256).start()
+            cached_clear()
+            coalesced, wall_c = load(coalescer.encode)
+            coalescer.stop()
+            if coalescer._thread.is_alive():
+                raise AssertionError("EmbedBatcher worker still alive")
+            cached_clear()
+            direct, wall_d = load(svc.encode)
+            worst = 1.0
+            for a, b in zip(coalesced, direct):
+                norms = np.linalg.norm(a, axis=1)
+                if not np.abs(norms - 1.0).max() <= 1e-5:
+                    raise AssertionError("EmbedBatcher: rows not unit-norm")
+                worst = min(worst, float(np.sum(a * b, axis=1).min()))
+            if not worst >= MIN_COSINE:
+                raise AssertionError(f"EmbedBatcher: cosine {worst} to the "
+                                     f"direct encode < {MIN_COSINE}")
+            st = dict(coalescer.stats)
+            if not st["dispatches"] < st["requests"]:
+                raise AssertionError(f"EmbedBatcher did not coalesce: {st}")
+            rep["embed_batcher"] = {**st, "min_cosine_to_direct": worst,
+                                    "coalesced_wall_s": wall_c,
+                                    "direct_wall_s": wall_d}
+
+        # (d) Consistency and semantic dedup, scored on the card.
+        with timer.span("consistency_dedup"):
+            got_emb = []
+
+            def rec_embed(batch):
+                out = svc.encode(batch)
+                got_emb.append(out)
+                return out
+            checker = ConsistencyChecker(rec_embed, device=dev)
+            counts["consistency"] = {"threshold_ties": 0}
+            n_contra, ms_check, cos_err = 0, [], 0.0
+            for s, sent_set in enumerate(consistency_sets(chunks, rng)):
+                docs = [RetrievedDoc(doc_id=i, score=1.0, text=t)
+                        for i, t in enumerate(sent_set)]
+                t_c = time.perf_counter()
+                res = checker.check_consistency(docs)
+                ms_check.append((time.perf_counter() - t_c) * 1e3)
+                e = got_emb[-1]
+                e64 = e.astype(np.float64)
+                e64 /= np.maximum(np.linalg.norm(e64, axis=1, keepdims=True),
+                                  1e-12)
+                sim64 = e64 @ e64.T
+                card = pairwise_cosine(torch.from_numpy(e).to(dev)).cpu() \
+                    .numpy()
+                cos_err = max(cos_err, float(np.abs(card - sim64).max()))
+                want = [(i, j) for i in range(len(docs))
+                        for j in range(i + 1, len(docs))
+                        if sim64[i, j] >= checker.sim_threshold
+                        and is_contradiction(sent_set[i], sent_set[j])]
+                got = [(i, j) for i, j, _ in res["contradictions"]]
+                ties = [(i, j) for i in range(len(docs))
+                        for j in range(i + 1, len(docs))
+                        if abs(sim64[i, j] - checker.sim_threshold)
+                        <= THRESHOLD_TIE]
+                counts["consistency"]["threshold_ties"] += len(ties)
+                if (set(got) ^ set(want)) - set(ties):
+                    raise AssertionError(f"slice_components consistency set "
+                                         f"{s}: {got} != oracle {want}")
+                n_contra += len(got)
+            if not cos_err <= TIE_TOL:
+                raise AssertionError(f"pairwise_cosine on the card off "
+                                     f"float64 by {cos_err:.3g}")
+            if not n_contra:
+                raise AssertionError("no contradiction found in any set")
+            dtexts = dedup_texts(chunks, rng)
+            got_emb.clear()
+            seen_in = []
+
+            def dedup_embed(batch):
+                seen_in.append(list(batch))
+                return rec_embed(batch)
+            dd = Deduplicator(embed_fn=dedup_embed, device=dev)
+            t_d = time.perf_counter()
+            kept = dd.dedup(dtexts, semantic=True)
+            dedup_s = time.perf_counter() - t_d
+            # The exact and fuzzy passes' survivors, from what the semantic
+            # pass embedded; then its rule in float64.
+            pos, first_pass = 0, []
+            for t in seen_in[0]:
+                pos = dtexts.index(t, pos)
+                first_pass.append(pos)
+                pos += 1
+            e64 = got_emb[0].astype(np.float64)
+            e64 /= np.maximum(np.linalg.norm(e64, axis=1, keepdims=True),
+                              1e-12)
+            sim64 = e64 @ e64.T
+            if not set(kept) <= set(first_pass):
+                raise AssertionError("slice_components dedup kept a text "
+                                     "the exact and fuzzy passes dropped")
+            ties = int((np.abs(np.triu(sim64, 1) - dd.semantic_threshold)
+                        <= THRESHOLD_TIE).sum())
+            settled = hold_semantic_keep(
+                [first_pass.index(i) for i in kept], sim64,
+                dd.semantic_threshold)
+            counts["dedup"] = {"threshold_ties": ties,
+                               "decisions_settled_by_a_tie": settled}
+            rep["consistency"] = {"sets": N_CONSISTENCY_SETS,
+                                  "docs_per_set": SET_SIZE,
+                                  "contradictions": n_contra,
+                                  "check_host_ms": route_stats(ms_check),
+                                  "pairwise_cosine_err": cos_err}
+            rep["dedup"] = {"texts": len(dtexts),
+                            "after_exact_fuzzy": len(first_pass),
+                            "kept": len(kept), "seconds": dedup_s}
+
+        # (e) Snapshots of the three indexes, loaded back onto the card.
+        with timer.span("snapshots"):
+            corpus = DenseIndex(DIM, capacity_block=CAPACITY_BLOCK,
+                                tile=TILE, dtype=torch.float32, device=dev)
+            corpus.add(corpus_rows)
+            q_corpus = torch.from_numpy(svc.encode(first_q)).to(dev)
+            arch_q = torch.from_numpy(np.stack(qe2)).to(dev)
+            before = {}
+            before["dense"] = drive("corpus_k2", lambda: [
+                corpus.search(q_corpus[j:j + 1], 2)
+                for j in range(q_corpus.shape[0])])
+            before["arch"] = [mem.archival.search(arch_q[j:j + 1],
+                                                  ARCHIVAL_K)
+                              for j in range(arch_q.shape[0])]
+            before["lex"] = [lex.search(t, 10) for t in lex_queries]
+            t1 = time.perf_counter()
+            for name, idx in (("archival", mem.archival),
+                              ("dense", corpus), ("lexical", lex)):
+                snapshot.save_state(work, name, idx.state_dict())
+            save_s = time.perf_counter() - t1
+            nbytes = sum(os.path.getsize(os.path.join(work, f))
+                         for f in os.listdir(work))
+            t1 = time.perf_counter()
+            arch2 = DenseIndex.from_state_dict(
+                snapshot.load_state(work, "archival"), device=dev)
+            corpus2 = DenseIndex.from_state_dict(
+                snapshot.load_state(work, "dense"), device=dev)
+            lex2 = LexicalIndex.from_state_dict(
+                snapshot.load_state(work, "lexical"), device=dev)
+            lex2.build()
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t1
+            after = {}
+            after["dense"] = drive("snapshot_corpus_k2", lambda: [
+                corpus2.search(q_corpus[j:j + 1], 2)
+                for j in range(q_corpus.shape[0])])
+            after["arch"] = drive("snapshot_archival", lambda: [
+                arch2.search(arch_q[j:j + 1], ARCHIVAL_K)
+                for j in range(arch_q.shape[0])])
+            after["lex"] = [lex2.search(t, 10) for t in lex_queries]
+            for key in ("dense", "arch"):
+                for j, (x, y) in enumerate(zip(before[key], after[key])):
+                    if not (np.array_equal(x.ids, y.ids)
+                            and np.array_equal(x.scores.view(np.int32),
+                                               y.scores.view(np.int32))):
+                        raise AssertionError(f"slice_components snapshot "
+                                             f"{key} search {j} differs")
+            for j, ((s1, i1), (s2, i2)) in enumerate(zip(before["lex"],
+                                                         after["lex"])):
+                if not (np.array_equal(i1, i2) and np.array_equal(
+                        s1.view(np.int32), s2.view(np.int32))):
+                    raise AssertionError(f"slice_components snapshot lexical"
+                                         f" search {j} differs")
+            routes = [r.route for r in after["dense"]]
+            require_launched(paths, ("snapshot_corpus_k2",),
+                             ("packed_extract", "extract"),
+                             "restored corpus index k=2")
+            require_launched(paths, ("snapshot_archival",), ("tile_topk",),
+                             "restored archival index")
+            rep["snapshots"] = {"save_seconds": save_s,
+                                "load_seconds": load_s,
+                                "bytes_on_disk": nbytes,
+                                "corpus_rows": corpus2.size,
+                                "archival_rows": arch2.size,
+                                "lexical_docs": lex2.size,
+                                "corpus_k2_routes": {r: routes.count(r)
+                                                     for r in set(routes)}}
+            del corpus, corpus2, lex2, before, after
+
+        # (f) The index policy, the health probe and a device trace.
+        with timer.span("policy_health_trace"):
+            if select_index_kind(N_HYBRID, 1) != "dense":
+                raise AssertionError("select_index_kind(262,144, 1) is not "
+                                     "dense")
+            built = build_index_for("dense", DIM, Settings())
+            if built.device.type != "cuda":
+                raise AssertionError(f"build_index_for on {built.device}")
+            del built
+            health = check_device_health()
+            if not (health["healthy"] and health["backend"] == "cuda"
+                    and health["device_count"] == 1):
+                raise AssertionError(f"check_device_health: {health}")
+            trace_dir = os.path.join(work, "trace")
+            with device_trace(trace_dir):
+                drive("trace_archival", lambda: [
+                    arch2.search(arch_q[j:j + 1], ARCHIVAL_K)
+                    for j in range(16)])
+            with open(os.path.join(trace_dir, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+            # One K6 kernel event per launch (the profiler may drop the one
+            # at the window's edge).
+            k6 = [e for e in events if e.get("cat") == "kernel"
+                  and "stream_topk_kernel" in e.get("name", "")]
+            launched = paths["trace_archival"]["tile_topk"]
+            if not max(1, launched - 1) <= len(k6) <= launched:
+                raise AssertionError(f"the trace names K6's kernel "
+                                     f"{len(k6)} times for {launched} "
+                                     "launches")
+            rep["health"] = health
+            rep["trace"] = {"events": len(events), "k6_kernels": len(k6),
+                            "k6_launches": launched,
+                            "k6_kernel_name": k6[0]["name"][:120]}
+        held = hold_recorded(K_, T_, {p: log[p] for p in
+                                      COMPONENT_KERNEL_PATHS}, 5,
+                             "slice_components")
+        emit({"phase": "slice_components", "card": smi, **rep,
+              "stages_host": timer.stats(),
+              "allowed_differences": counts, "launches_by_path": paths,
+              "peak_device_gbytes": torch.cuda.max_memory_allocated() / 1e9,
+              "seconds": time.perf_counter() - t0})
+        for rec in held:
+            emit({"phase": "slice_components", "card": smi,
+                  "kernel": rec["name"],
+                  **{key: v for key, v in rec.items() if key != "name"}})
+        del mem, arch2, lex, store
+        return held
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
 
 
 SOURCES = {"packed_extract": ("optimized_rag_tpu_torch/csrc/packed_extract.cu",
@@ -2148,9 +2876,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     paths8, recs8 = phase_slice_int8(K_, T_, dev, svc, chunks, queries)
     peak = torch.cuda.max_memory_allocated()   # slice_hybrid resets it
-    held_h = phase_slice_hybrid(K_, T_, dev, svc, chunks,
-                                first[:N_HYBRID_QUERIES], smi)
-    del svc
+    held_h, corpus_rows = phase_slice_hybrid(K_, T_, dev, svc, chunks,
+                                             first[:N_HYBRID_QUERIES], smi)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    held_c = phase_slice_components(K_, T_, dev, svc, chunks, first,
+                                    corpus_rows, smi)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    del svc, corpus_rows
     torch.cuda.empty_cache()
     bench16, held16, bench8, held8 = phase_bench_shape(K_, T_, dev)
     peak = max(peak, torch.cuda.max_memory_allocated())
@@ -2165,7 +2897,9 @@ def main() -> None:
     # DenseIndex.search at both sizes for bf16; QueryServer rounds,
     # DenseIndex.search and the small index for int8), then every shape of
     # bench_shape's routes, then each shape slice_hybrid's dense routes gave
-    # K1, K4 and K6. The direct calls of the checks are not counted.
+    # K1, K4 and K6, then each shape slice_components' archival and restored
+    # indexes gave K6, K1 and K4. The direct calls of the checks are not
+    # counted.
     kernels = []
     for dtype, paths, user, recs in (
             ("f32", paths32, USER_PATHS_F32, recs32),
@@ -2181,6 +2915,11 @@ def main() -> None:
     for rec in held_h:
         kernels.append(kernel_entry(
             rec["name"], f"{rec['dtype']} slice_hybrid {rec['shape']}",
+            rec["launches_by_path"], rec))
+    for rec in held_c:
+        kernels.append(kernel_entry(
+            rec["name"],
+            f"{rec['dtype']} slice_components N={rec['N']} {rec['shape']}",
             rec["launches_by_path"], rec))
     idle = [k["name"] for k in kernels if not k["launches"]]
     missing = set(K_.KERNELS) - {k["name"].split("[")[0] for k in kernels}

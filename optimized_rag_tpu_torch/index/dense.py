@@ -14,7 +14,8 @@ int8-native certified path, or K7), 4x oversampled, and rescores the
 dequantized candidates in float32. ``state_dict`` is interchangeable with
 the JAX package's: bfloat16 and float16 rows are exported as float32
 numpy (exact; numpy has no bfloat16), int8 rows as int8 codes plus
-``scale``.
+``scale``; the JAX package's bfloat16 snapshot files (raw 2-byte records)
+are read bit for bit.
 """
 
 from __future__ import annotations
@@ -289,12 +290,19 @@ class DenseIndex:
     def from_state_dict(cls, state: dict, device="cuda") -> "DenseIndex":
         idx = cls(int(state["dim"]), int(state["capacity_block"]),
                   str(state["dtype"]), int(state["tile"]), device=device)
-        emb = np.array(state["embeddings"],
-                       np.int8 if idx.quantized else np.float32)
+        emb = np.asarray(state["embeddings"])
+        if emb.dtype.kind == "V" and idx.dtype == torch.bfloat16:
+            # The JAX package's bfloat16 rows: numpy keeps them as raw
+            # 2-byte records (it has no bfloat16); read their bits.
+            rows = torch.from_numpy(np.array(emb).view(np.int16)).view(
+                torch.bfloat16)
+        else:
+            rows = torch.from_numpy(np.array(
+                emb, np.int8 if idx.quantized else np.float32))
         if len(emb):
             idx._ensure_capacity(len(emb))
-            idx._emb[:len(emb)] = torch.from_numpy(emb).to(
-                device=idx.device, dtype=idx.dtype)
+            idx._emb[:len(emb)] = rows.to(device=idx.device,
+                                          dtype=idx.dtype)
             if idx.quantized:
                 idx._scale[:len(emb)] = torch.from_numpy(np.array(
                     state["scale"], np.float32)).to(idx.device)

@@ -4,12 +4,12 @@ Held against ``optimized_rag_tpu/index/lexical.py``. The corpus statistics
 are built once into dense arrays on the index's device, and each query is a
 gather, the BM25 arithmetic, an accumulation and a top-k (ops/bm25.py).
 
-The analyzer is the Python one (lowercase word split, a small stopword
-list, a light stemmer, FNV-1a hashed term ids), the JAX package's
-authoritative path; its optional C++ analyzer is held equal to it there and
-is not carried here. Stems and term ids are memoised per word (a corpus
-repeats a few thousand words), which gives the same postings in about a
-quarter of the host time. ``state_dict`` is interchangeable with the JAX
+The analyzer is a lowercase word split, a small stopword list, a light
+stemmer and FNV-1a hashed term ids. ``add`` counts an ASCII text's terms in
+the C++ analyzer (``native.term_counts``), as the JAX package does; a
+non-ASCII text takes the Python analyzer, which is authoritative. In the
+Python analyzer stems and term ids are memoised per word (a corpus repeats
+a few thousand words). ``state_dict`` is interchangeable with the JAX
 package's.
 """
 
@@ -22,6 +22,7 @@ from collections import Counter, defaultdict
 import numpy as np
 import torch
 
+from optimized_rag_tpu_torch import native
 from optimized_rag_tpu_torch.device import resolve_device
 from optimized_rag_tpu_torch.ops.bm25 import bm25_idf, bm25_topk
 
@@ -95,13 +96,26 @@ class LexicalIndex:
         return len(self._doc_len)
 
     def add(self, texts: list[str]) -> np.ndarray:
-        """Add documents; ids align with DenseIndex insertion order."""
+        """Add documents; ids align with DenseIndex insertion order.
+
+        ASCII texts go through the C++ analyzer, the others through the
+        Python one (``native.term_counts`` declines them)."""
         start = self.size
         ids = self._ids
         for text in texts:
             doc_id = len(self._doc_len)
+            counts = native.term_counts(text, self.vocab_size)
+            if counts is not None:
+                terms, tfs, doc_len = counts
+                self._doc_len.append(float(doc_len))
+                for term, tf in zip(terms.tolist(), tfs.tolist()):
+                    self._postings[term][doc_id] = tf
+                continue
             toks = lexical_tokens(text)
             self._doc_len.append(float(len(toks)))
+            # Counted per stem, as the JAX package's Python path counts:
+            # where two stems share a hashed id, the one seen last sets the
+            # count (the C++ analyzer adds them; the two paths differ there).
             for term, tf in Counter(toks).items():
                 tid = ids.get(term)
                 if tid is None:

@@ -1,17 +1,22 @@
 """Offline deterministic tokenizers: hashing, and hashing with a learned
 head vocabulary.
 
-Held against ``optimized_rag_tpu/models/tokenizer.py``: a copy of its
-pure-Python path (the JAX package's optional native fast path is not
-carried), giving the same token ids. Lowercase word split, FNV-1a hash into
-a fixed id space, plus character-trigram pieces for long words.
+Held against ``optimized_rag_tpu/models/tokenizer.py``, giving the same
+token ids. Lowercase word split, FNV-1a hash into a fixed id space, plus
+character-trigram pieces for long words. ASCII text is tokenized by the C++
+analyzer (``native.model_tokenize``, and a vocabulary handle of
+``native.vocab_build`` for ``VocabTokenizer``), as the JAX package does;
+non-ASCII text takes the Python path, which is authoritative.
 """
 
 from __future__ import annotations
 
 import re
+import threading
 
 import numpy as np
+
+from optimized_rag_tpu_torch import native
 
 _WORD_RE = re.compile(r"[a-z0-9]+|[^\sa-z0-9]", re.UNICODE)
 
@@ -41,6 +46,10 @@ class HashTokenizer:
         return NUM_SPECIAL + _fnv1a(token.encode("utf-8")) % self._space
 
     def tokenize(self, text: str) -> list[int]:
+        fast = native.model_tokenize(text, self.vocab_size, NUM_SPECIAL,
+                                     _TRIGRAM_SPLIT_LEN)
+        if fast is not None:
+            return fast
         ids: list[int] = []
         for w in _WORD_RE.findall(text.lower()):
             ids.append(self._tid(w))
@@ -148,6 +157,10 @@ class VocabTokenizer(HashTokenizer):
         self.vocab = {w: NUM_SPECIAL + i for i, w in enumerate(self.words)}
         self._hash_base = NUM_SPECIAL + len(self.words)
         self._space = vocab_size - self._hash_base
+        self._native_handle: int | None = None
+        self._native_tried = False
+        self._native_free = None       # bound at build; usable in __del__
+        self._native_lock = threading.Lock()
 
     @classmethod
     def train(cls, texts, vocab_size: int = 32768, max_len: int = 512,
@@ -169,6 +182,23 @@ class VocabTokenizer(HashTokenizer):
         return self._hash_base + _fnv1a(token.encode("utf-8")) % self._space
 
     def tokenize(self, text: str) -> list[int]:
+        if not self._native_tried:
+            # Built under a lock: two first-tokenize threads would both
+            # build, and the loser's C++ vocabulary map would leak.
+            with self._native_lock:
+                if not self._native_tried:
+                    self._native_handle = native.vocab_build(
+                        self.words, self.vocab_size, NUM_SPECIAL,
+                        _TRIGRAM_SPLIT_LEN)
+                    if self._native_handle is not None:
+                        # Bound now: __del__ at interpreter shutdown
+                        # cannot import safely.
+                        self._native_free = native.vocab_free
+                    self._native_tried = True
+        if self._native_handle is not None:
+            fast = native.vocab_tokenize(self._native_handle, text)
+            if fast is not None:
+                return fast
         ids: list[int] = []
         for w in _WORD_RE.findall(text.lower()):
             ids.append(self._tid(w))
@@ -176,6 +206,19 @@ class VocabTokenizer(HashTokenizer):
                 ids.extend(self._tid("##" + w[i:i + 3])
                            for i in range(0, len(w) - 2, 3))
         return ids
+
+    def __del__(self):
+        # Release the C++ vocabulary map: it lives in a process-wide
+        # registry that nothing else erases, and agents and tests make many
+        # tokenizers.
+        h = getattr(self, "_native_handle", None)
+        free = getattr(self, "_native_free", None)
+        if h is not None and free is not None:
+            try:
+                free(h)
+            except Exception:
+                pass
+            self._native_handle = None
 
     def save(self, path: str) -> None:
         with open(path, "w", encoding="utf-8") as f:

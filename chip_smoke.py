@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: the /search serving path,
-the retrieval half of a chat turn, the components a chat turn consumes, and
-the reference benchmark's retrieval path.
+the retrieval half of a chat turn, the components a chat turn consumes, the
+agent's chat turns, and the reference benchmark's retrieval path.
 
     python3 chip_smoke.py            # from any directory; needs one CUDA card
 
@@ -96,7 +96,27 @@ Phases, each printing one JSON line with its seconds:
                check_device_health, a device_trace of 16 archival searches
                that must name K6's kernel once per launch (less one at the
                window's edge), and the StageTimer spans;
-9. ``bench_shape`` the reference benchmark's retrieval path at its full
+9. ``slice_agent`` the agent and one chat turn: RAGAgent(Settings()
+               defaults, device="cuda") with the pretrained encoders runs
+               the 16-node graph with the deterministic LLM and an offline
+               web tool: (a) the reference's turn probe (bench.py:640-683:
+               make_dataset(128 docs, 10 topics, seed 11) ingested in
+               groups of 64, warmup(), 4 warm-up and 16 timed turns; host
+               p50/p99, each node's p50 span, the device's busy and idle
+               share under torch.profiler, kernel launches per turn beside
+               its tiers); (c) the same agent after 65,536 archival notes:
+               16 more turns, every one launching K6 over the notes, its
+               archival hits held against a float64 oracle; (b) a fresh
+               agent uploads the qa_docs and answers 8 questions in one
+               session (each intent, the KG's two-hop chain, a recall
+               question, a refusal); a CPU agent replays (b) and (a) up to
+               its 8th timed turn, each turn's trace, intent, refusal,
+               sources, citations and answer equal to the card's unless
+               the CPU run shows a near-tie (a cosine within 1e-6 of a
+               verification threshold, cross-encoder logits within 0.35,
+               fused scores within 1e-4; counted); ``time.time`` is pinned
+               for the phase, so both runs read one clock;
+10. ``bench_shape`` the reference benchmark's retrieval path at its full
                shape (bench.py:180-265, :540-575): 10,485,760 x 128 bf16
                rows (clustered, 300 near-duplicate runs), tile 4096, k=10,
                unit-normal queries in batches of 1024 and 512; the
@@ -116,8 +136,9 @@ Launch counts are set to 0 just before each path and read just after it.
 Then the card's nvidia-smi line; one JSON line with an entry for each
 kernel at each shape a user path gives it (the served slices' paths:
 QueryServer rounds, DenseIndex.search and the small indexes; each shape of
-bench_shape's routes; each shape of slice_hybrid's dense routes; and each
-shape of slice_components' archival and restored indexes), its
+bench_shape's routes; each shape of slice_hybrid's dense routes; each
+shape of slice_components' archival and restored indexes; and each shape
+of slice_agent's turns), its
 numbers measured at that shape and its
 ``launches`` counted on those paths alone (``launches_by_path`` gives each
 path), its ``bound_share`` (bound_ms / ms) and its ``library_factor``
@@ -1762,14 +1783,15 @@ def mmr_oracle(embs, blended, n, k):
     return [int(order[j]) for j in chosen], steps
 
 
-def device_busy(fn):
+def device_busy(fn, cpu=True):
     """``fn()`` under torch.profiler: host-clock wall ms (synchronised), the
     device time of its kernels (one stream: they do not overlap), the idle
-    share, and the five kernels with the most device time."""
+    share, and the five kernels with the most device time. ``cpu=False``
+    traces the device's activity alone, which costs the host less."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2222,17 +2244,17 @@ def hold_archival(what, got, rows64, q, counts):
     o_ids, o_s = _top(sem, ARCHIVAL_K)
     ids, vals = np.asarray(got[0]), np.asarray(got[1], np.float64)
     if len(ids) != len(o_ids):
-        raise AssertionError(f"slice_components {what}: {len(ids)} of "
+        raise AssertionError(f"{what}: {len(ids)} of "
                              f"{len(o_ids)} hits")
     if (ids != o_ids).any():
         if np.abs(sem[ids] - o_s).max() > TIE_TOL:
-            raise AssertionError(f"slice_components {what}: ids "
+            raise AssertionError(f"{what}: ids "
                                  f"{ids.tolist()} differ from the oracle's "
                                  f"{o_ids.tolist()}")
         counts["near_tie"] += 1
     err = float(np.abs(vals - o_s).max())
     if not err <= TIE_TOL:
-        raise AssertionError(f"slice_components {what}: scores off by "
+        raise AssertionError(f"{what}: scores off by "
                              f"{err:.3g}")
     return err
 
@@ -2492,8 +2514,8 @@ def phase_slice_components(K_, T_, dev, svc, chunks, queries, corpus_rows,
             def hold_all(name, answers, q_embs):
                 rows64 = mem.archival.embeddings()[:mem.archival.size] \
                     .cpu().numpy().astype(np.float64)
-                return max(hold_archival(f"{name} query {j}", a, rows64, q,
-                                         counts["archival"])
+                return max(hold_archival(f"slice_components {name} query {j}",
+                                         a, rows64, q, counts["archival"])
                            for j, (a, q) in enumerate(zip(answers, q_embs)))
 
             if mem.archival.capacity != N_ARCHIVAL:
@@ -2790,6 +2812,345 @@ def phase_slice_components(K_, T_, dev, svc, chunks, queries, corpus_rows,
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------- slice_agent
+
+# The reference's turn probe (bench.py:640-683): 128 synthetic documents of
+# 10 topics ingested in groups of 64, 4 warm-up turns, 16 timed turns.
+AGENT_DOCS, AGENT_TOPICS, AGENT_SEED = 128, 10, 11
+AGENT_GROUP, AGENT_WARMUP, AGENT_TURNS = 64, 4, 16
+AGENT_REPLAY_TURNS = 8            # timed turns the CPU replays
+AGENT_CLOCK = 1_790_000_000.0     # time.time() in the phase, both runs
+FUSED_TIE = 1e-4                  # fused scores after an encoder forward
+# One session over the qa_docs: each intent the deterministic LLM gives,
+# the KG's two-hop chain, a question about the session itself and one no
+# document answers.
+QA_SESSION = (
+    ("What is the default chunk size and overlap?", "question_answering"),
+    ("Compare brute-force search and IVF indexes", "comparison"),
+    ("Summarize the three kinds of agent memory", "summarization"),
+    ("Is it true that an answer whose factuality score falls below 0.50 "
+     "is refused?", "fact_checking"),
+    ("Who led the Meridian project and then where did they come from?",
+     "multi_hop_reasoning"),
+    ("What did I ask earlier?", "clarification"),
+    ("What did the framework's cloud bill cost in March?",
+     "question_answering"),
+    ("What are the BM25 defaults for k1 and b?", "question_answering"))
+QA_MULTI_HOP, QA_REFUSAL = 4, 6
+AGENT_KERNEL_PATHS = ("agent_probe", "agent_qa", "agent_archival")
+TURN_FIELDS = ("trace", "intent", "refused", "sources", "citations",
+               "answer")
+
+
+def make_agent(dev, data_dir):
+    """``RAGAgent`` from ``Settings()`` defaults on ``dev``: the pretrained
+    encoders that ``find_checkpoint_dir`` finds, the deterministic LLM and
+    an offline web tool that finds nothing."""
+    from optimized_rag_tpu_torch.agent.agent import RAGAgent
+    from optimized_rag_tpu_torch.agent.llm import DeterministicLLM
+    from optimized_rag_tpu_torch.agent.web import WebSearchTool
+    from optimized_rag_tpu_torch.config import Settings
+    settings = Settings()
+    settings.data_dir = data_dir
+    return RAGAgent(settings, llm=DeterministicLLM(),
+                    web=WebSearchTool(search_fn=lambda q, n: []), device=dev)
+
+
+def turn(agent, text):
+    """One chat turn: its fields and host-clock ms."""
+    trace = []
+    t0 = time.perf_counter()
+    resp = agent.chat(text, trace=trace)
+    ms = (time.perf_counter() - t0) * 1e3
+    if not resp.answer:
+        raise AssertionError(f"slice_agent: empty answer to {text!r}")
+    return {"trace": trace, "intent": resp.intent, "refused": resp.refused,
+            "sources": [s["doc_id"] for s in resp.sources],
+            "citations": resp.citations, "answer": resp.answer,
+            "tiers_used": resp.tiers_used, "ms": ms}
+
+
+def ingest_probe(agent, ds):
+    for i in range(0, len(ds.texts), AGENT_GROUP):
+        agent.ingestor.ingest_text("\n".join(ds.texts[i:i + AGENT_GROUP]),
+                                   filename=f"doc{i}.txt")
+
+
+class TieLog:
+    """The near-ties a CPU run's turn shows, by kind: a cosine within
+    THRESHOLD_TIE of a verification threshold (the rewriter's and the
+    verifiers' cosines), two cross-encoder logits of one forward within
+    LOGIT_ATOL, two fused scores of one retrieval within FUSED_TIE."""
+
+    def __init__(self, agent):
+        from optimized_rag_tpu_torch.agent import rewriter, verification
+        s = agent.settings
+        self.thresholds = np.asarray(
+            [s.verification.embedding_verify_threshold, 0.75, 0.85, 0.0])
+        self.kinds = Counter()
+        self._mods = (rewriter, verification)
+        self._cosine = verification.cosine_matrix
+        self._agent = agent
+        self._retrieve = agent.retriever.retrieve
+
+    def __enter__(self):
+        def cosine(a, b):
+            out = self._cosine(a, b)
+            v = out.double().cpu().numpy().reshape(-1, 1)
+            if (np.abs(v - self.thresholds) <= THRESHOLD_TIE).any():
+                self.kinds["threshold"] += 1
+            return out
+
+        def logits(module, args, out):
+            live = args[1].sum(dim=1) > 0           # rows with tokens
+            self._pairs("logit", out.float()[live].cpu().numpy(), LOGIT_ATOL)
+
+        def retrieve(*args, **kw):
+            docs = self._retrieve(*args, **kw)
+            self._pairs("fused", np.asarray([d.score for d in docs]),
+                        FUSED_TIE)
+            return docs
+        for mod in self._mods:
+            mod.cosine_matrix = cosine
+        self._hook = self._agent.cross_encoder.model.register_forward_hook(
+            logits)
+        self._agent.retriever.retrieve = retrieve
+        return self
+
+    def _pairs(self, kind, v, tol):
+        v = np.sort(v.astype(np.float64))
+        if len(v) > 1 and np.diff(v).min() <= tol:
+            self.kinds[kind] += 1
+
+    def __exit__(self, *exc):
+        for mod in self._mods:
+            mod.cosine_matrix = self._cosine
+        self._hook.remove()
+        del self._agent.retriever.retrieve
+
+
+def replay(what, card_turns, cpu_agent, texts, counts):
+    """``texts`` through ``cpu_agent`` in order, each turn held against the
+    card's: TURN_FIELDS equal, or the first field that differs shows a
+    near-tie in the CPU run (counted by kind). After an excused difference
+    the histories differ: later turns are counted, not held."""
+    log = counts.setdefault(what, {"equal": 0, "excused": [],
+                                   "after_divergence": 0,
+                                   "ties_in_equal_turns": Counter()})
+    diverged = False
+    for j, (text, card) in enumerate(zip(texts, card_turns)):
+        with TieLog(cpu_agent) as ties:
+            cpu = turn(cpu_agent, text)
+        if diverged:
+            log["after_divergence"] += 1
+            continue
+        differ = [f for f in TURN_FIELDS if cpu[f] != card[f]]
+        if not differ:
+            log["equal"] += 1
+            log["ties_in_equal_turns"].update(ties.kinds)
+            continue
+        if not ties.kinds:
+            raise AssertionError(
+                f"slice_agent {what} turn {j} ({text!r}): {differ[0]} on the "
+                f"card {card[differ[0]]!r}, on the CPU {cpu[differ[0]]!r}, "
+                "and the CPU run shows no near-tie")
+        log["excused"].append({"turn": j, "field": differ[0],
+                               "ties": dict(ties.kinds)})
+        diverged = True
+
+
+def phase_slice_agent(K_, T_, dev, chunks, smi):
+    """The agent and one chat turn on the card: RAGAgent (Settings()
+    defaults, the pretrained encoders, the deterministic LLM, an offline
+    web tool) runs the whole 16-node graph. (a) The reference's turn probe:
+    make_dataset(128 docs, 10 topics, seed 11) ingested in groups of 64,
+    warmup(), 4 warm-up turns, 16 timed turns (host p50/p99, per-node
+    spans, the device's busy and idle share under torch.profiler, kernel
+    launches per turn). (b) A fresh agent uploads the qa_docs and answers
+    a session of 8 questions (every intent, the KG's two-hop chain, a
+    recall question, a refusal). (c) The agent of (a) after a year of
+    archival notes (65,536 through bulk_insert_archival): 16 more turns,
+    each launching K6 over the notes, each turn's archival hits held
+    against a float64 oracle. A CPU agent built the same way replays (b)
+    and (a) up to its 8th timed turn, turn by turn against the card.
+    ``time.time`` is pinned for the phase. Resets the peak memory
+    statistics. Returns the kernel records of its paths."""
+    import shutil
+    import tempfile
+    from optimized_rag_tpu_torch.eval.synthetic import make_dataset
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    work = tempfile.mkdtemp(prefix="slice_agent-",
+                            dir=os.path.join(HERE, "build"))
+    paths, log, counts, rep = {}, {}, {}, {}
+    clock = time.time
+    time.time = lambda: AGENT_CLOCK
+    qa_dir = os.path.join(HERE, "optimized_rag_tpu", "eval", "qa_docs")
+
+    def drive(name, agent, texts):
+        """Each text as one turn, launch counts from 0 and every kernel
+        call recorded (the recorded calls must equal the counts); each
+        turn's launches beside its tiers."""
+        calls = log.setdefault(name, [])
+        turns = []
+        with recording(T_, K_, calls):
+            K_.reset_launch_counts()
+            for text in texts:
+                before = K_.launch_counts()
+                turns.append(turn(agent, text))
+                after = K_.launch_counts()
+                turns[-1]["launches"] = {
+                    k: after[k] - before[k] for k in after
+                    if after[k] - before[k]}
+            paths[name] = K_.launch_counts()
+        seen = {m: sum(c == m for c, _ in calls) for m in K_.KERNELS}
+        if seen != paths[name]:
+            raise AssertionError(f"slice_agent {name}: recorded {seen}, "
+                                 f"counted {paths[name]}")
+        return turns
+
+    def summary(turns):
+        return {**route_stats([t["ms"] for t in turns]),
+                "turns": [{k: t[k] for k in ("intent", "tiers_used",
+                                             "launches", "refused", "ms")}
+                          for t in turns]}
+
+    try:
+        # (a) The reference's turn probe.
+        ds = make_dataset(num_docs=AGENT_DOCS, num_topics=AGENT_TOPICS,
+                          num_queries=AGENT_WARMUP + AGENT_TURNS,
+                          seed=AGENT_SEED)
+        agent = make_agent(dev, os.path.join(work, "probe"))
+        t1 = time.perf_counter()
+        ingest_probe(agent, ds)
+        torch.cuda.synchronize()
+        rep["ingest_seconds"] = time.perf_counter() - t1
+        rep["probe_rows"] = agent.dense.size
+        t1 = time.perf_counter()
+        agent.warmup()
+        torch.cuda.synchronize()
+        rep["warmup_seconds"] = time.perf_counter() - t1
+        warm = [turn(agent, q) for q in ds.queries[:AGENT_WARMUP]]
+        agent.timer.reset()
+        timed = []
+        busy = device_busy(lambda: timed.extend(drive(
+            "agent_probe", agent, ds.queries[AGENT_WARMUP:])), cpu=False)
+        if not busy["device_busy_ms"]:
+            raise AssertionError("slice_agent: the profiler saw no device "
+                                 "time over the timed turns")
+        if not sum(paths["agent_probe"].values()):
+            raise AssertionError("slice_agent: the 16 timed turns launched "
+                                 "no kernel")
+        # Each of the graph's 16 nodes: its p50 span and how often it ran
+        # (a node no timed turn reached has no span).
+        spans = agent.timer.stats()
+        rep["probe"] = {**summary(timed), "device": busy, "nodes": {
+            name: {"p50_ms": spans[name]["p50_ms"],
+                   "count": spans[name]["count"]} if name in spans else None
+            for name in agent.graph.spec._nodes}}
+        if len(rep["probe"]["nodes"]) != 16 or set(spans) - set(
+                rep["probe"]["nodes"]):
+            raise AssertionError(f"slice_agent: node spans {sorted(spans)}")
+
+        # (c) The same agent after a year of archival notes.
+        notes = filler_texts(chunks, N_ARCHIVAL, SEED + 23)
+        t1 = time.perf_counter()
+        for lo in range(0, N_ARCHIVAL, ARCHIVAL_BATCH):
+            agent.memory.bulk_insert_archival(notes[lo:lo + ARCHIVAL_BATCH])
+        torch.cuda.synchronize()
+        rep["archival_insert_rows_per_s"] = N_ARCHIVAL / (
+            time.perf_counter() - t1)
+        if agent.memory.archival.size != N_ARCHIVAL:
+            raise AssertionError(f"archival rows {agent.memory.archival.size}")
+        hits = []
+        search = agent.memory.archival_memory_search
+
+        def archival_search(query, top_k=5):
+            """The search, and the query embedding it used (the encoder's
+            cache holds it until a later stage may overwrite it)."""
+            docs = search(query, top_k)
+            hits.append((agent.embedder.encode([query])[0],
+                         ([d.doc_id for d in docs], [d.score for d in docs])))
+            return docs
+        agent.memory.archival_memory_search = archival_search
+        later = make_dataset(num_docs=AGENT_DOCS, num_topics=AGENT_TOPICS,
+                             num_queries=AGENT_TURNS, seed=AGENT_SEED + 1)
+        archival = drive("agent_archival", agent, later.queries)
+        del agent.memory.archival_memory_search
+        if len(hits) != AGENT_TURNS:
+            raise AssertionError(f"slice_agent: {len(hits)} archival "
+                                 f"searches in {AGENT_TURNS} turns")
+        idle = [j for j, t in enumerate(archival)
+                if not t["launches"].get("tile_topk")]
+        if idle:
+            raise AssertionError(f"slice_agent: turns {idle} of (c) launched "
+                                 "no K6")
+        rows64 = agent.memory.archival.embeddings()[:N_ARCHIVAL] \
+            .cpu().numpy().astype(np.float64)
+        counts["archival"] = {"near_tie": 0}
+        err = max(hold_archival(f"slice_agent archival turn {j}", got,
+                                rows64, q, counts["archival"])
+                  for j, (q, got) in enumerate(hits))
+        rep["archival"] = {**summary(archival), "oracle_max_err": err,
+                           "k6_launches": paths["agent_archival"][
+                               "tile_topk"]}
+        del agent, rows64
+
+        # (b) A chat session over the qa_docs.
+        qa_agent = make_agent(dev, os.path.join(work, "qa"))
+        t1 = time.perf_counter()
+        uploads = qa_agent.ingestor.upload_directory(qa_dir)
+        rep["qa_upload_seconds"] = time.perf_counter() - t1
+        if not all(u["ok"] for u in uploads):
+            raise AssertionError(f"slice_agent: upload {uploads}")
+        qa = drive("agent_qa", qa_agent, [q for q, _ in QA_SESSION])
+        got = [t["intent"] for t in qa]
+        if got != [i for _, i in QA_SESSION]:
+            raise AssertionError(f"slice_agent: intents {got}")
+        hop, refusal = qa[QA_MULTI_HOP], qa[QA_REFUSAL]
+        if -2 not in hop["sources"] or "basel" not in hop["answer"].lower():
+            raise AssertionError(f"slice_agent: the two-hop question: {hop}")
+        if not refusal["refused"] or any(
+                t["refused"] for j, t in enumerate(qa) if j != QA_REFUSAL):
+            raise AssertionError(f"slice_agent: refusals "
+                                 f"{[t['refused'] for t in qa]}")
+        rep["qa_session"] = [{k: t[k] for k in (
+            "intent", "trace", "refused", "citations", "sources", "tiers_used",
+            "launches", "ms")} for t in qa]
+        del qa_agent
+
+        # The CPU replays: (b)'s session, then (a) up to its 8th timed turn.
+        cpu = torch.device("cpu")
+        t1 = time.perf_counter()
+        cpu_qa = make_agent(cpu, os.path.join(work, "cpu_qa"))
+        cpu_qa.ingestor.upload_directory(qa_dir)
+        replay("agent_qa", qa, cpu_qa, [q for q, _ in QA_SESSION], counts)
+        del cpu_qa
+        cpu_probe = make_agent(cpu, os.path.join(work, "cpu_probe"))
+        ingest_probe(cpu_probe, ds)
+        cpu_probe.warmup()
+        n = AGENT_WARMUP + AGENT_REPLAY_TURNS
+        replay("agent_probe", warm + timed, cpu_probe, ds.queries[:n],
+               counts)
+        del cpu_probe
+        rep["cpu_replay_seconds"] = time.perf_counter() - t1
+
+        held = hold_recorded(K_, T_, {p: log[p] for p in AGENT_KERNEL_PATHS},
+                             5, "slice_agent")
+        emit({"phase": "slice_agent", "card": smi, **rep,
+              "allowed_differences": counts, "launches_by_path": paths,
+              "peak_device_gbytes": torch.cuda.max_memory_allocated() / 1e9,
+              "seconds": time.perf_counter() - t0})
+        for rec in held:
+            emit({"phase": "slice_agent", "card": smi, "kernel": rec["name"],
+                  **{key: v for key, v in rec.items() if key != "name"}})
+        return held
+    finally:
+        time.time = clock
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 SOURCES = {"packed_extract": ("optimized_rag_tpu_torch/csrc/packed_extract.cu",
                               "optimized_rag_tpu/ops/topk.py:511"),
            "extract": ("optimized_rag_tpu_torch/csrc/extract.cu",
@@ -2884,6 +3245,8 @@ def main() -> None:
     peak = max(peak, torch.cuda.max_memory_allocated())
     del svc, corpus_rows
     torch.cuda.empty_cache()
+    held_a = phase_slice_agent(K_, T_, dev, chunks, smi)
+    peak = max(peak, torch.cuda.max_memory_allocated())
     bench16, held16, bench8, held8 = phase_bench_shape(K_, T_, dev)
     peak = max(peak, torch.cuda.max_memory_allocated())
     emit({"phase": "done", "peak_device_gbytes": peak / 1e9,
@@ -2898,8 +3261,8 @@ def main() -> None:
     # DenseIndex.search and the small index for int8), then every shape of
     # bench_shape's routes, then each shape slice_hybrid's dense routes gave
     # K1, K4 and K6, then each shape slice_components' archival and restored
-    # indexes gave K6, K1 and K4. The direct calls of the checks are not
-    # counted.
+    # indexes gave K6, K1 and K4, then each shape slice_agent's chat turns
+    # gave a kernel. The direct calls of the checks are not counted.
     kernels = []
     for dtype, paths, user, recs in (
             ("f32", paths32, USER_PATHS_F32, recs32),
@@ -2920,6 +3283,11 @@ def main() -> None:
         kernels.append(kernel_entry(
             rec["name"],
             f"{rec['dtype']} slice_components N={rec['N']} {rec['shape']}",
+            rec["launches_by_path"], rec))
+    for rec in held_a:
+        kernels.append(kernel_entry(
+            rec["name"],
+            f"{rec['dtype']} slice_agent N={rec['N']} {rec['shape']}",
             rec["launches_by_path"], rec))
     idle = [k["name"] for k in kernels if not k["launches"]]
     missing = set(K_.KERNELS) - {k["name"].split("[")[0] for k in kernels}

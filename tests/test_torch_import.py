@@ -12,6 +12,11 @@ import torch
 
 import optimized_rag_tpu_torch
 from optimized_rag_tpu_torch import native
+from optimized_rag_tpu_torch.agent.agent import RAGAgent
+from optimized_rag_tpu_torch.agent.rewriter import (
+    ConversationReferenceDetector)
+from optimized_rag_tpu_torch.agent.verification import (
+    ClaimAlignmentScorer, EnsembleVerifier, SelfRAGEvaluator)
 from optimized_rag_tpu_torch.config import Settings
 from optimized_rag_tpu_torch.engine.consistency import ConsistencyChecker
 from optimized_rag_tpu_torch.engine.rerank import SelectiveReranker
@@ -47,7 +52,7 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
-    assert len(_submodules()) >= 50
+    assert len(_submodules()) >= 70
 
 
 def _imported_roots(path):
@@ -76,6 +81,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
                              num_heads=2, mlp_dim=32, max_seq_len=16,
                              out_dim=8)
     ckpt = os.path.join(REPO, "checkpoints", "pretrained")
+    tiny_service = EmbeddingService(tiny, device="cpu")
     for make in (lambda: DenseIndex(16, 256, tile=256),
                  lambda: EmbeddingService(tiny),
                  lambda: load_biencoder(ckpt),
@@ -87,7 +93,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
                  lambda: ConsistencyChecker(embed),
                  lambda: Deduplicator(embed_fn=embed),
                  lambda: DataWrangler(embed_fn=embed),
-                 lambda: build_index_for("dense", 16, Settings())):
+                 lambda: build_index_for("dense", 16, Settings()),
+                 lambda: ConversationReferenceDetector(embed),
+                 lambda: EnsembleVerifier(None, embed),
+                 lambda: SelfRAGEvaluator(None, embed),
+                 lambda: ClaimAlignmentScorer(embed),
+                 lambda: RAGAgent(Settings(), embed_service=tiny_service,
+                                  cross_encoder=object())):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     report = check_device_health(timeout_s=60, matmul_dim=8)

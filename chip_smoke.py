@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: the /search serving path,
 the retrieval half of a chat turn, the components a chat turn consumes, the
-agent's chat turns, and the reference benchmark's retrieval path.
+agent's chat turns, the CLI and HTTP server, IVF, and the reference
+benchmark's retrieval path.
 
     python3 chip_smoke.py            # from any directory; needs one CUDA card
 
@@ -116,7 +117,47 @@ Phases, each printing one JSON line with its seconds:
                verification threshold, cross-encoder logits within 0.35,
                fused scores within 1e-4; counted); ``time.time`` is pinned
                for the phase, so both runs read one clock;
-10. ``bench_shape`` the reference benchmark's retrieval path at its full
+10. ``slice_serve`` the entry points as a user runs them: a data
+               directory and a directory of the qa_docs and seeded filler
+               files (slice_hybrid's 40-word fillers) that the agent's ingest
+               turns into exactly 65,536 chunks; ``python -m
+               optimized_rag_tpu_torch`` in subprocesses from the repo root:
+               ``info`` (the card's name, health ok), ``ingest`` of the
+               directory (every file ok, the corpus size and snapshot path),
+               ``chat`` (three qa_docs questions, ``memory``, ``stats``,
+               ``exit`` on stdin), ``serve --port P`` (/healthz on the card
+               with the corpus size, /stats, 8 /search and 2 /chat, then
+               SIGINT); in process, ``cli.build_agent(device="cuda")`` over
+               the snapshot behind ``AgentHTTPServer``: 256 warm-up /search
+               requests, 256 in bursts of 8 from 8 client threads, a 5 s
+               closed loop of 8 clients (k=10, bench.py:684-760's load over
+               HTTP), every answer held against the float64 oracle over the
+               snapshot's rows (near-ties of 1e-5 counted), qps, p50, p99;
+               slice_agent (b)'s 8 questions over /chat, replayed through a
+               CPU agent over a copy of the data directory behind its own
+               server (every reply equal, floats within 0.35 / 4, near-ties
+               excused and counted); 4 concurrent /chat clients with
+               ``concurrent_chat`` (every reply complete, the EmbedBatcher
+               making fewer dispatches than requests); K6 counted on the
+               /search and /chat paths;
+11. ``slice_ivf`` IVF on the card: (a) the reference's IVF benchmark shape
+               (benchmarks/bench_sharded.py:23-73): 10,485,760 x 128 bf16
+               rows around 4,096 seeded centres, IVFIndex(4096 clusters,
+               nprobe 128, 6 k-means iterations, tile 2048) built unbalanced
+               (k-means, assignment and sort timed apart), 64 perturbed
+               corpus rows, nprobe in {8, 16, 32, 64, 128}: the probed
+               clusters against a float64 ranking of the centroids, every
+               answer against the float64 top-10 of its probe plan, the
+               layout (counts, starts, permutation) checked; recall@10
+               against the exact top-10, qps per nprobe and the port's exact
+               search of the batch printed; (b) the agent's upgrade past
+               ``ivf_min_size`` (32,768) over slice_serve's snapshot: the
+               balanced default IVF (1,024 clusters, nprobe 64, its cap and
+               window checked), a fresh file ingested, 64 ``dense_only``
+               queries held against the probe plan unioned with the exact
+               tail (the fresh tail found), 8 chat turns replayed by a CPU
+               agent that takes the card's IVF through ``state_dict``;
+12. ``bench_shape`` the reference benchmark's retrieval path at its full
                shape (bench.py:180-265, :540-575): 10,485,760 x 128 bf16
                rows (clustered, 300 near-duplicate runs), tile 4096, k=10,
                unit-normal queries in batches of 1024 and 512; the
@@ -137,8 +178,9 @@ Then the card's nvidia-smi line; one JSON line with an entry for each
 kernel at each shape a user path gives it (the served slices' paths:
 QueryServer rounds, DenseIndex.search and the small indexes; each shape of
 bench_shape's routes; each shape of slice_hybrid's dense routes; each
-shape of slice_components' archival and restored indexes; and each shape
-of slice_agent's turns), its
+shape of slice_components' archival and restored indexes; each shape
+of slice_agent's turns; and each shape of slice_serve's /search and
+/chat), its
 numbers measured at that shape and its
 ``launches`` counted on those paths alone (``launches_by_path`` gives each
 path), its ``bound_share`` (bound_ms / ms) and its ``library_factor``
@@ -2929,33 +2971,43 @@ class TieLog:
         del self._agent.retriever.retrieve
 
 
-def replay(what, card_turns, cpu_agent, texts, counts):
-    """``texts`` through ``cpu_agent`` in order, each turn held against the
-    card's: TURN_FIELDS equal, or the first field that differs shows a
-    near-tie in the CPU run (counted by kind). After an excused difference
-    the histories differ: later turns are counted, not held."""
+def turn_differs(card, cpu):
+    """The first of TURN_FIELDS where two turns differ, or None."""
+    return next((f for f in TURN_FIELDS if cpu[f] != card[f]), None)
+
+
+def replay(what, card_turns, cpu_agent, texts, counts, phase="slice_agent",
+           ask=None, differ=turn_differs):
+    """``texts`` through ``cpu_agent`` in order (``ask(text)``, by default
+    one ``turn``), each answer held against the card's: ``differ(card,
+    cpu)`` finds no difference, or the first one it finds shows a near-tie
+    in the CPU run (counted by kind). After an excused difference the
+    histories differ: later turns are counted, not held."""
+    ask = ask or (lambda text: turn(cpu_agent, text))
     log = counts.setdefault(what, {"equal": 0, "excused": [],
                                    "after_divergence": 0,
                                    "ties_in_equal_turns": Counter()})
     diverged = False
     for j, (text, card) in enumerate(zip(texts, card_turns)):
         with TieLog(cpu_agent) as ties:
-            cpu = turn(cpu_agent, text)
+            cpu = ask(text)
         if diverged:
             log["after_divergence"] += 1
             continue
-        differ = [f for f in TURN_FIELDS if cpu[f] != card[f]]
-        if not differ:
+        where = differ(card, cpu)
+        if where is None:
             log["equal"] += 1
             log["ties_in_equal_turns"].update(ties.kinds)
             continue
+        shown = [str(x.get(where, x))[:300] for x in (card, cpu)]
         if not ties.kinds:
             raise AssertionError(
-                f"slice_agent {what} turn {j} ({text!r}): {differ[0]} on the "
-                f"card {card[differ[0]]!r}, on the CPU {cpu[differ[0]]!r}, "
-                "and the CPU run shows no near-tie")
-        log["excused"].append({"turn": j, "field": differ[0],
-                               "ties": dict(ties.kinds)})
+                f"{phase} {what} turn {j} ({text!r}): {where} on the card "
+                f"{shown[0]}, on the CPU {shown[1]}, and the CPU run shows "
+                "no near-tie")
+        log["excused"].append({"turn": j, "field": where,
+                               "ties": dict(ties.kinds), "card": shown[0],
+                               "cpu": shown[1]})
         diverged = True
 
 
@@ -3151,6 +3203,847 @@ def phase_slice_agent(K_, T_, dev, chunks, smi):
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------- the entry points, IVF
+
+N_SERVE = 65_536                  # chunks of the served corpus: one block
+SERVE_FILE_FILLERS = 4_096        # filler texts a file (about 1,020 chunks)
+N_SERVE_WARM = 256                # warm-up requests, as bench.py:713-719
+N_SERVE_BURSTS, SERVE_BURST = 256, 8
+SERVE_LOOP_S = 5.0                # the closed loop, as bench.py:741
+SERVE_WAIT_S = 240                # the CLI server's start-up, at most
+CLI_QUESTIONS = (QA_SESSION[0][0], QA_SESSION[2][0], QA_SESSION[7][0])
+N_CONCURRENT_CHATS = 4
+FLOAT_TOL = LOGIT_ATOL / 4        # a reply's float after the cross-encoder
+SERVE_KERNEL_PATHS = ("serve_search", "serve_chat")
+CHAT_FIELDS = {"answer", "citations", "sources", "confidence",
+               "factuality_score", "support_ratio", "refused", "intent",
+               "tiers_used", "warnings", "metrics"}
+FRESH_TEXT = ("Zebra quagga okapi: the fresh field notes name three striped "
+              "animals that no earlier document of the corpus mentions.")
+
+
+class CliProcess:
+    """``python -m optimized_rag_tpu_torch ARGS`` started from the repo root,
+    ``stdin`` fed from a file, its output in files under ``work``."""
+
+    def __init__(self, work, name, args, env, stdin=""):
+        self.name, self.seconds = name, None
+        self.files = [open(os.path.join(work, f"{name}.{n}"), "w+",
+                           encoding="utf-8") for n in ("in", "out", "err")]
+        self.files[0].write(stdin)
+        self.files[0].seek(0)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "optimized_rag_tpu_torch", *args],
+            cwd=HERE, env=env, stdin=self.files[0], stdout=self.files[1],
+            stderr=self.files[2], text=True)
+
+    def wait(self, timeout):
+        """Its stdout once it exits; a non-zero exit raises with the tail of
+        its stderr, and a timeout kills it."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            self.kill()
+        self.seconds = time.perf_counter() - self.t0
+        out, err = (self._read(j) for j in (1, 2))
+        self.close()
+        if rc:
+            raise RuntimeError(f"cli {self.name} exited {rc}: {err[-3000:]}")
+        return out
+
+    def _read(self, j):
+        self.files[j].seek(0)
+        return self.files[j].read()
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+    def close(self):
+        for f in self.files:
+            f.close()
+
+
+def http(port, path, payload=None, timeout=120):
+    """(status, JSON) of a GET (``payload`` None) or a POST."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_fillers(words, n, seed):
+    """``n`` seeded FILLER_WORDS-word texts of ``words`` (a numpy array),
+    slice_hybrid's fillers drawn by numpy."""
+    idx = np.random.default_rng(seed).integers(0, len(words),
+                                               (n, FILLER_WORDS))
+    return [" ".join(ws) for ws in words[idx].tolist()]
+
+
+def serve_corpus(chunks, docs_dir, settings):
+    """The qa_docs and seeded filler files (FILLER_WORDS-word texts of the
+    chunks' own words, blank-line separated) in ``docs_dir``, so that the
+    agent's ingest of the directory makes exactly N_SERVE chunks: each file
+    is counted with the ingestor's cleaner (which leaves filler text as it
+    is: checked on the first) and chunker, and the last filler file is cut
+    to the count still missing. Returns the file names."""
+    from optimized_rag_tpu_torch.engine.chunking import RecursiveChunker
+    from optimized_rag_tpu_torch.engine.wrangler import TextCleaner
+    c = settings.chunking
+    if c.strategy != "recursive":
+        raise AssertionError(f"chunking strategy {c.strategy!r}")
+    cleaner, chunker = TextCleaner(), RecursiveChunker(c.chunk_size,
+                                                       c.chunk_overlap)
+
+    def count(text, clean=True):
+        got = chunker.chunk(cleaner.clean(text) if clean else text,
+                            {"document_id": 0})
+        return sum(len(x["content"].strip()) >= c.min_chunk_chars
+                   for x in got) or 1
+
+    total, names = 0, []
+    qa_dir = os.path.join(HERE, "optimized_rag_tpu", "eval", "qa_docs")
+    for path in sorted(glob.glob(os.path.join(qa_dir, "*.md"))):
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        names.append(os.path.basename(path))
+        with open(os.path.join(docs_dir, names[-1]), "w",
+                  encoding="utf-8") as f:
+            f.write(text)
+        total += count(text)
+    words = np.array([w for ch in chunks for w in ch.split()], object)
+    j = 0
+    while total < N_SERVE:
+        texts = serve_fillers(words, SERVE_FILE_FILLERS, SEED + 100 + j)
+        text = "\n\n".join(texts)
+        if j == 0 and cleaner.clean(text) != text:
+            raise AssertionError("the cleaner changes the filler text")
+        need = N_SERVE - total
+        if count(text, clean=False) > need:
+            lo, hi = 1, len(texts)      # fewest fillers making >= need
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if count("\n\n".join(texts[:mid]), clean=False) >= need:
+                    hi = mid
+                else:
+                    lo = mid + 1
+            text = "\n\n".join(texts[:lo])
+        names.append(f"filler_{j:03d}.txt")
+        with open(os.path.join(docs_dir, names[-1]), "w",
+                  encoding="utf-8") as f:
+            f.write(text)
+        total += count(text, clean=False)
+        j += 1
+    if total != N_SERVE:
+        raise AssertionError(f"the corpus plan makes {total} chunks")
+    return names
+
+
+def json_split(obj, path=""):
+    """(the JSON value without floats and ``latency_s``, {path: float})."""
+    if isinstance(obj, dict):
+        out, nums = {}, {}
+        for k, v in obj.items():
+            if k != "latency_s":
+                out[k], sub = json_split(v, f"{path}.{k}")
+                nums.update(sub)
+        return out, nums
+    if isinstance(obj, list):
+        out, nums = [], {}
+        for j, v in enumerate(obj):
+            e, sub = json_split(v, f"{path}[{j}]")
+            out.append(e)
+            nums.update(sub)
+        return out, nums
+    if isinstance(obj, float):
+        return "<float>", {path: obj}
+    return obj, {}
+
+
+def replies_differ(a, b):
+    """The first path where two /chat replies differ: every value but the
+    floats equal, floats within FLOAT_TOL; None if they agree."""
+    (ea, na), (eb, nb) = json_split(a), json_split(b)
+    if ea != eb:
+        return next((k for k in ea if ea.get(k) != eb.get(k)), "keys")
+    return next((k for k in na if not abs(na[k] - nb[k]) <= FLOAT_TOL), None)
+
+
+def hold_served(what, got, qvecs, rows64, counts, k=K):
+    """/search answers (lists of {doc_id, score}) against the float64 top-k
+    over ``rows64`` [N, D] (on the card) for the query vectors the server
+    embedded: ids equal unless the oracle shows a near-tie of TIE_TOL
+    (counted), scores within TIE_TOL. Returns the worst score error."""
+    err = 0.0
+    for lo in range(0, len(got), 256):
+        q = torch.from_numpy(np.stack(qvecs[lo:lo + 256])).to(
+            rows64.device, torch.float64)
+        s = q @ rows64.T
+        o_s, o_i = torch.sort(s, dim=1, descending=True, stable=True)
+        o_s, o_i = o_s[:, :k].cpu().numpy(), o_i[:, :k].cpu().numpy()
+        for j, res in enumerate(got[lo:lo + 256]):
+            ids = np.array([r["doc_id"] for r in res], np.int64)
+            vals = np.array([r["score"] for r in res], np.float64)
+            if len(ids) != k:
+                raise AssertionError(f"{what} {lo + j}: {len(ids)} results")
+            if (ids != o_i[j]).any():
+                mine = s[j, torch.from_numpy(ids).to(s.device)].cpu().numpy()
+                if np.abs(mine - o_s[j]).max() > TIE_TOL:
+                    raise AssertionError(
+                        f"{what} {lo + j}: ids {ids.tolist()} differ from the "
+                        f"oracle's {o_i[j].tolist()}")
+                counts["near_tie"] += 1
+            err = max(err, float(np.abs(vals - o_s[j]).max()))
+        del s
+    if not err <= TIE_TOL:
+        raise AssertionError(f"{what}: scores off by {err:.3g}")
+    return err
+
+
+def http_load(port, texts, burst, seconds=None):
+    """/search requests for ``texts`` (k=K) from N_CLIENTS threads: each
+    client sends ``burst`` at a time and waits for them; with ``seconds``
+    each client instead loops one at a time until then, cycling through
+    its texts. Returns [(text, results)], latencies (ms) and wall seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+    out, lat, errors = [], [], []
+    lock = threading.Lock()
+
+    def one(text):
+        t0 = time.perf_counter()
+        code, body = http(port, "/search", {"query": text, "k": K})
+        ms = (time.perf_counter() - t0) * 1e3
+        if code != 200:
+            raise AssertionError(f"/search {text!r}: {code} {body}")
+        with lock:
+            out.append((text, body["results"]))
+            lat.append(ms)
+
+    def client(c, pool):
+        try:
+            mine = texts[c::N_CLIENTS]
+            if seconds is not None:
+                stop, j = time.perf_counter() + seconds, 0
+                while time.perf_counter() < stop:
+                    one(f"{mine[j % len(mine)]} ({j // len(mine)})")
+                    j += 1
+                return
+            for j in range(0, len(mine), burst):
+                for f in [pool.submit(one, t) for t in mine[j:j + burst]]:
+                    f.result(timeout=120)
+        except BaseException as exc:          # reported by the caller
+            errors.append(exc)
+
+    with ThreadPoolExecutor(N_CLIENTS * burst) as pool:
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c, pool),
+                                    daemon=True) for c in range(N_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in clients):
+        raise RuntimeError("/search clients still alive")
+    return out, lat, wall
+
+
+def load_stats(lat, wall):
+    lat = sorted(lat)
+    return {"requests": len(lat), "qps": len(lat) / wall,
+            "p50_ms": statistics.median(lat),
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "wall_s": wall}
+
+
+def serving_agent(data_dir, dev, concurrent=False):
+    """``cli.build_agent`` over ``data_dir`` (the snapshot there) on
+    ``dev``, as ``serve`` builds it."""
+    from optimized_rag_tpu_torch import cli
+    from optimized_rag_tpu_torch.config import Settings
+    settings = Settings.from_env()
+    settings.data_dir = data_dir
+    settings.serving.concurrent_chat = concurrent
+    return cli.build_agent(settings, device=dev)
+
+
+def phase_slice_serve(K_, T_, dev, chunks, queries, work, smi):
+    """The entry points as a user runs them. (1) A data directory and a
+    directory of the qa_docs and seeded filler files making 65,536 chunks.
+    (2) ``python -m optimized_rag_tpu_torch`` in subprocesses: ``info``,
+    ``ingest`` of the directory, ``chat`` (three questions, ``memory``,
+    ``stats``), ``serve`` (/healthz, /stats, 8 /search, 2 /chat, then
+    SIGINT). (3) In process, ``cli.build_agent(device="cuda")`` over the
+    snapshot behind ``AgentHTTPServer``: 256 warm-up /search requests,
+    256 in bursts of 8 from 8 clients, a closed loop of 5 s (k=10), every
+    answer held against the float64 oracle over the snapshot's rows; the 8
+    questions of slice_agent (b) over /chat, replayed through a CPU agent
+    over a copy of the data directory behind its own server (each reply
+    equal, near-ties excused and counted); then 4 concurrent /chat clients
+    with ``concurrent_chat``. ``time.time`` is pinned from (3) on. Its files
+    go under ``work`` (the data directory ``work/data`` is slice_ivf's;
+    the caller removes ``work``). Returns the kernel records of /search and
+    /chat."""
+    import shutil
+    import signal
+    from optimized_rag_tpu_torch.config import Settings
+    from optimized_rag_tpu_torch.server import AgentHTTPServer
+    t0 = time.perf_counter()
+    data, docs = os.path.join(work, "data"), os.path.join(work, "docs")
+    os.makedirs(docs)
+    env = dict(os.environ, ORAG_DATA_DIR=data)
+    rep, paths, log, counts = {}, {}, {}, {"near_tie": 0}
+
+    # (2) The CLI in subprocesses: info beside the corpus plan, then
+    # ingest, then chat beside serve.
+    procs = []
+    try:
+        info = CliProcess(work, "info", ["info"], env)
+        procs.append(info)
+        names = serve_corpus(chunks, docs, Settings())
+        rep["files"] = len(names)
+        rep["plan_seconds"] = time.perf_counter() - t0
+        out = info.wait(SERVE_WAIT_S)
+        if torch.cuda.get_device_name(0) not in out or \
+                "'healthy': True" not in out or "backend: cuda" not in out:
+            raise AssertionError(f"slice_serve info: {out}")
+        ingest = CliProcess(work, "ingest", ["ingest", docs], env)
+        procs.append(ingest)
+        out = ingest.wait(900).splitlines()
+        oks = [line for line in out if line.startswith("ok  ")]
+        want_total = (f"total: {N_SERVE} chunks; corpus size {N_SERVE}; "
+                      f"index snapshot -> {os.path.join(data, 'indexes')}")
+        if len(oks) != len(names) or out[-1] != want_total:
+            raise AssertionError(f"slice_serve ingest: {len(oks)} ok of "
+                                 f"{len(names)} files; last line "
+                                 f"{out[-1]!r}")
+        chat = CliProcess(work, "chat", ["chat"], env, stdin="\n".join(
+            [*CLI_QUESTIONS, "memory", "stats", "exit"]) + "\n")
+        port = free_port()
+        serve = CliProcess(work, "serve", ["serve", "--port", str(port)],
+                           env)
+        procs += [chat, serve]
+        while True:
+            if serve.proc.poll() is not None:
+                serve.wait(0)                   # raises with its stderr
+            try:
+                code, health = http(port, "/healthz", timeout=5)
+                break
+            except OSError:
+                if time.perf_counter() - serve.t0 > SERVE_WAIT_S:
+                    raise
+                time.sleep(0.5)
+        rep["serve_start_seconds"] = time.perf_counter() - serve.t0
+        if (code, health) != (200, {"ok": True, "backend": "cuda",
+                                    "corpus_size": N_SERVE}):
+            raise AssertionError(f"slice_serve /healthz: {code} {health}")
+        code, stats = http(port, "/stats")
+        if code != 200 or stats["corpus_size"] != N_SERVE:
+            raise AssertionError(f"slice_serve /stats: {code} {stats}")
+        for text in queries[0][:8]:
+            code, body = http(port, "/search", {"query": text, "k": K})
+            if code != 200 or len(body["results"]) != K:
+                raise AssertionError(f"slice_serve /search: {code} {body}")
+        for text in CLI_QUESTIONS[:2]:
+            code, body = http(port, "/chat", {"message": text})
+            if code != 200 or set(body) != CHAT_FIELDS or not body["answer"]:
+                raise AssertionError(f"slice_serve /chat: {code} {body}")
+        serve.proc.send_signal(signal.SIGINT)
+        printed = serve.wait(60).splitlines()
+        if printed[:1] != [f"serving on http://127.0.0.1:{port} (corpus: "
+                           f"{N_SERVE} chunks)"]:
+            raise AssertionError(f"slice_serve serve printed {printed[:1]}")
+        out = chat.wait(SERVE_WAIT_S)
+        if out.count("Assistant:") != len(CLI_QUESTIONS) or \
+                "<persona>" not in out or "rerank:" not in out:
+            raise AssertionError(f"slice_serve chat: {out[-2000:]}")
+    finally:
+        for p in procs:
+            p.kill()
+            p.close()
+    for p in procs:
+        rep[f"{p.name}_seconds"] = p.seconds
+    rep["cli_seconds"] = time.perf_counter() - t0
+
+    # (3) In process: the held and timed load.
+    cpu_data = os.path.join(work, "data_cpu")
+    shutil.copytree(data, cpu_data)
+    clock = time.time
+    now = clock()
+    time.time = lambda: now
+    servers = []
+    try:
+        t1 = time.perf_counter()
+        agent = serving_agent(data, dev)
+        agent.warmup()
+        torch.cuda.synchronize()
+        rep["agent_load_seconds"] = time.perf_counter() - t1
+        if agent.dense.size != N_SERVE:
+            raise AssertionError(f"slice_serve: {agent.dense.size} rows")
+        seen = {}
+        embed = agent.embed_fn
+
+        def embed_fn(texts):
+            """The agent's encoder, each text's vector kept for the
+            oracle."""
+            out = embed(texts)
+            seen.update(zip(texts, out))
+            return out
+        agent.embed_fn = embed_fn
+        store_text, text_s = agent.store.chunk_text, Counter()
+        text_lock = threading.Lock()
+
+        def chunk_text(i):
+            """The store's lookup, its host seconds summed over threads."""
+            t = time.perf_counter()
+            out = store_text(i)
+            with text_lock:
+                text_s["s"] += time.perf_counter() - t
+            return out
+        agent.store.chunk_text = chunk_text
+        srv = AgentHTTPServer(agent, port=0)
+        servers.append(srv)
+        port = srv.start()
+        warm = [f"warm storm {i}" for i in range(N_SERVE_WARM)]
+        http_load(port, warm, SERVE_BURST)
+        rows64 = agent.dense.embeddings()[:N_SERVE].double()
+        got, conns, text_s["s"] = {}, len(agent.store._conns), 0.0
+        with recording(T_, K_, log.setdefault("serve_search", [])):
+            K_.reset_launch_counts()
+            got["bursts"] = http_load(port, queries[0][:N_SERVE_BURSTS],
+                                      SERVE_BURST)
+            busy = device_busy(lambda: got.__setitem__(
+                "closed_loop", http_load(port, queries[1], 1,
+                                         seconds=SERVE_LOOP_S)), cpu=False)
+            paths["serve_search"] = K_.launch_counts()
+        del agent.store.chunk_text
+        rep["search"] = {
+            "stats": srv.query_server.get_stats(),
+            "closed_loop_device": busy,
+            "chunk_text_host_s": text_s["s"],
+            "store_connections_opened": len(agent.store._conns) - conns}
+        for name, (answers, lat, wall) in got.items():
+            rep["search"][name] = {
+                **load_stats(lat, wall), "oracle_max_err": hold_served(
+                    f"slice_serve /search {name}", [a for _, a in answers],
+                    [seen[t] for t, _ in answers], rows64, counts)}
+        del rows64, got
+        agent.embed_fn = embed
+        texts = [q for q, _ in QA_SESSION]
+        card = []
+        with recording(T_, K_, log.setdefault("serve_chat", [])):
+            K_.reset_launch_counts()
+            for text in texts:
+                t1 = time.perf_counter()
+                code, body = http(port, "/chat", {"message": text})
+                card.append(body)
+                if code != 200 or set(body) != CHAT_FIELDS:
+                    raise AssertionError(f"slice_serve /chat {text!r}: "
+                                         f"{code} {body}")
+                body["_ms"] = (time.perf_counter() - t1) * 1e3
+            paths["serve_chat"] = K_.launch_counts()
+        rep["chat"] = route_stats([b.pop("_ms") for b in card])
+        for name in SERVE_KERNEL_PATHS:
+            seen_calls = {m: sum(c == m for c, _ in log[name])
+                          for m in K_.KERNELS}
+            if seen_calls != paths[name]:
+                raise AssertionError(f"slice_serve {name}: recorded "
+                                     f"{seen_calls}, counted {paths[name]}")
+            if not paths[name]["tile_topk"]:
+                raise AssertionError(f"slice_serve {name}: no K6 launch")
+        srv.stop()
+        servers.remove(srv)
+        del agent, srv
+        torch.cuda.empty_cache()
+
+        # The CPU replay of the /chat turns.
+        t1 = time.perf_counter()
+        cpu_agent = serving_agent(cpu_data, "cpu")
+        cpu_agent.warmup()
+        cpu_srv = AgentHTTPServer(cpu_agent, port=0)
+        servers.append(cpu_srv)
+        cpu_port = cpu_srv.start()
+
+        def ask(text):
+            code, reply = http(cpu_port, "/chat", {"message": text})
+            if code != 200:
+                raise AssertionError(f"slice_serve CPU /chat: {code} {reply}")
+            return reply
+        replay("serve_chat", card, cpu_agent, texts, counts,
+               phase="slice_serve", ask=ask, differ=replies_differ)
+        cpu_srv.stop()
+        servers.remove(cpu_srv)
+        del cpu_agent, cpu_srv
+        rep["cpu_replay_seconds"] = time.perf_counter() - t1
+
+        # Concurrent /chat turns, their embeddings coalesced.
+        agent = serving_agent(data, dev, concurrent=True)
+        agent.warmup()
+        srv = AgentHTTPServer(agent, port=0)
+        servers.append(srv)
+        port = srv.start()
+        before = dict(agent.embed_batcher.stats)
+        replies = [None] * N_CONCURRENT_CHATS
+
+        def chat(c):
+            replies[c] = http(port, "/chat", {"message": CLI_QUESTIONS[
+                c % len(CLI_QUESTIONS)] + f" ({c})"})
+        t1 = time.perf_counter()
+        clients = [threading.Thread(target=chat, args=(c,), daemon=True)
+                   for c in range(N_CONCURRENT_CHATS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t1
+        stats = {k: agent.embed_batcher.stats[k] - before.get(k, 0)
+                 for k in ("dispatches", "requests", "texts")}
+        bad = [r for r in replies if r is None or r[0] != 200
+               or set(r[1]) != CHAT_FIELDS or not r[1]["answer"]]
+        if bad or stats["dispatches"] >= stats["requests"]:
+            raise AssertionError(f"slice_serve concurrent /chat: {bad}; "
+                                 f"batcher {stats}")
+        rep["concurrent_chat"] = {"clients": N_CONCURRENT_CHATS,
+                                  "wall_s": wall, "batcher": stats,
+                                  "max_coalesced": agent.embed_batcher.stats[
+                                      "max_coalesced"]}
+        srv.stop()
+        servers.remove(srv)
+        agent.embed_batcher.stop()
+        del agent, srv
+        held = hold_recorded(K_, T_, {p: log[p] for p in SERVE_KERNEL_PATHS},
+                             5, "slice_serve")
+    finally:
+        time.time = clock
+        for srv in servers:
+            srv.stop()
+        torch.cuda.empty_cache()
+    emit({"phase": "slice_serve", "card": smi, "chunks": N_SERVE, **rep,
+          "allowed_differences": counts, "launches_by_path": paths,
+          "seconds": time.perf_counter() - t0})
+    for rec in held:
+        emit({"phase": "slice_serve", "card": smi, "kernel": rec["name"],
+              **{key: v for key, v in rec.items() if key != "name"}})
+    return held
+
+
+N_IVF, DIM_IVF = 10_485_760, 128  # benchmarks/bench_sharded.py:23-73
+IVF_CLUSTERS, IVF_NPROBE, IVF_ITERS, IVF_TILE = 4096, 128, 6, 2048
+IVF_NPROBES = (8, 16, 32, 64, 128)
+N_IVF_QUERIES = 64
+IVF_MIN_SIZE = 32_768             # the agent's upgrade: half the corpus
+N_AGENT_IVF_QUERIES = 64
+
+
+def probe_plan(what, ivf, qn, nprobe, counts):
+    """The clusters ``ivf`` probes for unit queries ``qn`` [B, D] (its own
+    selection, ``_probe_clusters``) against a float64 ranking of its
+    centroids: equal in order unless the ranking shows a near-tie of
+    TIE_TOL at that rank (counted). Returns the probe [B, nprobe]."""
+    from optimized_rag_tpu_torch.index.ivf import _probe_clusters
+    probe = _probe_clusters(qn, ivf._centroids, nprobe)
+    s64 = qn.double() @ ivf._centroids.double().T
+    want = torch.sort(s64, dim=1, descending=True, stable=True)[1][:, :nprobe]
+    differ = probe != want
+    if bool(differ.any()):
+        gap = (torch.gather(s64, 1, probe) - torch.gather(s64, 1, want)).abs()
+        if float(gap[differ].max()) > TIE_TOL:
+            raise AssertionError(f"{what}: probed clusters differ from the "
+                                 "float64 ranking beyond a near-tie")
+        counts["probe_near_tie"] += int(differ.any(dim=1).sum())
+    return probe
+
+
+def ivf_oracle(ivf, qn, probe, k):
+    """The float64 top-k of each query over the rows of its probed
+    clusters (``probe`` [B, nprobe]), ties to the lower slot: (scores,
+    slots, the float64 scorer of a query's slots)."""
+    starts, counts = ivf._starts.long(), ivf._counts.long()
+    out_s, out_i, scorers = [], [], []
+    for j in range(qn.shape[0]):
+        st, ct = starts[probe[j]], counts[probe[j]]
+        base = torch.repeat_interleave(st - torch.cumsum(ct, 0) + ct, ct)
+        slots = base + torch.arange(int(ct.sum()), device=qn.device)
+        slots = torch.sort(slots).values
+        score = lambda sl, j=j: ivf._sorted_emb[sl].double() @ qn[j].double()
+        s = score(slots)
+        top_s, pos = torch.sort(s, descending=True, stable=True)
+        out_s.append(top_s[:k])
+        out_i.append(slots[pos[:k]])
+        scorers.append(score)
+    return torch.stack(out_s), torch.stack(out_i), scorers
+
+
+def hold_ivf(what, ids, vals, o_s, o_slots, scorers, inv_perm, perm, counts):
+    """An IVF answer (ids, scores; numpy [B, k]) against the probe-plan
+    oracle: ids equal unless the oracle shows a near-tie of TIE_TOL
+    (counted), scores within TIE_TOL. Returns the worst score error."""
+    dev = o_s.device
+    want = perm[o_slots.cpu().numpy()]
+    for j in np.flatnonzero((ids != want).any(axis=1)):
+        mine = scorers[j](inv_perm[torch.from_numpy(ids[j]).to(dev)])
+        if float((mine - o_s[j]).abs().max()) > TIE_TOL:
+            raise AssertionError(f"{what} query {j}: ids {ids[j].tolist()} "
+                                 f"differ from the oracle's "
+                                 f"{want[j].tolist()}")
+        counts["near_tie"] += 1
+    err = float(np.abs(vals - o_s.cpu().numpy()).max())
+    if not err <= TIE_TOL:
+        raise AssertionError(f"{what}: scores off by {err:.3g}")
+    return err
+
+
+def check_layout(what, ivf, n):
+    """counts sum to the rows, starts are their exclusive cumsum, and the
+    sort permutation is a permutation."""
+    c, st = ivf._counts.long(), ivf._starts.long()
+    excl = torch.cumsum(c, 0) - c
+    perm = torch.from_numpy(ivf._perm).to(c.device)
+    if int(c.sum()) != n or not torch.equal(st, excl) or not bool(
+            (torch.bincount(perm, minlength=n) == 1).all()):
+        raise AssertionError(f"{what}: counts, starts or the permutation "
+                             "are not a layout of the rows")
+
+
+def recall_at(ids, exact):
+    return float(np.mean([len(set(a) & set(b)) / len(b)
+                          for a, b in zip(ids.tolist(), exact.tolist())]))
+
+
+def phase_slice_ivf(K_, T_, dev, queries, data, smi):
+    """IVF on the card. (a) The reference's IVF benchmark shape
+    (benchmarks/bench_sharded.py:23-73): 10,485,760 x 128 bf16 rows around
+    4,096 seeded centres, ``IVFIndex(4096, nprobe=128, kmeans_iters=6,
+    tile=2048)`` built unbalanced (k-means, assignment and sort timed
+    apart), 64 perturbed corpus rows as queries, nprobe in {8, ..., 128}:
+    each probe held against a float64 ranking of the centroids, each
+    answer against the float64 top-10 of its probe plan, the layout
+    checked; recall@10 against the exact top-10, qps per nprobe and the
+    port's exact search of the same batch printed. (b) The agent's
+    upgrade past ``ivf_min_size`` at D=384: a card agent over slice_serve's
+    65,536-chunk snapshot (``data``) with ``ivf_min_size`` 32,768 builds
+    the balanced default IVF, ingests a fresh file, answers 64
+    ``dense_only`` queries held against the probe plan and the exact tail,
+    then 8 chat turns that a CPU agent (the same snapshot, the card's IVF
+    through ``state_dict``) replays. Resets the peak memory statistics."""
+    import shutil
+    from optimized_rag_tpu_torch.index import ivf as ivf_mod
+    from optimized_rag_tpu_torch.index.ivf import IVFIndex, _round_up
+    from optimized_rag_tpu_torch.ops.similarity import normalize
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rep, counts = {}, {"near_tie": 0, "probe_near_tie": 0}
+
+    # (a) The reference's IVF benchmark shape.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    centers = torch.randn(IVF_CLUSTERS, DIM_IVF, generator=gen,
+                          device=dev) * 2.0
+    rows = torch.empty(N_IVF, DIM_IVF, dtype=torch.bfloat16, device=dev)
+    for lo in range(0, N_IVF, 1 << 20):
+        hi = min(N_IVF, lo + (1 << 20))
+        rows[lo:hi] = clustered_rows(hi - lo, gen, centers)
+    del centers
+    pick = torch.randint(0, N_IVF, (N_IVF_QUERIES,), generator=gen,
+                         device=dev)
+    q = unit(rows[pick].float() + 0.05 * torch.randn(
+        N_IVF_QUERIES, DIM_IVF, generator=gen, device=dev))
+    qn = normalize(q)                       # as IVFIndex.search has it
+    _, exact = oracle_topk(q, rows, N_IVF, K)
+    exact = exact.cpu().numpy()
+    timed = Counter()
+
+    def timing(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            timed[name] += time.perf_counter() - t1
+            return out
+        return call
+    ivf = IVFIndex(num_clusters=IVF_CLUSTERS, nprobe=IVF_NPROBE,
+                   kmeans_iters=IVF_ITERS, tile=IVF_TILE, device=dev)
+    saved = ivf_mod.kmeans_fit, ivf_mod.kmeans_assign
+    ivf_mod.kmeans_fit = timing("kmeans_s", saved[0])
+    ivf_mod.kmeans_assign = timing("assign_s", saved[1])
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ivf.build(rows, storage_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t1
+    finally:
+        ivf_mod.kmeans_fit, ivf_mod.kmeans_assign = saved
+    rep["build"] = {"seconds": build_s, **timed,
+                    "sort_and_rest_s": build_s - sum(timed.values()),
+                    "clusters": ivf.num_clusters_built,
+                    "window": ivf._window,
+                    "largest_cluster": int(ivf._counts.max())}
+    check_layout("slice_ivf (a)", ivf, N_IVF)
+    perm = ivf._perm
+    inv_perm = torch.empty(N_IVF, dtype=torch.long, device=dev)
+    inv_perm[torch.from_numpy(perm).to(dev)] = torch.arange(N_IVF,
+                                                           device=dev)
+    sweep = {}
+    for nprobe in IVF_NPROBES:
+        what = f"slice_ivf (a) nprobe={nprobe}"
+        s, ids = ivf.search(q, K, nprobe=nprobe)
+        probe = probe_plan(what, ivf, qn, nprobe, counts)
+        o_s, o_slots, scorers = ivf_oracle(ivf, qn, probe, K)
+        err = hold_ivf(what, ids, s, o_s, o_slots, scorers, inv_perm, perm,
+                       counts)
+        del o_s, o_slots, scorers, probe
+        times = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            ivf.search(q, K, nprobe=nprobe)
+            times.append(time.perf_counter() - t1)
+        ms = statistics.median(times) * 1e3
+        sweep[nprobe] = {"ms": ms, "qps": N_IVF_QUERIES / ms * 1e3,
+                         "recall_at_10": recall_at(ids, exact),
+                         "rows_read": nprobe * ivf._window * N_IVF_QUERIES,
+                         "oracle_max_err": err}
+    rep["nprobe_sweep"] = sweep
+    exact_ms = median_ms(lambda: T_.dispatch_topk(
+        q, rows, K, N_IVF, tile=BENCH_TILE), 5)
+    rep["exact_search"] = {"route": "dispatch_topk, bf16 rows, tile "
+                           f"{BENCH_TILE}", "ms": exact_ms,
+                           "qps": N_IVF_QUERIES / exact_ms * 1e3}
+    rep["peak_device_gbytes_a"] = torch.cuda.max_memory_allocated() / 1e9
+    del rows, ivf, inv_perm, q, qn
+    torch.cuda.empty_cache()
+
+    # (b) The agent's upgrade past ivf_min_size.
+    work = os.path.dirname(data)
+    forks = [os.path.join(work, f"ivf_{name}") for name in ("card", "cpu")]
+    for fork in forks:
+        shutil.copytree(data, fork)
+    fresh = os.path.join(work, "fresh_notes.txt")
+    with open(fresh, "w", encoding="utf-8") as f:
+        f.write(FRESH_TEXT)
+    clock = time.time
+    now = clock()
+    time.time = lambda: now
+    try:
+        agent = serving_agent(forks[0], dev)
+        agent.warmup()
+        agent.settings.ivf.ivf_min_size = IVF_MIN_SIZE
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        kind = agent.maybe_upgrade_index()
+        torch.cuda.synchronize()
+        ann = agent.retriever.ann
+        s_ivf = agent.settings.ivf
+        cap = int(np.ceil(N_SERVE / s_ivf.num_clusters * 1.15))
+        rep["agent_build"] = {
+            "seconds": time.perf_counter() - t1, "kind": kind,
+            "clusters": ann.num_clusters_built, "nprobe": ann.nprobe,
+            "window": ann._window, "cap": cap,
+            "largest_cluster": int(ann._counts.max())}
+        if (kind != "ivf" or type(ann) is not IVFIndex
+                or not s_ivf.balanced_build
+                or ann.num_clusters_built != s_ivf.num_clusters
+                or ann.nprobe != s_ivf.nprobe
+                or agent.retriever.ann_size != N_SERVE
+                or int(ann._counts.max()) > cap
+                or ann._window != _round_up(cap, 128)):
+            raise AssertionError(f"slice_ivf (b) upgrade: "
+                                 f"{rep['agent_build']}")
+        check_layout("slice_ivf (b)", ann, N_SERVE)
+        up = agent.ingestor.upload_file(fresh)
+        if not up["ok"] or agent.dense.size <= N_SERVE or \
+                agent.retriever.ann is not ann:
+            raise AssertionError(f"slice_ivf (b) fresh ingest: {up}")
+        texts = [FRESH_TEXT] + queries[0][:N_AGENT_IVF_QUERIES - 1]
+        answers = [agent.retriever.dense_only(t, K) for t in texts]
+        if not any(d.doc_id >= N_SERVE for d in answers[0]):
+            raise AssertionError("slice_ivf (b): the fresh tail was not "
+                                 "found")
+        qvec = torch.from_numpy(agent.embedder.encode(texts)).to(dev)
+        qn = normalize(qvec.float())
+        probe = probe_plan("slice_ivf (b)", ann, qn, ann.nprobe, counts)
+        o_s, o_slots, _ = ivf_oracle(ann, qn, probe, K)
+        tail = agent.dense.embeddings()[N_SERVE:agent.dense.size].double()
+        t_s = qvec.double() @ tail.T
+        t_s, t_i = torch.sort(t_s, dim=1, descending=True, stable=True)
+        kt = min(K, tail.shape[0])
+        # The union as _ann_candidates forms it: the ANN's k, then the
+        # tail's, one stable sort.
+        cand_s = torch.cat([o_s, t_s[:, :kt]], dim=1)
+        cand_i = torch.cat([torch.from_numpy(ann._perm).to(dev)[o_slots],
+                            t_i[:, :kt] + N_SERVE], dim=1)
+        w_s, pos = torch.sort(cand_s, dim=1, descending=True, stable=True)
+        w_s, w_i = w_s[:, :K].cpu().numpy(), torch.gather(
+            cand_i, 1, pos[:, :K]).cpu().numpy()
+        rows64 = agent.dense.embeddings()[:agent.dense.size].double()
+        err = 0.0
+        for j, docs in enumerate(answers):
+            ids = np.array([d.doc_id for d in docs])
+            vals = np.array([d.score for d in docs], np.float64)
+            if (ids != w_i[j]).any():
+                mine = (rows64[torch.from_numpy(ids).to(dev)]
+                        @ qn[j].double()).cpu().numpy()
+                if np.abs(mine - w_s[j]).max() > TIE_TOL:
+                    raise AssertionError(
+                        f"slice_ivf (b) dense_only {j}: ids {ids.tolist()} "
+                        f"differ from the oracle's {w_i[j].tolist()}")
+                counts["near_tie"] += 1
+            err = max(err, float(np.abs(vals - w_s[j]).max()))
+        if not err <= TIE_TOL:
+            raise AssertionError(f"slice_ivf (b): scores off by {err:.3g}")
+        _, ann_ids = ann.search(qvec.cpu().numpy(), K)
+        exact_b = torch.sort(qvec.double() @ rows64[:N_SERVE].T, dim=1,
+                             descending=True, stable=True)[1][:, :K]
+        rep["agent_dense_only"] = {
+            "queries": len(texts), "oracle_max_err": err,
+            "recall_at_10": recall_at(ann_ids, exact_b.cpu().numpy())}
+        del rows64, tail, o_s, o_slots, probe
+        chat_texts = [q for q, _ in QA_SESSION]
+        card = [turn(agent, text) for text in chat_texts]
+        rep["agent_chat"] = route_stats([t["ms"] for t in card])
+        state = ann.state_dict()
+        del agent, ann
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        cpu_agent = serving_agent(forks[1], "cpu")
+        cpu_agent.warmup()
+        cpu_agent.settings.ivf.ivf_min_size = IVF_MIN_SIZE
+        cpu_agent.retriever.ann = IVFIndex.from_state_dict(state,
+                                                           device="cpu")
+        cpu_agent.retriever.ann_size = N_SERVE
+        up = cpu_agent.ingestor.upload_file(fresh)
+        if not up["ok"] or type(cpu_agent.retriever.ann) is not IVFIndex:
+            raise AssertionError(f"slice_ivf (b) CPU fresh ingest: {up}")
+        replay("ivf_agent", card, cpu_agent, chat_texts, counts,
+               phase="slice_ivf")
+        rep["cpu_replay_seconds"] = time.perf_counter() - t1
+        del cpu_agent
+    finally:
+        time.time = clock
+        torch.cuda.empty_cache()
+    emit({"phase": "slice_ivf", "card": smi, "rows": N_IVF, "dim": DIM_IVF,
+          **rep, "allowed_differences": counts,
+          "peak_device_gbytes": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0})
+
+
 SOURCES = {"packed_extract": ("optimized_rag_tpu_torch/csrc/packed_extract.cu",
                               "optimized_rag_tpu/ops/topk.py:511"),
            "extract": ("optimized_rag_tpu_torch/csrc/extract.cu",
@@ -3247,6 +4140,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     held_a = phase_slice_agent(K_, T_, dev, chunks, smi)
     peak = max(peak, torch.cuda.max_memory_allocated())
+    import shutil
+    import tempfile
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="slice_serve-",
+                            dir=os.path.join(HERE, "build"))
+    try:
+        held_s = phase_slice_serve(K_, T_, dev, chunks, queries, work, smi)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        phase_slice_ivf(K_, T_, dev, queries, os.path.join(work, "data"),
+                        smi)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     bench16, held16, bench8, held8 = phase_bench_shape(K_, T_, dev)
     peak = max(peak, torch.cuda.max_memory_allocated())
     emit({"phase": "done", "peak_device_gbytes": peak / 1e9,
@@ -3262,7 +4168,8 @@ def main() -> None:
     # bench_shape's routes, then each shape slice_hybrid's dense routes gave
     # K1, K4 and K6, then each shape slice_components' archival and restored
     # indexes gave K6, K1 and K4, then each shape slice_agent's chat turns
-    # gave a kernel. The direct calls of the checks are not counted.
+    # gave a kernel, then each shape slice_serve's /search and /chat gave
+    # K6. The direct calls of the checks are not counted.
     kernels = []
     for dtype, paths, user, recs in (
             ("f32", paths32, USER_PATHS_F32, recs32),
@@ -3288,6 +4195,11 @@ def main() -> None:
         kernels.append(kernel_entry(
             rec["name"],
             f"{rec['dtype']} slice_agent N={rec['N']} {rec['shape']}",
+            rec["launches_by_path"], rec))
+    for rec in held_s:
+        kernels.append(kernel_entry(
+            rec["name"],
+            f"{rec['dtype']} slice_serve N={rec['N']} {rec['shape']}",
             rec["launches_by_path"], rec))
     idle = [k["name"] for k in kernels if not k["launches"]]
     missing = set(K_.KERNELS) - {k["name"].split("[")[0] for k in kernels}

@@ -1,0 +1,284 @@
+"""CLI: chat REPL + ingest + info commands, and the HTTP server.
+
+Held against ``optimized_rag_tpu/cli.py``: the same subcommands, flags and
+output. Every subcommand that builds an agent (``chat``, ``ingest``,
+``serve``) and ``info`` also take ``--device`` ("cuda" by default, or
+"cpu"); without a card they raise unless given ``--device cpu``.
+
+  python -m optimized_rag_tpu_torch chat
+  python -m optimized_rag_tpu_torch ingest <path> [path ...]
+  python -m optimized_rag_tpu_torch info
+  python -m optimized_rag_tpu_torch serve --port 8080
+
+``train`` and the hidden ``--local-lm`` provider need the on-device
+generators and training loops, which are not ported yet: they raise
+``NotImplementedError`` naming ``ROADMAP.md`` Queue 1 item 9.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from optimized_rag_tpu_torch.config import Settings
+from optimized_rag_tpu_torch.utils.logging_config import setup_logging
+
+_ITEM_9 = ("the on-device generators and training are not ported yet "
+           "(ROADMAP.md Queue 1 item 9)")
+
+
+def _local_lm_provider(settings: Settings):
+    """The on-device generation provider of a trained checkpoint (the JAX
+    package's ``--local-lm``)."""
+    raise NotImplementedError(f"--local-lm: {_ITEM_9}")
+
+
+def DeterministicLLM_from(settings: Settings):
+    from optimized_rag_tpu_torch.agent.llm import DeterministicLLM
+    return DeterministicLLM(
+        min_weighted=settings.verification.extractive_min_weighted,
+        min_coverage=settings.verification.extractive_min_coverage,
+        min_evidence_mass=settings.verification
+        .extractive_min_evidence_mass)
+
+
+def build_agent(settings: Settings, offline: bool = True,
+                local_lm: bool = False, device="cuda"):
+    from optimized_rag_tpu_torch.agent.agent import RAGAgent
+    from optimized_rag_tpu_torch.agent.llm import OpenAICompatibleLLM
+    from optimized_rag_tpu_torch.store.db import MetadataStore
+
+    llm = None
+    api_base = os.environ.get("ORAG_LLM_API_BASE")
+    if api_base and not offline:
+        llm = OpenAICompatibleLLM(
+            api_base, model=os.environ.get("ORAG_LLM_MODEL", "gpt-4o-mini"),
+            api_key=os.environ.get("ORAG_LLM_API_KEY", ""))
+    if llm is None and local_lm:
+        llm = _local_lm_provider(settings)
+    if llm is None:
+        llm = DeterministicLLM_from(settings)
+    store = MetadataStore(os.path.join(settings.data_dir, "metadata.db"))
+    agent = RAGAgent(settings, llm=llm, store=store, device=device)
+    agent.load_indexes()  # restore device-side indexes if snapshotted
+    return agent
+
+
+def cmd_chat(args) -> int:
+    settings = Settings.from_env()
+    agent = build_agent(settings, offline=not args.online,
+                        local_lm=getattr(args, "local_lm", False),
+                        device=args.device)
+    print("optimized_rag_tpu chat — commands: 'memory', 'stats', 'exit'")
+    while True:
+        try:
+            user = input("\nYou: ").strip()
+        except (EOFError, KeyboardInterrupt):
+            print()
+            return 0
+        if not user:
+            continue
+        if user.lower() in ("exit", "quit"):
+            return 0
+        if user.lower() == "memory":  # reference main.py:45-60
+            print(agent.memory.format_core_memory())
+            continue
+        if user.lower() == "stats":
+            if agent.hierarchical:
+                print("tiers:", agent.hierarchical.get_statistics())
+            if agent.cost_tracker:
+                print("cost:", agent.cost_tracker.get_summary())
+            print("rerank:", agent.reranker.stats)
+            continue
+        resp = agent.chat(user)
+        print(f"\nAssistant: {resp.answer}")
+        print(f"  [factuality={resp.factuality_score:.2f}"
+              f" support={resp.support_ratio:.2f}"
+              f" confidence={resp.confidence:.2f}"
+              f" tiers={resp.tiers_used}"
+              f" {resp.metrics['latency_s']:.2f}s]")
+        if resp.warnings:
+            print(f"  warnings: {'; '.join(resp.warnings)}")
+
+
+def cmd_ingest(args) -> int:
+    settings = Settings.from_env()
+    agent = build_agent(settings, device=args.device)
+    total_chunks = 0
+    for path in args.paths:
+        if os.path.isdir(path):
+            results = agent.ingestor.upload_directory(path)
+        else:
+            results = [agent.ingestor.upload_file(path)]
+        for r in results:
+            if r.get("ok"):
+                total_chunks += r["chunks"]
+                print(f"ok  {r.get('document_id')}: {r['chunks']} chunks, "
+                      f"{r['kg_triples']} triples, {r['seconds']:.2f}s")
+            else:
+                print(f"ERR {r.get('path', '')}: {r.get('error')}")
+    path = agent.save_indexes()
+    print(f"total: {total_chunks} chunks; corpus size {agent.dense.size}; "
+          f"index snapshot -> {path}")
+    return 0
+
+
+def cmd_train(args) -> int:
+    """Pretrain the encoders and the decoder LM (the JAX package's
+    ``train``)."""
+    raise NotImplementedError(f"train: {_ITEM_9}")
+
+
+def cmd_env_example(args) -> int:
+    """Regenerate .env.example from the live Settings schema (reference:
+    .env.example documents every flag)."""
+    lines = [
+        "# optimized_rag_tpu environment configuration",
+        "# Generated by: python -m optimized_rag_tpu_torch env-example",
+        "# Every Settings field is overridable as ORAG_<SECTION>_<FIELD>;",
+        "# tuples are comma-separated, dicts are JSON. All values below",
+        "# are the defaults.", "",
+        "# --- LLM endpoint (chat --online) ---",
+        "# ORAG_LLM_API_BASE=http://localhost:8000/v1",
+        "# ORAG_LLM_MODEL=gpt-4o-mini",
+        "# ORAG_LLM_API_KEY=",
+        "# ORAG_LOG_LEVEL=WARNING",
+        "# ORAG_LOCAL_LM_CKPT=  # path to a trained decoder checkpoint",
+        "",
+        "# --- short aliases ---",
+        "# ORAG_EMBED_DIM=384  ORAG_CHUNK_SIZE=1200",
+        "# ORAG_CHUNK_OVERLAP=150  ORAG_TOP_K=10", "",
+    ]
+    section = None
+    for sec, name, default in Settings.env_var_names():
+        if sec != section:
+            section = sec
+            lines.append(f"# --- {sec} ---")
+        lines.append(f"# {name}={default}")
+    text = "\n".join(lines) + "\n"
+    out = getattr(args, "output", None) or ".env.example"
+    with open(out, "w") as f:
+        f.write(text)
+    print(f"wrote {out} ({len(lines)} lines)")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """HTTP serving: /search (micro-batched), /chat, /healthz, /stats."""
+    from optimized_rag_tpu_torch.server import AgentHTTPServer
+    settings = Settings.from_env()
+    agent = build_agent(settings, offline=not args.online,
+                        local_lm=getattr(args, "local_lm", False),
+                        device=args.device)
+    agent.warmup()
+    server = AgentHTTPServer(agent, host=args.host, port=args.port,
+                             max_batch=args.max_batch,
+                             max_wait_ms=args.max_wait_ms)
+    print(f"serving on http://{args.host}:{args.port} "
+          f"(corpus: {agent.dense.size} chunks)", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        server.stop()
+    return 0
+
+
+def cmd_hitl(args) -> int:
+    """Inspect / resolve the human-in-the-loop review queue."""
+    from optimized_rag_tpu_torch.store.db import MetadataStore
+    settings = Settings.from_env()
+    store = MetadataStore(os.path.join(settings.data_dir, "metadata.db"))
+    if args.action == "list":
+        items = store.hitl_list(settings.agent_id, status=args.status)
+        if not items:
+            print(f"no {args.status} items")
+        for it in items:
+            print(f"[{it['id']}] fact={it['factuality']:.2f} "
+                  f"support={it['support_ratio']:.2f}  Q: {it['query'][:70]}")
+            print(f"      A: {it['answer'][:120]}")
+        return 0
+    ok = store.hitl_review(args.item_id,
+                           "approved" if args.action == "approve"
+                           else "rejected", note=args.note)
+    print("ok" if ok else f"no pending item {args.item_id}")
+    return 0 if ok else 1
+
+
+def cmd_info(args) -> int:
+    import torch
+
+    from optimized_rag_tpu_torch.device import resolve_device
+    from optimized_rag_tpu_torch.utils.health import check_device_health
+    settings = Settings.from_env()
+    dev = resolve_device(args.device)
+    names = ([torch.cuda.get_device_name(i)
+              for i in range(torch.cuda.device_count())]
+             if dev.type == "cuda" else ["cpu"])
+    print(f"backend: {dev.type}")
+    print(f"devices: {names}")
+    print(f"data_dir: {settings.data_dir}")
+    print(f"encoder: dim={settings.encoder.dim} "
+          f"layers={settings.encoder.num_layers}")
+    print(f"health: {check_device_health(timeout_s=90, device=dev)}")
+    return 0
+
+
+def _device_flag(parser) -> None:
+    parser.add_argument("--device", default="cuda",
+                        help="device to run on: cuda (default) or cpu")
+
+
+def main(argv=None) -> int:
+    setup_logging(os.environ.get("ORAG_LOG_LEVEL", "WARNING"))
+    p = argparse.ArgumentParser(prog="optimized_rag_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    pc = sub.add_parser("chat", help="interactive chat REPL")
+    pc.add_argument("--online", action="store_true",
+                    help="use ORAG_LLM_API_BASE for generation")
+    pc.add_argument("--local-lm", dest="local_lm", action="store_true",
+                    help=argparse.SUPPRESS)  # demoted, as in the JAX CLI
+    _device_flag(pc)
+    pc.set_defaults(fn=cmd_chat)
+    pt = sub.add_parser("train", help="pretrain encoder/reranker/LM "
+                        "checkpoints on the ingested corpus")
+    pt.add_argument("--steps", type=int, default=300)
+    pt.add_argument("--batch", type=int, default=64)
+    pt.add_argument("--out", default=None,
+                    help="checkpoint dir (default <data_dir>/models)")
+    pt.add_argument("--no-decoder", action="store_true")
+    pt.set_defaults(fn=cmd_train)
+    pi = sub.add_parser("ingest", help="ingest files or directories")
+    pi.add_argument("paths", nargs="+")
+    _device_flag(pi)
+    pi.set_defaults(fn=cmd_ingest)
+    pn = sub.add_parser("info", help="environment info")
+    _device_flag(pn)
+    pn.set_defaults(fn=cmd_info)
+    pe = sub.add_parser("env-example",
+                        help="regenerate .env.example from Settings")
+    pe.add_argument("--output", default=".env.example")
+    pe.set_defaults(fn=cmd_env_example)
+    ps = sub.add_parser("serve", help="HTTP server (/search /chat /stats)")
+    ps.add_argument("--host", default="127.0.0.1")
+    ps.add_argument("--port", type=int, default=8080)
+    ps.add_argument("--max-batch", dest="max_batch", type=int, default=64)
+    ps.add_argument("--max-wait-ms", dest="max_wait_ms", type=float,
+                    default=5.0)
+    ps.add_argument("--online", action="store_true")
+    ps.add_argument("--local-lm", dest="local_lm", action="store_true",
+                    help=argparse.SUPPRESS)  # demoted, see chat above
+    _device_flag(ps)
+    ps.set_defaults(fn=cmd_serve)
+    ph = sub.add_parser("hitl", help="review queue for gray-zone answers")
+    ph.add_argument("action", choices=("list", "approve", "reject"))
+    ph.add_argument("item_id", nargs="?", type=int, default=0)
+    ph.add_argument("--status", default="pending")
+    ph.add_argument("--note", default="")
+    ph.set_defaults(fn=cmd_hitl)
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

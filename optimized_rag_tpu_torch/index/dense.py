@@ -41,6 +41,18 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def host_rows(arr, dtype: torch.dtype) -> torch.Tensor:
+    """Snapshot rows as a CPU tensor for storage ``dtype``: the JAX
+    package's bfloat16 rows, which numpy keeps as raw 2-byte records (it
+    has no bfloat16), by their bits; int8 codes and float rows by value."""
+    arr = np.asarray(arr)
+    if arr.dtype.kind == "V" and dtype == torch.bfloat16:
+        return torch.from_numpy(np.array(arr).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(
+        arr, np.int8 if dtype == torch.int8 else np.float32))
+
+
 @dataclasses.dataclass
 class DenseSearchResult:
     scores: np.ndarray   # [B, k] f32
@@ -291,14 +303,7 @@ class DenseIndex:
         idx = cls(int(state["dim"]), int(state["capacity_block"]),
                   str(state["dtype"]), int(state["tile"]), device=device)
         emb = np.asarray(state["embeddings"])
-        if emb.dtype.kind == "V" and idx.dtype == torch.bfloat16:
-            # The JAX package's bfloat16 rows: numpy keeps them as raw
-            # 2-byte records (it has no bfloat16); read their bits.
-            rows = torch.from_numpy(np.array(emb).view(np.int16)).view(
-                torch.bfloat16)
-        else:
-            rows = torch.from_numpy(np.array(
-                emb, np.int8 if idx.quantized else np.float32))
+        rows = host_rows(emb, idx.dtype)
         if len(emb):
             idx._ensure_capacity(len(emb))
             idx._emb[:len(emb)] = rows.to(device=idx.device,

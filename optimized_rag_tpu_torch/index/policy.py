@@ -6,9 +6,10 @@ to ``ivf_min_size`` rows, IVF past it, and on several devices rows (or
 clusters) sharded with an all-gather merge. The agent consults it at
 startup and again after ingestion grows the corpus.
 
-``build_index_for`` builds the port's ``DenseIndex`` on ``device``. IVF and
-the sharded indexes are not ported yet: they raise ``NotImplementedError``
-naming the ``ROADMAP.md`` Queue 1 item that ports them.
+``build_index_for`` builds the port's ``DenseIndex`` or ``IVFIndex`` on
+``device``. The sharded indexes are not ported yet: they raise
+``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item that ports
+them.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ from __future__ import annotations
 from typing import Optional
 
 _NOT_PORTED = {
-    "ivf": "IVF is not ported yet (ROADMAP.md Queue 1 item 7)",
     "sharded_dense": "sharded indexes are not ported yet (ROADMAP.md "
                      "Queue 1 item 8)",
     "sharded_ivf": "sharded indexes are not ported yet (ROADMAP.md "
@@ -45,11 +45,18 @@ def select_index_kind(corpus_size: int, n_devices: int,
 def build_index_for(kind: str, dim: int, settings, mesh=None,
                     capacity_block: int = 65536, tile: int = 1024,
                     device="cuda"):
-    """Construct an empty index of the selected kind on ``device``."""
+    """Construct an (empty or to-be-built) index of the selected kind on
+    ``device``."""
     if kind == "dense":
         from optimized_rag_tpu_torch.index.dense import DenseIndex
         return DenseIndex(dim=dim, capacity_block=capacity_block, tile=tile,
                           device=device)
+    if kind == "ivf":
+        from optimized_rag_tpu_torch.index.ivf import IVFIndex
+        return IVFIndex(num_clusters=settings.ivf.num_clusters,
+                        nprobe=settings.ivf.nprobe,
+                        kmeans_iters=settings.ivf.kmeans_iters, tile=tile,
+                        device=device)
     if kind in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[kind])
     raise ValueError(f"unknown index kind {kind!r}")

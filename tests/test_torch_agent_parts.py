@@ -1,8 +1,9 @@
 """The parts around the PyTorch port's RAGAgent against the JAX package's,
 on the CPU: the synthetic dataset and its retrieval metrics, the RAGAS
 metrics, document ingestion, checkpoint discovery, index snapshots of a
-whole agent (within the port and across the packages), the agent's device
-and the index policy's limits.
+whole agent (within the port and across the packages), the agent's device,
+the index policy's limits and the upgrade to an IVF overlay past
+``ivf_min_size``.
 
 ``make_dataset`` and the metrics are numpy in both packages: their outputs
 are equal exactly. Ingestion runs the fake embedder of ``tests/fakes.py``:
@@ -366,10 +367,10 @@ def test_corpus_dtype_reaches_the_dense_index(tmp_path, dtype):
     assert got["port"] == got["jax"]
 
 
-def test_upgrade_past_ivf_min_size_raises_item_7(tmp_path):
-    """Past ``ivf_min_size`` the policy asks for IVF, which the port does
-    not have yet: the upgrade raises, and so does the ingest that calls it,
-    where the JAX package builds an IVF overlay."""
+def test_upgrade_past_ivf_min_size_matches_jax(tmp_path):
+    """Past ``ivf_min_size`` both packages' agents build an IVF overlay, and
+    so does the ingest that crosses it; on several devices the port raises
+    naming the ROADMAP item that ports the sharded indexes."""
     out = {}
     for pkg in ("jax", "port"):
         a = _agent(pkg, tmp_path)
@@ -377,14 +378,51 @@ def test_upgrade_past_ivf_min_size_raises_item_7(tmp_path):
             f"Sentence {i} says the corpus grows." for i in range(60)))
         assert a.maybe_upgrade_index() == "dense"
         a.settings.ivf.ivf_min_size = a.dense.size
-        if pkg == "jax":
-            out[pkg] = a.maybe_upgrade_index()
-            continue
-        with pytest.raises(NotImplementedError, match="item 7"):
-            a.maybe_upgrade_index()
-        with pytest.raises(NotImplementedError, match="item 7"):
-            a.ingestor.ingest_text("One more document past the limit.")
-        a.settings.mesh.data_parallel = 2
-        with pytest.raises(NotImplementedError, match="item 8"):
-            a.maybe_upgrade_index()
-    assert out["jax"] == "ivf"
+        got = [a.maybe_upgrade_index(), type(a.retriever.ann).__name__,
+               a.retriever.ann_size]
+        a.ingestor.ingest_text("One more document past the limit.")
+        got += [a.dense.size, a.retriever.ann_size]
+        out[pkg] = got
+        if pkg == "port":
+            assert a.retriever.ann.device.type == "cpu"
+            a.settings.mesh.data_parallel = 2
+            with pytest.raises(NotImplementedError, match="item 8"):
+                a.maybe_upgrade_index()
+    assert out["port"] == out["jax"]
+    assert out["jax"][:2] == ["ivf", "IVFIndex"]
+
+
+def test_agent_policy_upgrades_to_ivf_matches_jax(tmp_path):
+    """tests/test_index.py's upgrade case on both agents: the same kind and
+    built size, equal ``dense_only`` answers over the ANN and the exact
+    tail, and a document ingested after the build is found."""
+    got = {}
+    for pkg in ("jax", "port"):
+        s = JaxSettings() if pkg == "jax" else Settings()
+        s.ivf.ivf_min_size = 8           # force IVF immediately
+        s.flags.enable_metrics_export = False
+        s.flags.enable_kg = False
+        a = _agent(pkg, tmp_path, settings=s)
+        for i in range(12):
+            a.ingestor.ingest_text(
+                f"document number {i} about topic{i % 4} with words "
+                f"alpha{i} beta{i} gamma{i} " * 4, filename=f"d{i}.txt")
+        kind = a.maybe_upgrade_index()
+        built = a.retriever.ann_size
+        a.ingestor.ingest_text("zebra quagga okapi unique animal words",
+                               filename="fresh.txt")
+        answers = [[(d.doc_id, d.text, d.score) for d in
+                    a.retriever.dense_only(text, 5)]
+                   for text in ("zebra quagga okapi unique animal",
+                                "topic2 alpha6 beta6", "document number 3")]
+        assert any("zebra" in t for _, t, _ in answers[0]), answers[0]
+        got[pkg] = (kind, type(a.retriever.ann).__name__, built,
+                    a.dense.size, answers)
+    (kj, tj, bj, nj, aj), (kp, tp, bp, np_, ap) = got["jax"], got["port"]
+    assert (kp, tp, bp, np_) == (kj, tj, bj, nj) and kj == "ivf"
+    assert bp < np_
+    for want, have in zip(aj, ap):
+        assert [(i, t) for i, t, _ in have] == [(i, t) for i, t, _ in want]
+        np.testing.assert_allclose([sc for _, _, sc in have],
+                                   [sc for _, _, sc in want], atol=1e-5,
+                                   rtol=0)

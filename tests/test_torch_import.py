@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import optimized_rag_tpu_torch
-from optimized_rag_tpu_torch import native
+from optimized_rag_tpu_torch import cli, native
 from optimized_rag_tpu_torch.agent.agent import RAGAgent
 from optimized_rag_tpu_torch.agent.rewriter import (
     ConversationReferenceDetector)
@@ -23,6 +23,7 @@ from optimized_rag_tpu_torch.engine.rerank import SelectiveReranker
 from optimized_rag_tpu_torch.engine.wrangler import (
     DataWrangler, Deduplicator)
 from optimized_rag_tpu_torch.index.dense import DenseIndex
+from optimized_rag_tpu_torch.index.ivf import IVFIndex
 from optimized_rag_tpu_torch.index.lexical import LexicalIndex
 from optimized_rag_tpu_torch.index.policy import build_index_for
 from optimized_rag_tpu_torch.models.convert import (
@@ -52,7 +53,7 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
-    assert len(_submodules()) >= 70
+    assert len(_submodules()) >= 77
 
 
 def _imported_roots(path):
@@ -94,6 +95,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
                  lambda: Deduplicator(embed_fn=embed),
                  lambda: DataWrangler(embed_fn=embed),
                  lambda: build_index_for("dense", 16, Settings()),
+                 lambda: IVFIndex(),
+                 lambda: build_index_for("ivf", 16, Settings()),
+                 lambda: cli.build_agent(Settings()),
                  lambda: ConversationReferenceDetector(embed),
                  lambda: EnsembleVerifier(None, embed),
                  lambda: SelfRAGEvaluator(None, embed),
@@ -106,6 +110,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert report["healthy"] is False
     assert "CUDA is not available" in report["error"]
     assert DenseIndex(16, 256, tile=256, device="cpu").device.type == "cpu"
+    assert IVFIndex(device="cpu").device.type == "cpu"
+    assert build_index_for("ivf", 16, Settings(),
+                           device="cpu").device.type == "cpu"
     assert MemoryManager(MetadataStore(":memory:"), embed, embed_dim=16,
                          device="cpu").archival.device.type == "cpu"
     assert ConsistencyChecker(embed, device="cpu").device.type == "cpu"

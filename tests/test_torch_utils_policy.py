@@ -2,8 +2,8 @@
 
 ``select_index_kind`` is copied policy and must agree everywhere.
 ``build_index_for`` builds the port's ``DenseIndex`` on the device asked
-for; the kinds still to port (IVF, the sharded indexes) raise naming their
-ROADMAP item. The profiling, health and compile-cache helpers wrap
+for (its ``IVFIndex``: ``tests/test_torch_ivf.py``); the kinds still to
+port (the sharded indexes) raise naming their ROADMAP item. The profiling, health and compile-cache helpers wrap
 torch where the reference wraps JAX; language detection, token budgets,
 retry, logging and the metrics exporter are copies and must give the
 JAX package's outputs.
@@ -53,8 +53,7 @@ def test_build_index_for_dense_on_the_device_asked():
 
 
 @pytest.mark.parametrize("kind,item", [
-    ("ivf", "item 7"), ("sharded_dense", "item 8"),
-    ("sharded_ivf", "item 8")])
+    ("sharded_dense", "item 8"), ("sharded_ivf", "item 8")])
 def test_build_index_for_kinds_not_ported_raise(kind, item):
     with pytest.raises(NotImplementedError, match=item):
         policy.build_index_for(kind, 64, Settings(), mesh=object(),

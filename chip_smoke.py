@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: the /search serving path,
 the retrieval half of a chat turn, the components a chat turn consumes, the
-agent's chat turns, the CLI and HTTP server, IVF, and the reference
+agent's chat turns, the CLI and HTTP server, IVF, sharded retrieval over a
+device mesh, the local generators behind ``--local-lm``, and the reference
 benchmark's retrieval path.
 
     python3 chip_smoke.py            # from any directory; needs one CUDA card
@@ -157,7 +158,37 @@ Phases, each printing one JSON line with its seconds:
                queries held against the probe plan unioned with the exact
                tail (the fresh tail found), 8 chat turns replayed by a CPU
                agent that takes the card's IVF through ``state_dict``;
-12. ``bench_shape`` the reference benchmark's retrieval path at its full
+12. ``slice_sharded`` sharded retrieval over a 4-way data mesh (distinct
+               cards where the machine has them, else all four shards on
+               this card, one stream): (a) ShardedDenseIndex (bf16, tile
+               1024) bulk-built on the card from slice_ivf's 10,485,760 x
+               128 rows, 2,621,440 rows a shard; B=64 and B=1024 at k=10
+               with impl "kernel" (topk_verified: K6 at tile_k 2 on every
+               shard) and "auto" (exact_topk; B=1024 in batches of 64),
+               every answer against the chunked exact float32 search of
+               the stored rows (near-ties of 1e-5 counted); K6 launches per
+               path, host syncs per search, ms and qps; (b)
+               ShardedIVFIndex (4,096 clusters, 6 iterations, tile 2048)
+               over the same rows, nprobe 8-128, every answer against the
+               float64 top-10 of the shards' probe plans, recall@10; (c) the
+               agent's sharded upgrade (data_parallel 4, shard_min_size
+               32,768) over slice_serve's 65,536 chunks, 64 dense_only
+               queries against a float64 oracle, 8 chat turns replayed by a
+               CPU agent sharded over 4 logical CPU devices;
+13. ``slice_local_lm`` the generators behind ``--local-lm``: (a)
+               GroundedGenerator on checkpoints/grounded_r5 (prompt 1,792,
+               up to 384 new tokens, greedy) over 8 prompts rendered from
+               qa session questions and their retrieved chunks: prefill ms,
+               decode ms a step, tokens/s at B=1 and B=8, the device's idle
+               share over decode; 4 prompts replayed on the CPU (tokens
+               equal up to a counted near-tie of 1.0 in log-prob); (b)
+               Generator on checkpoints/pretrained/decoder (prompt 768, 128
+               new), the same timings, 2 prompts replayed; (c) ``chat
+               --local-lm --device cuda`` in process (ORAG_LOCAL_LM_CKPT
+               naming the grounded checkpoint, two questions on stdin) over
+               the qa_docs, then two RAGAgent turns with the
+               GroundedProvider replayed by a CPU agent;
+14. ``bench_shape`` the reference benchmark's retrieval path at its full
                shape (bench.py:180-265, :540-575): 10,485,760 x 128 bf16
                rows (clustered, 300 near-duplicate runs), tile 4096, k=10,
                unit-normal queries in batches of 1024 and 512; the
@@ -179,8 +210,8 @@ kernel at each shape a user path gives it (the served slices' paths:
 QueryServer rounds, DenseIndex.search and the small indexes; each shape of
 bench_shape's routes; each shape of slice_hybrid's dense routes; each
 shape of slice_components' archival and restored indexes; each shape
-of slice_agent's turns; and each shape of slice_serve's /search and
-/chat), its
+of slice_agent's turns; each shape of slice_serve's /search and
+/chat; and each shape slice_sharded's kernel searches gave a shard), its
 numbers measured at that shape and its
 ``launches`` counted on those paths alone (``launches_by_path`` gives each
 path), its ``bound_share`` (bound_ms / ms) and its ``library_factor``
@@ -195,6 +226,7 @@ import _thread
 import contextlib
 import glob
 import json
+import math
 import os
 import random
 import re
@@ -211,7 +243,10 @@ sys.path.insert(0, HERE)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-DEADLINE_S = 560
+# Below a 1,200 s limit for the whole run: the host-bound phases took
+# 1.45x longer on one machine than on another (379-549 s before
+# slice_sharded).
+DEADLINE_S = 900
 SEED = 1234
 DIM, TILE, GROUPS = 384, 1024, 8
 N_BIG = 4_194_304                 # rows of the served index (6.4 GB in f32)
@@ -2977,7 +3012,7 @@ def turn_differs(card, cpu):
 
 
 def replay(what, card_turns, cpu_agent, texts, counts, phase="slice_agent",
-           ask=None, differ=turn_differs):
+           ask=None, differ=turn_differs, tie_log=TieLog):
     """``texts`` through ``cpu_agent`` in order (``ask(text)``, by default
     one ``turn``), each answer held against the card's: ``differ(card,
     cpu)`` finds no difference, or the first one it finds shows a near-tie
@@ -2989,7 +3024,7 @@ def replay(what, card_turns, cpu_agent, texts, counts, phase="slice_agent",
                                    "ties_in_equal_turns": Counter()})
     diverged = False
     for j, (text, card) in enumerate(zip(texts, card_turns)):
-        with TieLog(cpu_agent) as ties:
+        with tie_log(cpu_agent) as ties:
             cpu = ask(text)
         if diverged:
             log["after_divergence"] += 1
@@ -3836,7 +3871,8 @@ def phase_slice_ivf(K_, T_, dev, queries, data, smi):
     each probe held against a float64 ranking of the centroids, each
     answer against the float64 top-10 of its probe plan, the layout
     checked; recall@10 against the exact top-10, qps per nprobe and the
-    port's exact search of the same batch printed. (b) The agent's
+    port's exact search of the same batch printed; the rows and queries
+    are returned for slice_sharded. (b) The agent's
     upgrade past ``ivf_min_size`` at D=384: a card agent over slice_serve's
     65,536-chunk snapshot (``data``) with ``ivf_min_size`` 32,768 builds
     the balanced default IVF, ingests a fresh file, answers 64
@@ -3927,7 +3963,7 @@ def phase_slice_ivf(K_, T_, dev, queries, data, smi):
                            f"{BENCH_TILE}", "ms": exact_ms,
                            "qps": N_IVF_QUERIES / exact_ms * 1e3}
     rep["peak_device_gbytes_a"] = torch.cuda.max_memory_allocated() / 1e9
-    del rows, ivf, inv_perm, q, qn
+    del ivf, inv_perm, qn           # slice_sharded takes the rows and q
     torch.cuda.empty_cache()
 
     # (b) The agent's upgrade past ivf_min_size.
@@ -4042,6 +4078,691 @@ def phase_slice_ivf(K_, T_, dev, queries, data, smi):
           **rep, "allowed_differences": counts,
           "peak_device_gbytes": torch.cuda.max_memory_allocated() / 1e9,
           "seconds": time.perf_counter() - t0})
+    return rows, q
+
+
+# ---------------------------------------------------------- slice_sharded
+
+N_SHARDS = 4                      # benchmarks/bench_sharded.py's mesh
+SHARD_TILE = 1024
+SHARD_BATCHES = (64, 1024)
+SHARD_IMPLS = ("kernel", "auto")
+# "auto" (exact_topk) scores a whole shard per query in float32 and sorts it:
+# [1024, 2,621,440] would need about 55 GB, so B=1024 goes in batches of 64.
+AUTO_SUB_BATCH = 64
+SHARD_MIN_SIZE = 32_768           # the agent's upgrade: half the corpus
+N_SHARD_AGENT_QUERIES = 64
+
+
+def shard_devices(dev):
+    """N_SHARDS devices: the machine's cards in turn, so one card holds all
+    four shards and several cards hold one or more each."""
+    n = torch.cuda.device_count()
+    return [dev if n == 1 else torch.device("cuda", i % n)
+            for i in range(N_SHARDS)]
+
+
+def count_syncs(fn):
+    """``fn()`` under CUDA's sync debug mode: (its result, the number of
+    operations in it that made the host wait for the device)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def host_ms(fn, reps):
+    """Median host-clock ms of ``fn`` (which ends in a host copy; the
+    callers have run it once already)."""
+    times = []
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t1)
+    return statistics.median(times) * 1e3
+
+
+def sharded_rows(idx):
+    """(first external id of each shard and the total, a scorer of
+    external ids) of a ShardedDenseIndex laid out by ``bulk_build``: shard
+    s holds ids [starts[s], starts[s+1]) in order."""
+    starts = np.concatenate([[0], np.cumsum(idx._sizes)])
+
+    def rows(ids):
+        ids = np.asarray(ids, np.int64)
+        s = np.searchsorted(starts, ids, side="right") - 1
+        return torch.stack([idx._emb[int(a)][int(b)] for a, b in
+                            zip(s, ids - starts[s])])
+    return starts, rows
+
+
+def sharded_oracle(idx, q, k):
+    """The chunked exact float32 top-k over the rows as ``idx`` stores
+    them, ties to the lower id: [B, k] scores, ids."""
+    starts, _ = sharded_rows(idx)
+    qf = q.float()
+
+    def score(lo, hi):
+        s = int(np.searchsorted(starts, lo, side="right") - 1)
+        if hi > starts[s + 1]:
+            raise AssertionError("an oracle chunk straddles two shards")
+        return qf @ idx._emb[s][lo - starts[s]:hi - starts[s]].to(
+            qf.device).float().T
+    return running_topk(score, idx.size, k, q.shape[0], q.device,
+                        chunk=math.gcd(262_144, idx.shard_capacity))
+
+
+def hold_exact(what, ids, vals, o_s, o_i, score_ids, counts):
+    """Answers (numpy [B, k]) against an exact oracle's: ids equal unless
+    the oracle shows a near-tie of TIE_TOL (the returned ids score the
+    oracle's values within TIE_TOL; counted), scores within TIE_TOL.
+    Returns the worst score error."""
+    want, o_s = np.asarray(o_i), np.asarray(o_s, np.float64)
+    for j in np.flatnonzero((ids != want).any(axis=1)):
+        mine = score_ids(j, ids[j])
+        if np.abs(mine - o_s[j]).max() > TIE_TOL:
+            raise AssertionError(f"{what} query {j}: ids {ids[j].tolist()} "
+                                 f"differ from the oracle's "
+                                 f"{want[j].tolist()}")
+        counts["near_tie"] += 1
+    err = float(np.abs(vals - o_s).max())
+    if not err <= TIE_TOL:
+        raise AssertionError(f"{what}: scores off by {err:.3g}")
+    return err
+
+
+def sharded_ivf_oracle(what, sivf, qn, nprobe, k, counts):
+    """The exact top-k over the rows each shard's probe plan covers: every
+    shard's probed clusters (its own ``_probe_clusters`` over its owned
+    clusters) held against a float64 ranking of those centroids (near-ties
+    of TIE_TOL counted); then, shard by shard, the chunked float32 top-k of
+    the rows in the query's probed clusters, and the stable merge of the
+    shards' winners. Returns (scores [B, k], external ids [B, k]) as
+    numpy."""
+    from optimized_rag_tpu_torch.index.ivf import _probe_clusters
+    b, dev = qn.shape[0], qn.device
+    cand_s, cand_r = [], []
+    for s, cent, emb, starts, cnts, owned in sivf._shards:
+        probe = _probe_clusters(qn, cent, nprobe, owned)
+        s64 = torch.where(owned[None, :], qn.double() @ cent.double().T,
+                          float("-inf"))
+        want = torch.sort(s64, dim=1, descending=True, stable=True)[1]
+        m = min(nprobe, int(owned.sum()))
+        differ = probe[:, :m] != want[:, :m]
+        if bool(differ.any()):
+            gap = (torch.gather(s64, 1, probe[:, :m])
+                   - torch.gather(s64, 1, want[:, :m])).abs()
+            if float(gap[differ].max()) > TIE_TOL:
+                raise AssertionError(f"{what} shard {s}: probed clusters "
+                                     "differ from the float64 ranking")
+            counts["probe_near_tie"] += int(differ.any(dim=1).sum())
+        member = torch.zeros(b, cent.shape[0], dtype=torch.bool, device=dev)
+        member.scatter_(1, probe.to(dev), True)
+        live = int(cnts.sum())
+        cluster = torch.repeat_interleave(
+            torch.arange(cent.shape[0], device=dev), cnts.long().to(dev))
+        block = emb.to(dev)
+
+        def score(lo, hi):
+            sc = qn @ block[lo:hi].float().T
+            return torch.where(member[:, cluster[lo:hi]], sc, float("-inf"))
+        top_s, top_i = running_topk(score, live, k, b, dev)
+        cand_s.append(top_s)
+        cand_r.append(torch.where(top_i >= 0, top_i + s * sivf._npad, -1))
+    top_s, pos = torch.sort(torch.cat(cand_s, dim=1), dim=1, descending=True,
+                            stable=True)
+    rows = torch.gather(torch.cat(cand_r, dim=1), 1, pos[:, :k]).cpu().numpy()
+    return top_s[:, :k].cpu().numpy(), sivf._row_to_ext[rows]
+
+
+def phase_slice_sharded(K_, T_, dev, handed, queries, data, smi):
+    """Sharded retrieval over a device mesh. The mesh: N_SHARDS=4 data
+    shards, on distinct cards where the machine has them, else all on
+    this card (one stream: the sharded code path, not NVLink or NCCL).
+    (a) ``ShardedDenseIndex`` (bf16, tile 1024) loaded by ``bulk_build``
+    from slice_ivf's 10,485,760 x 128 rows on the card: 2,621,440 rows
+    (2,560 tiles) a shard; B=64 (slice_ivf's queries) and B=1024 at k=10,
+    ``impl="kernel"`` (topk_verified with K6 at tile_k 2 on every shard)
+    and ``"auto"`` (exact_topk; B=1024 in batches of 64), every answer
+    against the chunked exact float32 search of the stored rows with the
+    route's queries (bf16-rounded for the kernel route; near-ties of 1e-5
+    counted); K6's launches per path, host syncs per search, ms and qps. (b) ``ShardedIVFIndex`` (4,096 clusters, 6 iterations, tile 2048)
+    built from the same rows; nprobe 8-128 on the B=64 queries, each answer
+    against the float64 top-10 of the shards' probe plans, recall@10
+    against (a)'s oracle. (c) The agent's sharded upgrade over
+    slice_serve's 65,536-chunk snapshot (``data``): data_parallel 4,
+    ``shard_min_size`` 32,768, ``mesh_or_none`` handed the phase's
+    devices; 64 ``dense_only`` queries against a float64 oracle and 8 chat
+    turns that a CPU agent (its mesh on 4 logical CPU devices) replays.
+    ``handed`` is [rows, queries] from slice_ivf: the phase takes the
+    only references, and (b)'s build frees the rows once it has normalised
+    them. Returns the K6 records of (a)'s kernel paths. Resets the peak
+    memory statistics."""
+    import functools
+    import shutil
+    from optimized_rag_tpu_torch.index import policy
+    from optimized_rag_tpu_torch.ops.similarity import normalize
+    from optimized_rag_tpu_torch.parallel.mesh import make_mesh
+    from optimized_rag_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+    from optimized_rag_tpu_torch.parallel.sharded_topk import (
+        ShardedDenseIndex)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rep, counts = {}, {"near_tie": 0, "probe_near_tie": 0}
+    rows, q64 = handed
+    handed[1] = None
+    devices = shard_devices(dev)
+    mesh = make_mesh(data=N_SHARDS, devices=devices)
+    rep["mesh"] = {"shape": mesh.shape, "devices": [str(d) for d in devices],
+                   "shards_on_one_card": len(set(devices)) == 1}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    pick = torch.randint(0, N_IVF, (SHARD_BATCHES[-1],), generator=gen,
+                         device=dev)
+    batches = {64: q64, SHARD_BATCHES[-1]: unit(rows[pick].float() + 0.05
+                                                * torch.randn(
+        SHARD_BATCHES[-1], DIM_IVF, generator=gen, device=dev))}
+
+    # (a) ShardedDenseIndex.
+    idx = ShardedDenseIndex(DIM_IVF, mesh, capacity_block=N_IVF,
+                            dtype=torch.bfloat16, tile=SHARD_TILE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    idx.bulk_build(rows)
+    torch.cuda.synchronize()
+    rep["dense_build_seconds"] = time.perf_counter() - t1
+    if (idx.shard_capacity != N_IVF // N_SHARDS
+            or (idx._sizes != N_IVF // N_SHARDS).any()):
+        raise AssertionError(f"slice_sharded: shards {idx._sizes} of "
+                             f"capacity {idx.shard_capacity}")
+    _, stored = sharded_rows(idx)
+    qns = {b: normalize(q) for b, q in batches.items()}  # as search has them
+    # The kernel route scores bf16(q) x bf16 rows (the kernels' function,
+    # ops/topk._exact_rowwise_scores); exact_topk scores f32 q.
+    scored = {(impl, b): qn.to(torch.bfloat16).float() if impl == "kernel"
+              else qn for impl in SHARD_IMPLS for b, qn in qns.items()}
+    oracle = {key: sharded_oracle(idx, qs, K) for key, qs in scored.items()}
+    paths, log, search = {}, {}, {}
+    for impl in SHARD_IMPLS:
+        for b, q in batches.items():
+            name = f"{impl}_b{b}"
+            sub = AUTO_SUB_BATCH if impl == "auto" else b
+
+            def run(q=q, b=b, sub=sub, impl=impl):
+                got = [idx.search(q[i:i + sub], K, impl=impl)
+                       for i in range(0, b, sub)]
+                return (np.concatenate([g[0] for g in got]),
+                        np.concatenate([g[1] for g in got]))
+            slow = impl == "auto" and b > AUTO_SUB_BATCH   # seconds a call
+            t1 = time.perf_counter()
+            if impl == "kernel":
+                with recording(T_, K_, log.setdefault(f"sharded_{name}", [])):
+                    vals, ids = counted(K_, paths, f"sharded_{name}", run)
+                if paths[f"sharded_{name}"]["tile_topk"] != N_SHARDS:
+                    raise AssertionError(f"slice_sharded {name}: K6 launched "
+                                         f"{paths[f'sharded_{name}']}")
+            else:
+                vals, ids = run()
+            first_ms = (time.perf_counter() - t1) * 1e3
+            o_s, o_i = oracle[impl, b]
+            err = hold_exact(
+                f"slice_sharded {name}", ids, vals, o_s.cpu().numpy(),
+                o_i.cpu().numpy(), lambda j, got, qs=scored[impl, b]: (
+                    stored(got).double() @ qs[j].double()).cpu().numpy(),
+                counts)
+            _, syncs = count_syncs(lambda: idx.search(q[:sub], K, impl=impl))
+            ms = first_ms if slow else host_ms(run, 5 if impl == "kernel"
+                                               else 3)
+            search[name] = {"ms": ms, "qps": b / ms * 1e3,
+                            "sub_batch": sub, "oracle_max_err": err,
+                            "host_syncs_per_search": syncs}
+    rep["dense"] = search
+    for p, calls in log.items():
+        seen_calls = {m: sum(c == m for c, _ in calls) for m in K_.KERNELS}
+        if seen_calls != paths[p]:
+            raise AssertionError(f"slice_sharded {p}: recorded {seen_calls}, "
+                                 f"counted {paths[p]}")
+    held = hold_recorded(K_, T_, log, 5, "slice_sharded")
+    exact64 = oracle["auto", 64][1].cpu().numpy()
+    del idx, oracle, stored, scored
+    torch.cuda.empty_cache()
+    rep["peak_device_gbytes_a"] = torch.cuda.max_memory_allocated() / 1e9
+    rep["device_gbytes_after_a"] = torch.cuda.memory_allocated() / 1e9
+
+    # (b) ShardedIVFIndex.
+    sivf = ShardedIVFIndex(mesh, num_clusters=IVF_CLUSTERS,
+                           nprobe=IVF_NPROBE, kmeans_iters=IVF_ITERS,
+                           tile=IVF_TILE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    del rows, batches, pick
+    sivf.build(handed.pop(0), storage_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    rep["peak_device_gbytes_ivf_build"] = (torch.cuda.max_memory_allocated()
+                                           / 1e9)
+    owned = [int(sh[5].sum()) for sh in sivf._shards]
+    rep["ivf_build"] = {"seconds": time.perf_counter() - t1,
+                        "clusters": sivf.num_clusters_built,
+                        "clusters_per_shard": owned,
+                        "rows_per_shard": [int(sh[4].sum())
+                                           for sh in sivf._shards],
+                        "window": sivf._window, "npad": sivf._npad}
+    if sum(owned) != IVF_CLUSTERS or sum(
+            rep["ivf_build"]["rows_per_shard"]) != N_IVF:
+        raise AssertionError(f"slice_sharded (b): {rep['ivf_build']}")
+    valid = sivf._row_to_ext >= 0
+    inv = np.empty(N_IVF, np.int64)
+    inv[sivf._row_to_ext[valid]] = np.flatnonzero(valid)
+    shards = {sh[0]: sh[2] for sh in sivf._shards}
+
+    def ivf_scores(j, got):
+        r = inv[got]
+        return np.array([float(shards[int(x // sivf._npad)][
+            int(x % sivf._npad)].double() @ qn[j].double()) for x in r])
+    qn = qns[64]
+    sweep = {}
+    for nprobe in IVF_NPROBES:
+        what = f"slice_sharded (b) nprobe={nprobe}"
+        vals, ids = sivf.search(q64, K, nprobe=nprobe)
+        o_s, o_i = sharded_ivf_oracle(what, sivf, qn, nprobe, K, counts)
+        err = hold_exact(what, ids, vals, o_s, o_i, ivf_scores, counts)
+        ms = host_ms(lambda: sivf.search(q64, K, nprobe=nprobe), 3)
+        sweep[nprobe] = {"ms": ms, "qps": 64 / ms * 1e3,
+                         "recall_at_10": recall_at(ids, exact64),
+                         "rows_read": N_SHARDS * nprobe * sivf._window * 64,
+                         "oracle_max_err": err}
+    _, syncs = count_syncs(lambda: sivf.search(q64, K))
+    rep["ivf_nprobe_sweep"] = sweep
+    rep["ivf_host_syncs_per_search"] = syncs
+    rep["peak_device_gbytes_ab"] = torch.cuda.max_memory_allocated() / 1e9
+    del sivf, shards, inv
+    torch.cuda.empty_cache()
+
+    # (c) The agent's sharded upgrade.
+    work = os.path.dirname(data)
+    forks = [os.path.join(work, f"sharded_{n}") for n in ("card", "cpu")]
+    for fork in forks:
+        shutil.copytree(data, fork)
+    clock, now = time.time, time.time()
+    time.time = lambda: now
+    handed = policy.mesh_or_none
+    try:
+        def upgrade(agent, devs):
+            s = agent.settings
+            s.mesh.data_parallel = N_SHARDS
+            s.ivf.shard_min_size = SHARD_MIN_SIZE
+            policy.mesh_or_none = functools.partial(handed, devices=devs)
+            try:
+                return agent.maybe_upgrade_index()
+            finally:
+                policy.mesh_or_none = handed
+        agent = serving_agent(forks[0], dev)
+        agent.warmup()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        kind = upgrade(agent, devices)
+        torch.cuda.synchronize()
+        ann = agent.retriever.ann
+        rep["agent_upgrade"] = {
+            "seconds": time.perf_counter() - t1, "kind": kind,
+            "type": type(ann).__name__, "ann_size": agent.retriever.ann_size,
+            "shard_sizes": ann._sizes.tolist()}
+        if (kind != "sharded_dense" or type(ann).__name__ !=
+                "ShardedDenseIndex" or agent.retriever.ann_size != N_SERVE
+                or ann.ndev != N_SHARDS
+                or {e.device.type for e in ann._emb} != {dev.type}):
+            raise AssertionError(f"slice_sharded (c): {rep['agent_upgrade']}")
+        texts = queries[0][:N_SHARD_AGENT_QUERIES]
+        answers = [[{"doc_id": d.doc_id, "score": d.score} for d in
+                    agent.retriever.dense_only(t, K)] for t in texts]
+        rows64 = agent.dense.embeddings()[:agent.dense.size].double()
+        rep["agent_dense_only"] = {
+            "queries": len(texts), "oracle_max_err": hold_served(
+                "slice_sharded (c) dense_only", answers,
+                list(agent.embedder.encode(texts)), rows64, counts)}
+        del rows64
+        chat_texts = [q for q, _ in QA_SESSION]
+        card = [turn(agent, text) for text in chat_texts]
+        rep["agent_chat"] = route_stats([t["ms"] for t in card])
+        del agent, ann
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        cpu_agent = serving_agent(forks[1], "cpu")
+        cpu_agent.warmup()
+        if upgrade(cpu_agent, None) != "sharded_dense":
+            raise AssertionError("slice_sharded (c): the CPU agent did not "
+                                 "shard")
+        replay("sharded_agent", card, cpu_agent, chat_texts, counts,
+               phase="slice_sharded")
+        rep["cpu_replay_seconds"] = time.perf_counter() - t1
+        del cpu_agent
+    finally:
+        time.time = clock
+        policy.mesh_or_none = handed
+        for fork in forks:
+            shutil.rmtree(fork, ignore_errors=True)
+        torch.cuda.empty_cache()
+    emit({"phase": "slice_sharded", "card": smi, "rows": N_IVF,
+          "dim": DIM_IVF, **rep, "allowed_differences": counts,
+          "launches_by_path": paths,
+          "peak_device_gbytes": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0})
+    for rec in held:
+        emit({"phase": "slice_sharded", "card": smi, "kernel": rec["name"],
+              **{key: v for key, v in rec.items() if key != "name"}})
+    return held
+
+
+# --------------------------------------------------------- slice_local_lm
+
+LM_CKPT = os.path.join(HERE, "checkpoints", "grounded_r5")
+DECODER_CKPT = os.path.join(HERE, "checkpoints", "pretrained")
+N_LM_PROMPTS, N_LM_REPLAY = 8, 4
+LM_DOCS = 5                       # retrieved chunks a prompt renders
+DECODER_PROMPT, DECODER_NEW, N_DECODER_REPLAY = 768, 128, 2
+N_LM_CHAT_TURNS = 2
+# A near-tie between the card's and the CPU's bfloat16 sums: the margin of a
+# step's top two scores (log-probs or logits) within this, as
+# tests/test_torch_grounded.py and tests/test_torch_decoder.py hold the JAX
+# package against the port.
+GEN_TIE = 1.0
+
+
+def lm_prompts(chunks, dev, max_bytes):
+    """N_LM_PROMPTS prompts rendered by ``render_prompt`` from the qa
+    session's questions and the LM_DOCS chunks the pretrained BiEncoder
+    ranks first for each (cosine, ties to the lower chunk)."""
+    from optimized_rag_tpu_torch.models.convert import load_biencoder
+    from optimized_rag_tpu_torch.models.grounded import render_prompt
+    svc = load_biencoder(DECODER_CKPT, device=dev)
+    questions = [q for q, _ in QA_SESSION][:N_LM_PROMPTS]
+    sims = torch.from_numpy(svc.encode(questions)) @ torch.from_numpy(
+        svc.encode(chunks)).T
+    top = torch.sort(sims, dim=1, descending=True, stable=True)[1][:, :LM_DOCS]
+    return [render_prompt([chunks[i] for i in top[j].tolist()], q,
+                          max_bytes=max_bytes)
+            for j, q in enumerate(questions)]
+
+
+def generated(gen, prompts):
+    """Greedy tokens of each prompt (through its EOS, no PAD) and the
+    scores every decode step picked from ([B, V] float32 on the host, one a
+    step: the grounded mixture's log-probs, the decoder's logits)."""
+    from optimized_rag_tpu_torch.models import decoder as pd
+    from optimized_rag_tpu_torch.models import grounded as pg
+    mod = pg if isinstance(gen, pg.GroundedGenerator) else pd
+    loop, scores = mod.decode_loop, []
+
+    def recording_loop(first, step, pick, max_new, **kw):
+        def keep(s):
+            scores.append(s.float().cpu())
+            return pick(s)
+        return loop(first, step, keep, max_new, **kw)
+    ids, pad = pd.left_pad(prompts, gen.max_prompt_len)
+    args = ((0.0, 0, 1.0, 0) if mod is pd else (0.0, 0))
+    mod.decode_loop = recording_loop
+    try:
+        toks = gen._generate(torch.from_numpy(ids).to(gen.device),
+                             torch.from_numpy(pad).to(gen.device), *args,
+                             gen.max_new_tokens)
+    finally:
+        mod.decode_loop = loop
+    rows = [[t for t in row if t != pd.PAD] for row in toks.T.tolist()]
+    return rows, scores, pd.texts_of(toks)
+
+
+def hold_generated(what, card, cpu, counts):
+    """Greedy tokens of the card against the CPU's (each ``generated``'s
+    rows and step scores): equal, or equal up to a step where the CPU run
+    shows a near-tie: its top two are the CPU's token and the card's,
+    within GEN_TIE (counted, with both runs' margins; the rest of that row
+    is not compared). Records the largest difference of the two runs'
+    scores over each step's top 5 up to any divergence."""
+    (c_rows, c_sc), (p_rows, p_sc) = card, cpu
+    log = counts.setdefault(what, {"equal": 0, "near_tie": [],
+                                   "step_score_max_diff": 0.0})
+    for j, (a, b) in enumerate(zip(c_rows, p_rows)):
+        t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 None)
+        for s in range(len(a) if t is None else t + 1):
+            top = torch.topk(c_sc[s][j], 5).indices
+            log["step_score_max_diff"] = max(log["step_score_max_diff"], float(
+                (c_sc[s][j][top] - p_sc[s][j][top]).abs().max()))
+        if t is None and len(a) == len(b):
+            log["equal"] += 1
+            continue
+        cs, ps = c_sc[t][j], p_sc[t][j]
+        pair = {a[t], b[t]}
+        margins = (float(cs[a[t]] - cs[b[t]]), float(ps[b[t]] - ps[a[t]]))
+        if (set(torch.topk(ps, 2).indices.tolist()) != pair
+                or margins[1] > GEN_TIE):
+            raise AssertionError(
+                f"slice_local_lm {what} prompt {j}: at step {t} the card "
+                f"picks {a[t]}, the CPU {b[t]}; top two on the card "
+                f"{torch.topk(cs, 2)}, on the CPU {torch.topk(ps, 2)}")
+        log["near_tie"].append({"prompt": j, "step": t,
+                                "margins": margins})
+
+
+def timed_generation(mod, gen, prompts, **kw):
+    """``gen.generate_batch(prompts)`` timed on the host clock, split at
+    the end of the prefill (where ``mod.decode_loop`` is entered, after a
+    synchronize): texts and {wall_ms, prefill_ms, decode_ms, steps,
+    decode_ms_per_step, tokens (non-PAD, EOS included), tokens_per_s
+    (tokens over the whole call), decode_tokens_per_s}."""
+    loop, mark = mod.decode_loop, {}
+
+    def timed_loop(first, step, pick, max_new, **kw2):
+        torch.cuda.synchronize()
+        mark["prefill"] = time.perf_counter()
+        n = [1]
+
+        def counting(toks, t):
+            n[0] += 1
+            return step(toks, t)
+        out = loop(first, counting, pick, max_new, **kw2)
+        mark["steps"], mark["tokens"] = n[0], int((out != 0).sum())
+        return out
+    mod.decode_loop = timed_loop
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        texts = gen.generate_batch(prompts, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        mod.decode_loop = loop
+    decode = t1 - mark["prefill"]
+    return texts, {"B": len(prompts), "wall_ms": (t1 - t0) * 1e3,
+                   "prefill_ms": (mark["prefill"] - t0) * 1e3,
+                   "decode_ms": decode * 1e3, "steps": mark["steps"],
+                   "decode_ms_per_step": decode * 1e3 / mark["steps"],
+                   "tokens": mark["tokens"],
+                   "tokens_per_s": mark["tokens"] / (t1 - t0),
+                   "decode_tokens_per_s": mark["tokens"] / decode}
+
+
+class GenTieLog(TieLog):
+    """TieLog, and a generation near-tie: a decode step of the grounded
+    generator whose top two log-probs lie within GEN_TIE."""
+
+    def __enter__(self):
+        from optimized_rag_tpu_torch.models import grounded as pg
+        self._pg, self._loop = pg, pg.decode_loop
+
+        def loop(first, step, pick, max_new, **kw):
+            def watch(scores):
+                top = torch.topk(scores.float(), 2, dim=-1).values
+                if float((top[:, 0] - top[:, 1]).min()) <= GEN_TIE:
+                    self.kinds["generate"] += 1
+                return pick(scores)
+            return self._loop(first, step, watch, max_new, **kw)
+        pg.decode_loop = loop
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self._pg.decode_loop = self._loop
+        return super().__exit__(*exc)
+
+
+def phase_slice_local_lm(dev, chunks, work, smi):
+    """The local generators behind ``--local-lm`` on the card. (a)
+    ``GroundedGenerator`` on ``checkpoints/grounded_r5`` (6 layers, 384
+    wide, prompt 1,792, up to 384 new tokens, greedy): 8 prompts rendered
+    from qa session questions and their retrieved chunks; prefill ms,
+    decode ms a step and tokens/s at B=1 and B=8, the device's idle share
+    over the B=8 call and over its decode (the call less a prefill-only
+    call); 4 of the prompts replayed on the CPU, their tokens equal to the
+    card's up to a counted near-tie (the CPU run's top two scores at the
+    first difference are the two tokens, within GEN_TIE). (b) ``Generator`` on
+    ``checkpoints/pretrained/decoder`` (prompt 768, 128 new): the same
+    timings, 2 prompts replayed on the CPU. (c) ``cli.main(["chat",
+    "--local-lm", "--device", "cuda"])`` in process with
+    ``ORAG_LOCAL_LM_CKPT`` naming the grounded checkpoint, over a data
+    directory of the qa_docs (uploaded by a card agent under ``work``),
+    two questions on stdin; then two RAGAgent turns with the
+    GroundedProvider (``cli.build_agent(..., local_lm=True)``) on the card
+    over a copy, replayed by a CPU agent over another: equal, near-ties
+    excused and counted."""
+    import builtins
+    import io
+    import shutil
+    from optimized_rag_tpu_torch import cli
+    from optimized_rag_tpu_torch.config import Settings
+    from optimized_rag_tpu_torch.models import decoder as pd
+    from optimized_rag_tpu_torch.models import grounded as pg
+    from optimized_rag_tpu_torch.models.pretrain import load_pretrained
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rep, counts = {}, {}
+
+    # (a) GroundedGenerator.
+    cfg, state = load_pretrained(LM_CKPT, "grounded")
+    prompt_len = min(cfg.prompt_len, cfg.max_seq_len - cfg.target_len)
+    mk = lambda device: pg.GroundedGenerator(  # noqa: E731
+        cfg, params=state, max_prompt_len=prompt_len,
+        max_new_tokens=cfg.target_len, device=device)
+    gen = mk(dev)
+    prompts = lm_prompts(chunks, dev, prompt_len - 32)
+    gen.generate_batch(prompts[:1], max_new_tokens=4)        # warm-up
+    timings = {}
+    for b in (1, N_LM_PROMPTS):
+        texts, timings[f"b{b}"] = timed_generation(pg, gen, prompts[:b])
+    if not any(t.strip() for t in texts):
+        raise AssertionError(f"slice_local_lm (a): empty answers {texts}")
+    card = generated(gen, prompts[:N_LM_REPLAY])[:2]   # the CPU's batch
+    timings["device_b8"] = device_busy(lambda: gen.generate_batch(prompts),
+                                       cpu=False)
+    pre = device_busy(lambda: gen.generate_batch(prompts, max_new_tokens=1),
+                      cpu=False)
+    full = timings["device_b8"]
+    timings["decode_idle_share"] = 1.0 - (
+        full["device_busy_ms"] - pre["device_busy_ms"]) / (
+        full["wall_ms"] - pre["wall_ms"])
+    rep["grounded"] = {"prompt_len": prompt_len,
+                       "max_new_tokens": cfg.target_len,
+                       "prompt_bytes": [len(p.encode()) for p in prompts],
+                       "answers": [t[:160] for t in texts], **timings}
+    del gen
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    cpu_gen = mk("cpu")
+    hold_generated("grounded", card, generated(cpu_gen, prompts[
+        :N_LM_REPLAY])[:2], counts)
+    rep["grounded"]["cpu_replay_seconds"] = time.perf_counter() - t1
+    del cpu_gen, card
+
+    # (b) Generator (the plain decoder).
+    cfg_d, state_d = load_pretrained(DECODER_CKPT, "decoder")
+    mk_d = lambda device: pd.Generator(  # noqa: E731
+        cfg_d, params=state_d, max_prompt_len=DECODER_PROMPT,
+        max_new_tokens=DECODER_NEW, device=device)
+    dec = mk_d(dev)
+    dec.generate_batch(prompts[:1], max_new_tokens=4)
+    timings = {}
+    for b in (1, N_LM_PROMPTS):
+        _, timings[f"b{b}"] = timed_generation(pd, dec, prompts[:b])
+    card_d = generated(dec, prompts[:N_DECODER_REPLAY])[:2]
+    del dec
+    hold_generated("decoder", card_d, generated(
+        mk_d("cpu"), prompts[:N_DECODER_REPLAY])[:2], counts)
+    rep["decoder"] = timings
+    del card_d
+
+    # (c) chat --local-lm, then agent turns replayed on the CPU.
+    data = os.path.join(work, "local_lm_data")
+    agent = serving_agent(data, dev)          # its store on disk
+    agent.ingestor.upload_directory(os.path.join(HERE, "optimized_rag_tpu",
+                                                 "eval", "qa_docs"))
+    agent.save_indexes()
+    del agent
+    forks = [data] + [os.path.join(work, f"local_lm_{n}")
+                      for n in ("card", "cpu")]
+    for fork in forks[1:]:
+        shutil.copytree(data, fork)
+    saved_env = {k: os.environ.get(k) for k in ("ORAG_LOCAL_LM_CKPT",
+                                                "ORAG_DATA_DIR")}
+    clock, now, ask = time.time, time.time(), builtins.input
+    time.time = lambda: now
+    questions = [q for q, _ in QA_SESSION][:N_LM_CHAT_TURNS]
+    try:
+        os.environ["ORAG_LOCAL_LM_CKPT"] = LM_CKPT
+        os.environ["ORAG_DATA_DIR"] = forks[0]
+        feed = iter(questions + ["exit"])
+        builtins.input = lambda *a: next(feed)
+        out = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["chat", "--local-lm", "--device", dev.type])
+        said = out.getvalue()
+        rep["cli_chat"] = {"seconds": time.perf_counter() - t1, "rc": rc,
+                           "answers": [ln[:200] for ln in said.splitlines()
+                                       if ln.startswith("Assistant:")]}
+        if rc != 0 or not said.startswith(
+                "local LM: loaded grounded checkpoint") or len(
+                rep["cli_chat"]["answers"]) != N_LM_CHAT_TURNS:
+            raise AssertionError(f"slice_local_lm (c) chat: rc {rc}, "
+                                 f"{said[:600]!r}")
+
+        def lm_agent(fork, device):
+            settings = Settings.from_env()
+            settings.data_dir = fork
+            agent = cli.build_agent(settings, local_lm=True, device=device)
+            if type(agent.llm) is not pg.GroundedProvider:
+                raise AssertionError(f"slice_local_lm (c): {agent.llm}")
+            agent.warmup()
+            return agent
+        agent = lm_agent(forks[1], dev)
+        card_turns = [turn(agent, q) for q in questions]
+        rep["agent_turns"] = {**route_stats([t["ms"] for t in card_turns]),
+                              "answers": [t["answer"][:160]
+                                          for t in card_turns]}
+        del agent
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        cpu_agent = lm_agent(forks[2], "cpu")
+        replay("local_lm_agent", card_turns, cpu_agent, questions, counts,
+               phase="slice_local_lm", tie_log=GenTieLog)
+        rep["cpu_replay_seconds"] = time.perf_counter() - t1
+        del cpu_agent
+    finally:
+        time.time, builtins.input = clock, ask
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for fork in forks:
+            shutil.rmtree(fork, ignore_errors=True)
+        torch.cuda.empty_cache()
+    emit({"phase": "slice_local_lm", "card": smi, **rep,
+          "allowed_differences": counts,
+          "peak_device_gbytes": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0})
 
 
 SOURCES = {"packed_extract": ("optimized_rag_tpu_torch/csrc/packed_extract.cu",
@@ -4148,8 +4869,13 @@ def main() -> None:
     try:
         held_s = phase_slice_serve(K_, T_, dev, chunks, queries, work, smi)
         peak = max(peak, torch.cuda.max_memory_allocated())
-        phase_slice_ivf(K_, T_, dev, queries, os.path.join(work, "data"),
-                        smi)
+        data = os.path.join(work, "data")
+        handed = list(phase_slice_ivf(K_, T_, dev, queries, data, smi))
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        held_sh = phase_slice_sharded(K_, T_, dev, handed, queries, data,
+                                      smi)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        phase_slice_local_lm(dev, chunks, work, smi)
         peak = max(peak, torch.cuda.max_memory_allocated())
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4169,7 +4895,8 @@ def main() -> None:
     # K1, K4 and K6, then each shape slice_components' archival and restored
     # indexes gave K6, K1 and K4, then each shape slice_agent's chat turns
     # gave a kernel, then each shape slice_serve's /search and /chat gave
-    # K6. The direct calls of the checks are not counted.
+    # K6, then each shape slice_sharded's kernel searches gave K6 on a
+    # shard. The direct calls of the checks are not counted.
     kernels = []
     for dtype, paths, user, recs in (
             ("f32", paths32, USER_PATHS_F32, recs32),
@@ -4200,6 +4927,11 @@ def main() -> None:
         kernels.append(kernel_entry(
             rec["name"],
             f"{rec['dtype']} slice_serve N={rec['N']} {rec['shape']}",
+            rec["launches_by_path"], rec))
+    for rec in held_sh:
+        kernels.append(kernel_entry(
+            rec["name"],
+            f"{rec['dtype']} slice_sharded shard N={rec['N']} {rec['shape']}",
             rec["launches_by_path"], rec))
     idle = [k["name"] for k in kernels if not k["launches"]]
     missing = set(K_.KERNELS) - {k["name"].split("[")[0] for k in kernels}

@@ -315,7 +315,7 @@ class RAGAgent:
         from optimized_rag_tpu_torch.index.policy import (
             build_index_for, mesh_or_none, select_index_kind)
         s = self.settings
-        mesh = mesh_or_none(s)
+        mesh = mesh_or_none(s, self.device)
         n_dev = mesh.shape[s.mesh.data_axis] if mesh is not None else 1
         kind = select_index_kind(self.dense.size, n_dev,
                                  ivf_min_size=s.ivf.ivf_min_size,

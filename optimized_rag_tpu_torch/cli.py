@@ -10,9 +10,11 @@ output. Every subcommand that builds an agent (``chat``, ``ingest``,
   python -m optimized_rag_tpu_torch info
   python -m optimized_rag_tpu_torch serve --port 8080
 
-``train`` and the hidden ``--local-lm`` provider need the on-device
-generators and training loops, which are not ported yet: they raise
-``NotImplementedError`` naming ``ROADMAP.md`` Queue 1 item 9.
+The hidden ``--local-lm`` flag of ``chat`` and ``serve`` generates with
+the repo's own checkpoints on the device (``ORAG_LOCAL_LM_CKPT``, else the
+checkpoint directory the agent finds). ``train`` needs the training loops,
+which are not ported yet: it raises ``NotImplementedError`` naming the
+training half of ``ROADMAP.md`` Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -24,14 +26,43 @@ import sys
 from optimized_rag_tpu_torch.config import Settings
 from optimized_rag_tpu_torch.utils.logging_config import setup_logging
 
-_ITEM_9 = ("the on-device generators and training are not ported yet "
-           "(ROADMAP.md Queue 1 item 9)")
+def _local_lm_provider(settings: Settings, device="cuda"):
+    """The on-device generation provider of a trained checkpoint
+    (ORAG_LOCAL_LM_CKPT, <data_dir>/models, or the bundled checkpoints).
 
-
-def _local_lm_provider(settings: Settings):
-    """The on-device generation provider of a trained checkpoint (the JAX
-    package's ``--local-lm``)."""
-    raise NotImplementedError(f"--local-lm: {_ITEM_9}")
+    Preference order: the GROUNDED pointer-generator (models/grounded.py,
+    no extractive fallback on the generate task), then the plain decoder,
+    then a random-init generator (serving-path completeness only)."""
+    from optimized_rag_tpu_torch.models.pretrain import (
+        find_checkpoint_dir, load_pretrained)
+    ckpt_dir = os.environ.get("ORAG_LOCAL_LM_CKPT") \
+        or find_checkpoint_dir(settings.data_dir)
+    grounded = load_pretrained(ckpt_dir, "grounded") if ckpt_dir else None
+    if grounded is not None:
+        from optimized_rag_tpu_torch.models.grounded import (
+            GroundedGenerator, GroundedProvider)
+        cfg, params = grounded
+        print(f"local LM: loaded grounded checkpoint from {ckpt_dir}")
+        gen = GroundedGenerator(
+            cfg, params=params,
+            max_prompt_len=min(cfg.prompt_len, cfg.max_seq_len
+                               - cfg.target_len),
+            max_new_tokens=cfg.target_len, device=device)
+        return GroundedProvider(gen, fallback=DeterministicLLM_from(settings))
+    from optimized_rag_tpu_torch.models.decoder import (
+        DecoderConfig, Generator, LocalLMProvider)
+    loaded = load_pretrained(ckpt_dir, "decoder") if ckpt_dir else None
+    if loaded is not None:
+        cfg, params = loaded
+        print(f"local LM: loaded decoder checkpoint from {ckpt_dir}")
+    else:
+        cfg, params = DecoderConfig(num_layers=4, max_seq_len=1024), None
+        print("local LM: no checkpoint found; using random init "
+              "(train one with: python -m optimized_rag_tpu train)")
+    gen = Generator(cfg, params=params,
+                    max_prompt_len=min(cfg.max_seq_len - 128, 768),
+                    max_new_tokens=128, device=device)
+    return LocalLMProvider(gen)
 
 
 def DeterministicLLM_from(settings: Settings):
@@ -56,7 +87,7 @@ def build_agent(settings: Settings, offline: bool = True,
             api_base, model=os.environ.get("ORAG_LLM_MODEL", "gpt-4o-mini"),
             api_key=os.environ.get("ORAG_LLM_API_KEY", ""))
     if llm is None and local_lm:
-        llm = _local_lm_provider(settings)
+        llm = _local_lm_provider(settings, device)
     if llm is None:
         llm = DeterministicLLM_from(settings)
     store = MetadataStore(os.path.join(settings.data_dir, "metadata.db"))
@@ -127,7 +158,9 @@ def cmd_ingest(args) -> int:
 def cmd_train(args) -> int:
     """Pretrain the encoders and the decoder LM (the JAX package's
     ``train``)."""
-    raise NotImplementedError(f"train: {_ITEM_9}")
+    raise NotImplementedError(
+        "train: training is not ported yet (the training half of "
+        "ROADMAP.md Queue 1 item 9)")
 
 
 def cmd_env_example(args) -> int:

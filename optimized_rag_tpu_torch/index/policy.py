@@ -7,21 +7,13 @@ clusters) sharded with an all-gather merge. The agent consults it at
 startup and again after ingestion grows the corpus.
 
 ``build_index_for`` builds the port's ``DenseIndex`` or ``IVFIndex`` on
-``device``. The sharded indexes are not ported yet: they raise
-``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item that ports
-them.
+``device``, and the sharded indexes over a mesh (``parallel/``), whose
+devices ``mesh_or_none`` lays out.
 """
 
 from __future__ import annotations
 
 from typing import Optional
-
-_NOT_PORTED = {
-    "sharded_dense": "sharded indexes are not ported yet (ROADMAP.md "
-                     "Queue 1 item 8)",
-    "sharded_ivf": "sharded indexes are not ported yet (ROADMAP.md "
-                   "Queue 1 item 8)",
-}
 
 
 def select_index_kind(corpus_size: int, n_devices: int,
@@ -57,16 +49,36 @@ def build_index_for(kind: str, dim: int, settings, mesh=None,
                         nprobe=settings.ivf.nprobe,
                         kmeans_iters=settings.ivf.kmeans_iters, tile=tile,
                         device=device)
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[kind])
-    raise ValueError(f"unknown index kind {kind!r}")
+    if kind not in ("sharded_dense", "sharded_ivf"):
+        raise ValueError(f"unknown index kind {kind!r}")
+    if mesh is None:
+        raise ValueError(f"{kind} needs a mesh")
+    if kind == "sharded_dense":
+        from optimized_rag_tpu_torch.parallel.sharded_topk import (
+            ShardedDenseIndex)
+        return ShardedDenseIndex(dim=dim, mesh=mesh,
+                                 capacity_block=capacity_block, tile=tile)
+    from optimized_rag_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+    return ShardedIVFIndex(mesh, num_clusters=settings.ivf.num_clusters,
+                           nprobe=settings.ivf.nprobe,
+                           kmeans_iters=settings.ivf.kmeans_iters, tile=tile)
 
 
-def mesh_or_none(settings) -> Optional[object]:
-    """None when settings ask for at most one-way data parallelism;
-    several devices are not ported yet."""
+def mesh_or_none(settings, device="cuda", devices=None) -> Optional[object]:
+    """The configured (data, model) mesh when settings ask for more than
+    one-way data parallelism, else None (everything on one device).
+
+    ``devices`` lays the mesh out; by default every CUDA device (too few
+    raise), or on the CPU as many logical CPU devices as the mesh needs.
+    """
     if settings.mesh.data_parallel <= 1:
         return None
-    raise NotImplementedError(
-        f"data_parallel={settings.mesh.data_parallel}: multi-device "
-        "meshes are not ported yet (ROADMAP.md Queue 1 item 8)")
+    import torch
+
+    from optimized_rag_tpu_torch.device import resolve_device
+    from optimized_rag_tpu_torch.parallel.mesh import make_mesh
+    m = settings.mesh
+    if devices is None and resolve_device(device).type == "cpu":
+        devices = [torch.device("cpu")] * (m.data_parallel * m.model_parallel)
+    return make_mesh(data=m.data_parallel, model=m.model_parallel,
+                     devices=devices)

@@ -1,13 +1,15 @@
-"""Load the JAX package's encoder checkpoints into the port, with numpy only.
+"""Load the JAX package's checkpoints into the port, with numpy only.
 
 Held against ``optimized_rag_tpu/models/loader.py`` (:22-51, the flattened
-npz layout), ``models/pretrain.py`` (:330-352 ``load_pretrained``,
-:412-423 ``load_tokenizer``), the parameter shapes of ``models/encoder.py``
-and the agent's configuration of both encoders (``agent/agent.py:92-107``,
-``:128-139``). A checkpoint is ``<name>.config.json`` plus
-``<name>.params.npz``, whose keys are the Flax tree paths joined by ``/``
-(``params/trunk/block_0/attn/query/kernel``, ...), stored as float16.
-Weights are converted in memory; nothing is written.
+npz layout), ``models/pretrain.py`` (:330-383 ``load_pretrained``,
+:412-423 ``load_tokenizer``), the parameter shapes of ``models/encoder.py``,
+``models/decoder.py`` and ``models/grounded.py``, and the agent's
+configuration of both encoders (``agent/agent.py:92-107``, ``:128-139``). A
+checkpoint is ``<name>.config.json`` plus ``<name>.params.npz``, whose keys
+are the Flax tree paths joined by ``/`` (``params/trunk/block_0/attn/query/
+kernel``; a grounded checkpoint's under ``backbone/params/`` and
+``heads/params/``), stored as float16 or float32. Weights are converted in
+memory; nothing is written.
 """
 
 from __future__ import annotations
@@ -33,6 +35,78 @@ def _norm(prefix: str, p: dict) -> dict:
     return {f"{prefix}.scale": p["scale"], f"{prefix}.bias": p["bias"]}
 
 
+def _tree(flat_params: dict[str, np.ndarray], prefix: str = "") -> dict:
+    """The float32 tree of the flat npz keys under ``prefix``, without
+    Flax's leading ``params``."""
+    tree: dict = {}
+    for key, val in flat_params.items():
+        if not key.startswith(prefix):
+            continue
+        parts = key[len(prefix):].split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = np.array(val, np.float32)
+    return tree
+
+
+def _tensors(arrays: dict, dtype_of) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dtype_of(k))
+            for k, v in arrays.items()}
+
+
+def _decoder_arrays(tree: dict, num_layers: int, prefix: str = "") -> dict:
+    out = {f"{prefix}tok.weight": tree["tok"]["embedding"],
+           f"{prefix}pos.weight": tree["pos"]["embedding"],
+           **_norm(f"{prefix}ln_f", tree["ln_f"]),
+           **_dense(f"{prefix}head", tree["head"]["kernel"],
+                    tree["head"]["bias"])}
+    for i in range(num_layers):
+        blk, pre = tree[f"block_{i}"], f"{prefix}blocks.{i}"
+        out.update(_norm(f"{pre}.ln1", blk["ln1"]))
+        out.update(_norm(f"{pre}.ln2", blk["ln2"]))
+        for name in ("qkv", "attn_out", "mlp_in", "mlp_out"):
+            out.update(_dense(f"{pre}.{name}", blk[name]["kernel"],
+                              blk[name]["bias"]))
+    return out
+
+
+def _decoder_dtype(cfg, prefix: str = ""):
+    """The DecoderLM computes in cfg.dtype; LayerNorms and the head stay
+    float32."""
+    return lambda key: (torch.float32 if ".ln" in key or key.startswith(
+        (f"{prefix}ln_f", f"{prefix}head")) else cfg.dtype)
+
+
+def decoder_flax_to_torch(flat_params: dict[str, np.ndarray], cfg
+                          ) -> dict[str, torch.Tensor]:
+    """DecoderLM state dict (``models/decoder.py``) from the flattened Flax
+    params of a decoder checkpoint. Dense kernels [in, out] become Linear
+    weights [out, in]; ``qkv``'s columns keep the reference's q | k | v,
+    head-major order. Tensors come back on the CPU in the module's dtypes.
+    """
+    return _tensors(_decoder_arrays(_tree(flat_params), cfg.num_layers),
+                    _decoder_dtype(cfg))
+
+
+def grounded_flax_to_torch(flat_params: dict[str, np.ndarray], cfg
+                           ) -> dict[str, torch.Tensor]:
+    """GroundedGenerator state dict (``backbone.*``, ``heads.*``) from the
+    flattened params of a grounded checkpoint (``backbone/params/...``,
+    ``heads/params/...``); the heads stay float32."""
+    arrays = _decoder_arrays(_tree(flat_params, "backbone/"), cfg.num_layers,
+                             "backbone.")
+    heads = _tree(flat_params, "heads/")
+    for name in ("copy_q", "copy_k", "p_gen"):
+        arrays.update(_dense(f"heads.{name}", heads[name]["kernel"],
+                             heads[name]["bias"]))
+    dtype = _decoder_dtype(cfg, "backbone.")
+    return _tensors(arrays, lambda key: (
+        torch.float32 if key.startswith("heads.") else dtype(key)))
+
+
 def flax_to_torch(flat_params: dict[str, np.ndarray],
                   cfg: TransformerConfig) -> dict[str, torch.Tensor]:
     """BiEncoder or CrossEncoder state dict from the flattened Flax params
@@ -44,15 +118,7 @@ def flax_to_torch(flat_params: dict[str, np.ndarray],
     gives the head-major feature order the torch module splits by.
     Tensors come back on the CPU in the module's dtypes.
     """
-    tree: dict = {}
-    for key, val in flat_params.items():
-        parts = key.split("/")
-        if parts[0] == "params":
-            parts = parts[1:]
-        node = tree
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = np.array(val, np.float32)
+    tree = _tree(flat_params)
     h = cfg.hidden_dim
     trunk = tree["trunk"]
     emb = trunk["emb"]
@@ -93,11 +159,17 @@ def flax_to_torch(flat_params: dict[str, np.ndarray],
     return state
 
 
+def config_dtype(blob: dict) -> torch.dtype:
+    """The compute dtype a checkpoint's config names (bfloat16 unless it
+    says float32 or float16)."""
+    return {"float32": torch.float32, "float16": torch.float16}.get(
+        str(blob.get("dtype", "bfloat16")), torch.bfloat16)
+
+
 def load_config(ckpt_dir: str, name: str = "biencoder") -> TransformerConfig:
     with open(os.path.join(ckpt_dir, f"{name}.config.json")) as f:
         blob = json.load(f)
-    dtype = {"float32": torch.float32, "float16": torch.float16}.get(
-        str(blob.get("dtype", "bfloat16")), torch.bfloat16)
+    dtype = config_dtype(blob)
     return TransformerConfig(
         vocab_size=int(blob["vocab_size"]),
         hidden_dim=int(blob["hidden_dim"]),

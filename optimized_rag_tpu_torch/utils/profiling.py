@@ -72,12 +72,18 @@ def device_trace(log_dir: str | None = None):
     operator and kernel."""
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "orag_trace")
     os.makedirs(log_dir, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + [ProfilerActivity.CUDA] * cuda
+    if cuda:
+        torch.cuda.synchronize()
     with profile(activities=activities) as prof:
+        if cuda:
+            # The tracer can miss the first kernels after it starts (a smoke
+            # run's trace lost 2 of 16): one synchronised kernel first.
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
         yield prof
-        if torch.cuda.is_available():
+        if cuda:
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 

@@ -3,7 +3,7 @@ on the CPU: the synthetic dataset and its retrieval metrics, the RAGAS
 metrics, document ingestion, checkpoint discovery, index snapshots of a
 whole agent (within the port and across the packages), the agent's device,
 the index policy's limits and the upgrade to an IVF overlay past
-``ivf_min_size``.
+``ivf_min_size`` and to the sharded indexes at ``data_parallel`` 2.
 
 ``make_dataset`` and the metrics are numpy in both packages: their outputs
 are equal exactly. Ingestion runs the fake embedder of ``tests/fakes.py``:
@@ -241,8 +241,25 @@ def test_load_pretrained_and_tokenizer_match_jax():
         ref = convert.flax_to_torch(convert.load_params(ckpt, name), cfg)
         assert state.keys() == ref.keys()
         assert all(torch.equal(state[k], ref[k]) for k in state)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pretrain.load_pretrained(ckpt, "decoder")
+    # The decoder and grounded families: the JAX package's configuration
+    # and the state dict ``convert`` gives.
+    for path, name, to_torch in (
+            (ckpt, "decoder", convert.decoder_flax_to_torch),
+            (os.path.join(REPO, "checkpoints", "grounded_r5"), "grounded",
+             convert.grounded_flax_to_torch)):
+        cfg, state = pretrain.load_pretrained(path, name)
+        j_cfg, _ = j_pretrain.load_pretrained(path, name)
+        assert type(cfg).__name__ == type(j_cfg).__name__
+        fields = ("vocab_size", "hidden_dim", "num_layers", "num_heads",
+                  "mlp_dim", "max_seq_len") + (
+            ("copy_dim", "prompt_len", "target_len")
+            if name == "grounded" else ())
+        assert [getattr(cfg, f) for f in fields] == \
+            [getattr(j_cfg, f) for f in fields]
+        assert cfg.dtype == torch.bfloat16
+        ref = to_torch(convert.load_params(path, name), cfg)
+        assert state.keys() == ref.keys()
+        assert all(torch.equal(state[k], ref[k]) for k in state)
     for d, v, n in ((ckpt, 32768, 128), (None, 32768, 128), (None, 512, 32)):
         tok, j_tok = (pretrain.load_tokenizer(d, v, n),
                       j_pretrain.load_tokenizer(d, v, n))
@@ -369,8 +386,11 @@ def test_corpus_dtype_reaches_the_dense_index(tmp_path, dtype):
 
 def test_upgrade_past_ivf_min_size_matches_jax(tmp_path):
     """Past ``ivf_min_size`` both packages' agents build an IVF overlay, and
-    so does the ingest that crosses it; on several devices the port raises
-    naming the ROADMAP item that ports the sharded indexes."""
+    so does the ingest that crosses it; at ``data_parallel`` 2 (the port's
+    mesh on 2 logical CPU devices, the JAX package's on 2 of its virtual
+    ones) both upgrade to the sharded kinds: sharded IVF past
+    ``ivf_min_size``, sharded dense rows past ``shard_min_size``, with the
+    same built sizes and ``dense_only`` answers."""
     out = {}
     for pkg in ("jax", "port"):
         a = _agent(pkg, tmp_path)
@@ -382,14 +402,23 @@ def test_upgrade_past_ivf_min_size_matches_jax(tmp_path):
                a.retriever.ann_size]
         a.ingestor.ingest_text("One more document past the limit.")
         got += [a.dense.size, a.retriever.ann_size]
+        a.settings.mesh.data_parallel = 2
+        a.settings.ivf.shard_min_size = 1
+        for ivf_min in (1, 10 ** 9):     # sharded IVF, then sharded rows
+            a.settings.ivf.ivf_min_size = ivf_min
+            got += [a.maybe_upgrade_index(), type(a.retriever.ann).__name__,
+                    a.retriever.ann_size, a.retriever.ann.ndev]
+            got.append([[(d.doc_id, round(d.score, 5)) for d in
+                         a.retriever.dense_only(q, 3)]
+                        for q in ("corpus grows", "one more document")])
         out[pkg] = got
         if pkg == "port":
-            assert a.retriever.ann.device.type == "cpu"
-            a.settings.mesh.data_parallel = 2
-            with pytest.raises(NotImplementedError, match="item 8"):
-                a.maybe_upgrade_index()
+            assert {d.type for d in a.retriever.ann.mesh.devices.flat} == \
+                {"cpu"}
     assert out["port"] == out["jax"]
     assert out["jax"][:2] == ["ivf", "IVFIndex"]
+    assert out["jax"][5:7] == ["sharded_ivf", "ShardedIVFIndex"]
+    assert out["jax"][10:12] == ["sharded_dense", "ShardedDenseIndex"]
 
 
 def test_agent_policy_upgrades_to_ivf_matches_jax(tmp_path):

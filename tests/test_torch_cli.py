@@ -7,8 +7,9 @@ Every case of ``tests/test_cli.py`` runs on both CLIs, the port's with
 two outputs are held line for line once timings and the data directory
 are masked. Then the subcommands that test file leaves out: ``env-example``
 (equal but for the line naming the package), ``hitl list / approve /
-reject``, ``train`` and ``--local-lm`` (which raise, naming ROADMAP Queue 1
-item 9), and ``python -m optimized_rag_tpu_torch`` in a subprocess that
+reject``, ``train`` (which raises, naming ROADMAP Queue 1 item 9's
+training half), ``--local-lm`` (the same provider from the same
+checkpoint), and ``python -m optimized_rag_tpu_torch`` in a subprocess that
 loads no JAX.
 """
 
@@ -206,15 +207,50 @@ def test_hitl_list_approve_reject_match_jax(tmp_path, monkeypatch, capsys):
     assert outs["port"][4][1].count("Q: question") == 1
 
 
-def test_train_and_local_lm_raise_naming_item_9(tmp_path, monkeypatch):
+def test_train_and_local_lm_raise_naming_item_9(tmp_path, monkeypatch,
+                                                capsys):
+    """``train`` still raises, naming the training half of item 9.
+    ``--local-lm`` (item 9's serving half) builds the JAX package's
+    provider from the same checkpoint: the grounded generator from
+    ORAG_LOCAL_LM_CKPT, else the decoder of the checkpoint directory the
+    agent finds, else a random-init decoder; ``chat --local-lm`` starts
+    with the JAX CLI's output."""
     monkeypatch.setenv("ORAG_DATA_DIR", str(tmp_path / "data"))
     with pytest.raises(NotImplementedError, match="item 9"):
         cli.main(["train", "--steps", "1"])
-    for sub in ("chat", "serve"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            cli.main([sub, "--local-lm"] + CPU)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli.build_agent(Settings(), local_lm=True, device="cpu")
+    empty = tmp_path / "no_checkpoint"
+    empty.mkdir()
+    for ckpt in (os.path.join(REPO, "checkpoints", "grounded_r5"), None,
+                 str(empty)):
+        if ckpt is None:
+            monkeypatch.delenv("ORAG_LOCAL_LM_CKPT", raising=False)
+        else:
+            monkeypatch.setenv("ORAG_LOCAL_LM_CKPT", ckpt)
+        got = cli._local_lm_provider(Settings.from_env(), device="cpu")
+        said = capsys.readouterr().out
+        want = jax_cli._local_lm_provider(Settings.from_env())
+        assert said == capsys.readouterr().out
+        assert type(got).__name__ == type(want).__name__
+        gen, j_gen = got.generator, want.generator
+        assert type(gen).__name__ == type(j_gen).__name__
+        assert (gen.max_prompt_len, gen.max_new_tokens, gen.cfg.num_layers,
+                gen.cfg.hidden_dim) == (j_gen.max_prompt_len,
+                                        j_gen.max_new_tokens,
+                                        j_gen.cfg.num_layers,
+                                        j_gen.cfg.hidden_dim)
+        assert gen.device.type == "cpu"
+    monkeypatch.setenv("ORAG_LOCAL_LM_CKPT",
+                       os.path.join(REPO, "checkpoints", "grounded_r5"))
+    outs = []
+    for mod, argv in ((jax_cli, ["chat", "--local-lm"]),
+                      (cli, ["chat", "--local-lm"] + CPU)):
+        monkeypatch.setattr("builtins.input", lambda *a: "exit")
+        assert mod.main(argv) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1]
+    assert outs[1].startswith("local LM: loaded grounded checkpoint")
+    agent = cli.build_agent(Settings.from_env(), local_lm=True, device="cpu")
+    assert type(agent.llm).__name__ == "GroundedProvider"
 
 
 def test_build_agent_on_the_cpu_loads_the_snapshot(tmp_path, monkeypatch,

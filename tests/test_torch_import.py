@@ -28,8 +28,14 @@ from optimized_rag_tpu_torch.index.lexical import LexicalIndex
 from optimized_rag_tpu_torch.index.policy import build_index_for
 from optimized_rag_tpu_torch.models.convert import (
     load_biencoder, load_crossencoder)
+from optimized_rag_tpu_torch.index.policy import mesh_or_none
+from optimized_rag_tpu_torch.models.decoder import DecoderConfig, Generator
 from optimized_rag_tpu_torch.models.encoder import (
     CrossEncoderService, EmbeddingService, TransformerConfig)
+from optimized_rag_tpu_torch.models.grounded import (
+    GroundedConfig, GroundedGenerator)
+from optimized_rag_tpu_torch.parallel.mesh import (
+    make_mesh, make_multihost_mesh)
 from optimized_rag_tpu_torch.store.db import MetadataStore
 from optimized_rag_tpu_torch.store.memory import MemoryManager
 from optimized_rag_tpu_torch.utils.health import check_device_health
@@ -53,7 +59,10 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
-    assert len(_submodules()) >= 77
+    assert len(_submodules()) >= 83
+    for m in ("parallel.mesh", "parallel.sharded_topk", "parallel.sharded_ivf",
+              "models.decoder", "models.grounded"):
+        assert f"optimized_rag_tpu_torch.{m}" in _submodules()
 
 
 def _imported_roots(path):
@@ -83,6 +92,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
                              out_dim=8)
     ckpt = os.path.join(REPO, "checkpoints", "pretrained")
     tiny_service = EmbeddingService(tiny, device="cpu")
+    tiny_lm = DecoderConfig(hidden_dim=16, num_layers=1, num_heads=2,
+                            mlp_dim=32, max_seq_len=64)
+    tiny_grounded = GroundedConfig(hidden_dim=16, num_layers=1, num_heads=2,
+                                   mlp_dim=32, max_seq_len=64, copy_dim=8)
+    dp2 = Settings()
+    dp2.mesh.data_parallel = 2
     for make in (lambda: DenseIndex(16, 256, tile=256),
                  lambda: EmbeddingService(tiny),
                  lambda: load_biencoder(ckpt),
@@ -103,7 +118,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
                  lambda: SelfRAGEvaluator(None, embed),
                  lambda: ClaimAlignmentScorer(embed),
                  lambda: RAGAgent(Settings(), embed_service=tiny_service,
-                                  cross_encoder=object())):
+                                  cross_encoder=object()),
+                 lambda: make_mesh(data=2),
+                 lambda: make_multihost_mesh(),
+                 lambda: mesh_or_none(dp2),
+                 lambda: Generator(tiny_lm, max_prompt_len=32,
+                                   max_new_tokens=8),
+                 lambda: GroundedGenerator(tiny_grounded, max_prompt_len=32,
+                                           max_new_tokens=8),
+                 lambda: cli._local_lm_provider(Settings())):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     report = check_device_health(timeout_s=60, matmul_dim=8)
@@ -118,6 +141,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert ConsistencyChecker(embed, device="cpu").device.type == "cpu"
     assert check_device_health(matmul_dim=8, device="cpu")["healthy"]
     assert LexicalIndex(device="cpu").device.type == "cpu"
+    assert mesh_or_none(dp2, "cpu").devices[0, 0].type == "cpu"
+    assert Generator(tiny_lm, max_prompt_len=32, max_new_tokens=8,
+                     device="cpu").device.type == "cpu"
     assert CrossEncoderService(tiny, device="cpu").device.type == "cpu"
 
 

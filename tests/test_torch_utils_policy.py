@@ -2,8 +2,10 @@
 
 ``select_index_kind`` is copied policy and must agree everywhere.
 ``build_index_for`` builds the port's ``DenseIndex`` on the device asked
-for (its ``IVFIndex``: ``tests/test_torch_ivf.py``); the kinds still to
-port (the sharded indexes) raise naming their ROADMAP item. The profiling, health and compile-cache helpers wrap
+for (its ``IVFIndex``: ``tests/test_torch_ivf.py``) and the sharded indexes
+of the JAX package's types over a mesh that ``mesh_or_none`` lays out as
+the JAX package does (8 logical CPU devices here, its 8 virtual ones
+there). The profiling, health and compile-cache helpers wrap
 torch where the reference wraps JAX; language detection, token budgets,
 retry, logging and the metrics exporter are copies and must give the
 JAX package's outputs.
@@ -18,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from optimized_rag_tpu.config import Settings as JaxSettings
 from optimized_rag_tpu.index import policy as jax_policy
 from optimized_rag_tpu.utils import lang as jax_lang
 from optimized_rag_tpu.utils import metrics_export as jax_metrics
@@ -55,9 +58,25 @@ def test_build_index_for_dense_on_the_device_asked():
 @pytest.mark.parametrize("kind,item", [
     ("sharded_dense", "item 8"), ("sharded_ivf", "item 8")])
 def test_build_index_for_kinds_not_ported_raise(kind, item):
-    with pytest.raises(NotImplementedError, match=item):
-        policy.build_index_for(kind, 64, Settings(), mesh=object(),
-                               device="cpu")
+    """The sharded kinds, no longer raising since ROADMAP Queue 1 ``item``
+    ported them, build the JAX package's index types and settings over a
+    mesh of the same shape; a missing mesh and an unknown kind raise."""
+    s, j_s = Settings(), JaxSettings()
+    for cfg in (s, j_s):
+        cfg.mesh.data_parallel = 4
+    idx = policy.build_index_for(kind, 64, s, tile=256,
+                                 mesh=policy.mesh_or_none(s, "cpu"))
+    ref = jax_policy.build_index_for(kind, 64, j_s, tile=256,
+                                     mesh=jax_policy.mesh_or_none(j_s))
+    assert type(idx).__name__ == type(ref).__name__, item
+    fields = (("dim", "ndev", "tile", "shard_capacity") if
+              kind == "sharded_dense" else
+              ("ndev", "num_clusters", "nprobe", "kmeans_iters", "tile"))
+    assert [getattr(idx, f) for f in fields] == \
+        [getattr(ref, f) for f in fields]
+    assert {d.type for d in idx.mesh.devices.flat} == {"cpu"}
+    with pytest.raises(ValueError, match="needs a mesh"):
+        policy.build_index_for(kind, 64, s, device="cpu")
     with pytest.raises(ValueError, match="unknown index kind"):
         policy.build_index_for("hnsw", 64, Settings(), device="cpu")
 
@@ -69,10 +88,24 @@ def test_mesh_or_none_single_device(dp):
     assert policy.mesh_or_none(s) is None
 
 
-def test_mesh_or_none_several_devices_raise():
-    s = Settings()
-    s.mesh.data_parallel = 4
-    with pytest.raises(NotImplementedError, match="item 8"):
+def test_mesh_or_none_several_devices_raise(monkeypatch):
+    """Several devices give the JAX package's mesh shape (logical CPU
+    devices when asked for the CPU, or the devices handed in); on CUDA
+    without a card, or with too few devices, mesh_or_none raises."""
+    s, j_s = Settings(), JaxSettings()
+    for dp, mp in ((4, 1), (2, 2), (8, 1)):
+        for cfg in (s, j_s):
+            cfg.mesh.data_parallel, cfg.mesh.model_parallel = dp, mp
+        mesh = policy.mesh_or_none(s, "cpu")
+        assert mesh.shape == dict(jax_policy.mesh_or_none(j_s).shape)
+        assert mesh.axis_names == ("data", "model")
+    s.mesh.data_parallel, s.mesh.model_parallel = 4, 1
+    handed = policy.mesh_or_none(s, devices=[torch.device("cpu")] * 4)
+    assert handed.shape == {"data": 4, "model": 1}
+    with pytest.raises(ValueError, match="devices"):
+        policy.mesh_or_none(s, devices=[torch.device("cpu")] * 3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         policy.mesh_or_none(s)
 
 

@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: the /search serving path,
 the retrieval half of a chat turn, the components a chat turn consumes, the
 agent's chat turns, the CLI and HTTP server, IVF, sharded retrieval over a
-device mesh, the local generators behind ``--local-lm``, and the reference
-benchmark's retrieval path.
+device mesh, the local generators behind ``--local-lm``, training, and the
+reference benchmark's retrieval path.
 
     python3 chip_smoke.py            # from any directory; needs one CUDA card
 
@@ -188,7 +188,38 @@ Phases, each printing one JSON line with its seconds:
                naming the grounded checkpoint, two questions on stdin) over
                the qa_docs, then two RAGAgent turns with the
                GroundedProvider replayed by a CPU agent;
-14. ``bench_shape`` the reference benchmark's retrieval path at its full
+14. ``slice_train`` training at the widths of the repo's checkpoints, from
+               Flax-style initialisation seeded on the card (bf16 compute
+               over float32 master weights, AdamW as optax computes it):
+               (a) ``train_biencoder`` at checkpoints/pretrained's
+               bi-encoder (6 layers, 384 wide, vocab 32,768, max_len 64,
+               batch 64) over the qa_docs chunks and ``default_corpus()``,
+               30 steps, its first 3 replayed on the CPU (losses within
+               1e-2 relative, weights within what two AdamW runs' steps
+               can add up to, about 6 lr, and their median within
+               lr / 10), a data=2 mesh of two logical
+               devices on the card from the same seed; (b)
+               ``train_cross_encoder`` at the settings' cross-encoder (4
+               layers, 384 wide; 60 steps) and (c) ``train_decoder`` at
+               checkpoints/pretrained's decoder (4 layers, 256 wide, 1,024
+               positions, batch 16; 10 steps), the first step of each
+               replayed on the CPU; (d) ``GroundedTrainer`` from checkpoints/grounded_r5
+               (prompt 1,792, target 384, batch 8, GroundedSampler rows over
+               the qa_docs chunks), 5 steps, step 0's nll and copy loss
+               replayed on the CPU (5e-2), each step's pre-clip gradient
+               norm printed; every trainer's first batch scores a lower
+               loss after training; (e) the trained bi-encoder written in
+               the JAX layout with float16 storage and read back by
+               ``load_biencoder`` on the card (cosine 0.9999 against the
+               trainer's own forward over 64 training texts), and a
+               ``TrainCheckpointer`` save, restore and one more step against
+               the uninterrupted step; (f) ``train --device cuda --steps 20
+               --batch 64`` in process over a data directory of the qa_docs,
+               its recall@10 lines, and K6 of its recall check counted on the
+               path ``train_recall`` and held against its twin; per trainer
+               ms a step, tokens/s, MFU (6 x matmul parameters x tokens over
+               989 TFLOP/s), peak memory and the device's idle share;
+15. ``bench_shape`` the reference benchmark's retrieval path at its full
                shape (bench.py:180-265, :540-575): 10,485,760 x 128 bf16
                rows (clustered, 300 near-duplicate runs), tile 4096, k=10,
                unit-normal queries in batches of 1024 and 512; the
@@ -211,7 +242,8 @@ QueryServer rounds, DenseIndex.search and the small indexes; each shape of
 bench_shape's routes; each shape of slice_hybrid's dense routes; each
 shape of slice_components' archival and restored indexes; each shape
 of slice_agent's turns; each shape of slice_serve's /search and
-/chat; and each shape slice_sharded's kernel searches gave a shard), its
+/chat; each shape slice_sharded's kernel searches gave a shard; and each
+shape the recall check of slice_train's ``train`` gave a kernel), its
 numbers measured at that shape and its
 ``launches`` counted on those paths alone (``launches_by_path`` gives each
 path), its ``bound_share`` (bound_ms / ms) and its ``library_factor``
@@ -4765,6 +4797,428 @@ def phase_slice_local_lm(dev, chunks, work, smi):
           "seconds": time.perf_counter() - t0})
 
 
+# ----------------------------------------------------------------- training
+
+TRAIN_CKPT = DECODER_CKPT          # checkpoints/pretrained: the widths
+BI_STEPS, BI_REPLAY = 30, 3
+# The cross-encoder from scratch at lr 3e-4 (the JAX package's recipe) sits
+# near ln 2, the loss of predicting one half, for its first tens of steps:
+# on the card its first batch's loss was above the first step's after 10
+# steps and below it after 60.
+CE_STEPS, DEC_STEPS, GROUNDED_STEPS = 60, 10, 5
+TRAIN_BATCH, DEC_BATCH, GROUNDED_BATCH = 64, 16, 8
+TRAIN_LR = 3e-4                    # pretrain.train_*'s default
+# GroundedTrainer fine-tunes a converged checkpoint (nll about 0.05 a byte):
+# Adam's first steps move every weight by about lr, and at train_grounded's
+# 3e-4 that raised the first batch's nll in a CPU rehearsal of this phase;
+# at 3e-5 it falls.
+GROUNDED_LR = 3e-5
+IDLE_STEPS = 3                     # steps traced for the idle share
+CLI_TRAIN_STEPS = 20
+N_TRAINED_EMBED = 64
+# Card against CPU, both in bfloat16: each loss within 1e-2 relative (the
+# tests' JAX-against-port bf16 tolerance); the grounded mixture's within
+# 5e-2 (its copy attention amplifies bf16 flips; see slice_local_lm).
+# Adam turns a gradient that is rounding noise into a step of about lr of
+# either sign, so a weight may differ by what two runs' steps can add up
+# to (adam_bound); the median difference within lr / 10.
+TRAIN_LOSS_RTOL, GROUNDED_LOSS_RTOL = 1e-2, 5e-2
+TRAINED_COSINE = 0.9999            # float16 storage against the trainer
+TRAIN_KERNEL_PATHS = ("train_recall",)
+
+
+def cpu_copy(params):
+    return {k: v.detach().to("cpu", copy=True) for k, v in params.items()}
+
+
+@contextlib.contextmanager
+def recorded_trainer(mod, name, log, keep_after=()):
+    """``mod.<name>`` (a trainer class) replaced by a subclass that keeps in
+    ``log`` the trainer, a CPU copy of its first weights, each step's
+    arguments, result and host ms (synchronised), and a CPU copy of its
+    weights after each step count in ``keep_after``."""
+    base = getattr(mod, name)
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            log.update(trainer=self, init=cpu_copy(self.params), steps=[],
+                       after={})
+
+        def train_step(self, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().train_step(*args)
+            torch.cuda.synchronize()
+            log["steps"].append({"args": args, "out": out, "ms": (
+                time.perf_counter() - t0) * 1e3})
+            if len(log["steps"]) in keep_after:
+                log["after"][len(log["steps"])] = cpu_copy(self.params)
+            return out
+    setattr(mod, name, Recorded)
+    try:
+        yield
+    finally:
+        setattr(mod, name, base)
+
+
+def step_stats(steps, model, tokens):
+    """ms a step (median after the first), tokens a second, and model
+    FLOPs utilisation: 6 x matmul parameters x tokens a step over 989
+    TFLOP/s (dense bf16)."""
+    ms = statistics.median(s["ms"] for s in steps[1:])
+    toks = statistics.median(tokens(s["args"]) for s in steps)
+    params = sum(m.weight.numel() for m in model.modules()
+                 if isinstance(m, torch.nn.Linear))
+    return {"steps": len(steps), "first_step_ms": steps[0]["ms"],
+            "ms_per_step": ms, "tokens_per_step": toks,
+            "tokens_per_s": toks / ms * 1e3, "matmul_params": params,
+            "mfu": 6 * params * toks / (ms / 1e3) / PEAK_BF16}
+
+
+def adam_bound(steps, max_weight, lr=TRAIN_LR, b1=0.9, b2=0.999,
+               wd=1e-4):
+    """The most two AdamW runs from the same weights can differ in one
+    weight after ``steps`` steps: each step moves it by lr times
+    |mu_hat| / sqrt(nu_hat) (at most sqrt(sum_i a_i^2 / c_i), Cauchy-Schwarz
+    over the moments' weights a_i and c_i, 1 at the first step) plus lr *
+    wd * |w|, in either direction in either run."""
+    total = 0.0
+    for t in range(1, steps + 1):
+        a = [(1 - b1) * b1 ** (t - i) / (1 - b1 ** t) for i in range(1, t + 1)]
+        c = [(1 - b2) * b2 ** (t - i) / (1 - b2 ** t) for i in range(1, t + 1)]
+        total += math.sqrt(sum(x * x / y for x, y in zip(a, c)))
+    return 2 * lr * (total + steps * wd * max_weight)
+
+
+def hold_replay(what, card, cpu, rtol, card_w=None, cpu_w=None, steps=1):
+    """The CPU's losses against the card's (relative ``rtol``) and, where
+    given, its weights after ``steps`` steps (within ``adam_bound``, the
+    median within lr / 10; the share beyond lr / 10 printed)."""
+    rel = [abs(a - b) / abs(a) for a, b in zip(card, cpu)]
+    if max(rel) > rtol:
+        raise AssertionError(f"slice_train {what}: losses on the card "
+                             f"{card}, on the CPU {cpu} (rtol {rtol})")
+    rep = {"card": card, "cpu": cpu, "loss_rel_diff": max(rel),
+           "loss_rtol": rtol}
+    if card_w is not None:
+        d = np.concatenate([(card_w[k] - cpu_w[k]).abs().numpy().ravel()
+                            for k in card_w])
+        bound = adam_bound(steps, max(float(w.abs().max())
+                                      for w in card_w.values()))
+        rep.update(weight_max_diff=float(d.max()),
+                   weight_median_diff=float(np.median(d)),
+                   weight_p999_diff=float(np.percentile(d, 99.9)),
+                   weight_share_beyond_tenth_lr=float(
+                       (d > TRAIN_LR / 10).mean()),
+                   weight_bound=bound, weight_median_bound=TRAIN_LR / 10)
+        if rep["weight_max_diff"] > bound or \
+                rep["weight_median_diff"] > TRAIN_LR / 10:
+            raise AssertionError(f"slice_train {what}: weights after {steps} "
+                                 f"steps differ: {rep}")
+    return rep
+
+
+def loss_falls(what, log):
+    """The loss of the run's first batch at the trained weights (a forward,
+    no step) below the loss its first step reported."""
+    trainer, first = log["trainer"], log["steps"][0]
+    after = trainer.batch_loss(*first["args"])
+    before, now = ((first["out"], after) if isinstance(after, float)
+                   else (first["out"][0], after[0]))    # grounded: the nll
+    if not now < before:
+        raise AssertionError(f"slice_train {what}: the first batch's loss "
+                             f"went from {before} to {now}")
+    return {"first_batch_before": before, "first_batch_after": now,
+            "step_losses": [s["out"] for s in log["steps"]]}
+
+
+def train_report(log, tokens, dev):
+    """Timings, idle share (IDLE_STEPS more steps of the last batches under
+    the profiler) and peak memory of a recorded run."""
+    steps = list(log["steps"])
+    trainer = log["trainer"]
+    rep = step_stats(steps, trainer.model, tokens)
+    rep["device"] = device_busy(lambda: [trainer.train_step(*s["args"]) for s
+                                         in steps[-IDLE_STEPS:]], cpu=False)
+    rep["peak_device_gbytes"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return rep
+
+
+def phase_slice_train(K_, T_, dev, chunks, work, smi):
+    """Training on the card at the widths of the repo's checkpoints, from
+    Flax-style initialisation seeded on the card, bf16 compute over float32
+    master weights. (a) ``train_biencoder`` (checkpoints/pretrained's
+    bi-encoder: 6 layers, 384 wide, vocab 32,768; max_len 64, batch 64) on
+    the qa_docs chunks plus ``default_corpus()``, BI_STEPS steps, the loss
+    falling; its first BI_REPLAY steps replayed on the CPU from the same
+    weights and batches; a data=2 mesh of two logical devices on this card
+    from the same seed. (b) ``train_cross_encoder`` at the settings'
+    cross-encoder (4 layers, 384 wide) as ``train`` builds it and (c)
+    ``train_decoder`` at checkpoints/pretrained's decoder (4 layers, 256
+    wide, 1,024 positions, batch 16), each with its first step replayed
+    on the CPU. (d) ``GroundedTrainer`` from checkpoints/grounded_r5
+    (prompt 1,792, target 384, batch 8, GroundedSampler rows over the
+    qa_docs chunks, lr GROUNDED_LR): step 0's nll and copy loss replayed
+    on the CPU, each step's gradient norm before the clip printed (the
+    clip scales the steps where it is 1 or more). Each trainer's loss
+    falls: its first batch's loss at the trained weights is below the
+    loss its first step reported. (e) The trained
+    bi-encoder written with float16 storage, read back by
+    ``load_biencoder`` on the card and held against the trainer's own
+    forward over 64 training texts; a ``TrainCheckpointer`` save, restore
+    into a fresh trainer and one more step against the uninterrupted step.
+    (f)
+    ``cli.main(["train", "--device", "cuda", ...])`` in process over a data
+    directory of the qa_docs: its recall@10 lines, and the top-k kernels
+    its DenseIndex searches launch, counted on the path ``train_recall``
+    (the only part of ``train`` that searches) and held against their
+    twins. Per trainer: ms a step, tokens a second, MFU, peak memory and
+    the device's idle share. Returns the kernel records."""
+    import io
+    from optimized_rag_tpu_torch import cli
+    from optimized_rag_tpu_torch.config import Settings
+    from optimized_rag_tpu_torch.models import grounded as pg
+    from optimized_rag_tpu_torch.models import pretrain, training
+    from optimized_rag_tpu_torch.models.convert import (
+        load_biencoder, load_config)
+    from optimized_rag_tpu_torch.models.encoder import TransformerConfig
+    from optimized_rag_tpu_torch.models.grounded_data import GroundedSampler
+    from optimized_rag_tpu_torch.models.tokenizer import HashTokenizer
+    from optimized_rag_tpu_torch.parallel.mesh import make_mesh
+    from optimized_rag_tpu_torch.store.checkpoint import TrainCheckpointer
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    mesh, cpu_mesh = (make_mesh(data=1, devices=[d]) for d in (dev, cpu))
+    texts = pretrain.default_corpus(chunks)
+    rep = {"corpus_chunks": len(texts), "bf16_reduced_precision_reduction":
+           torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+           "tf32": torch.backends.cuda.matmul.allow_tf32}
+
+    # (a) The bi-encoder, its CPU replay and a data=2 mesh.
+    cfg = load_config(TRAIN_CKPT, "biencoder")
+    log = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with recorded_trainer(training, "BiEncoderTrainer", log,
+                          keep_after=(BI_REPLAY,)):
+        pretrain.train_biencoder(texts, cfg, mesh, steps=BI_STEPS,
+                                 batch=TRAIN_BATCH, seed=SEED)
+    losses = [s["out"] for s in log["steps"]]
+    bi_tokens = lambda a: a[0].size + a[2].size  # noqa: E731
+    bi = train_report(log, bi_tokens, dev)
+    bi["loss"] = loss_falls("biencoder", log)
+    t1 = time.perf_counter()
+    replay = training.BiEncoderTrainer(cfg, cpu_mesh, learning_rate=TRAIN_LR,
+                                       seed=SEED)
+    replay.params = log["init"]
+    bi["cpu_replay"] = hold_replay(
+        "biencoder", losses[:BI_REPLAY],
+        [replay.train_step(*s["args"]) for s in log["steps"][:BI_REPLAY]],
+        TRAIN_LOSS_RTOL, log["after"][BI_REPLAY], replay.params, BI_REPLAY)
+    bi["cpu_replay"]["seconds"] = time.perf_counter() - t1
+    del replay
+    log2 = {}
+    with recorded_trainer(training, "BiEncoderTrainer", log2):
+        pretrain.train_biencoder(texts, cfg, make_mesh(data=2,
+                                                       devices=[dev, dev]),
+                                 steps=BI_REPLAY, batch=TRAIN_BATCH,
+                                 seed=SEED)
+    if any(not torch.equal(log["init"][k], log2["init"][k])
+           for k in log["init"]):
+        raise AssertionError("slice_train: the seed's Flax init differs "
+                             "between two runs on the card")
+    bi["data2"] = hold_replay("biencoder data=2", losses[:BI_REPLAY],
+                              [s["out"] for s in log2["steps"]],
+                              TRAIN_LOSS_RTOL)
+    del log2
+    rep["biencoder"] = bi
+
+    # (e) float16 storage read back by the agent's loader, then a
+    # checkpointed step against the uninterrupted one.
+    trainer = log["trainer"]
+    out_dir = os.path.join(work, "train_out")
+    pretrain.save_pretrained(out_dir, "biencoder", trainer.params, cfg,
+                             store_dtype=np.float16)
+    svc = load_biencoder(out_dir, device=dev)
+    sample = texts[:N_TRAINED_EMBED]
+    got = svc.encode(sample)
+    ids, mask = HashTokenizer(cfg.vocab_size, svc.max_len).encode_batch(
+        sample, svc.max_len)
+    with torch.no_grad():
+        own = trainer.model(torch.from_numpy(ids).long().to(dev),
+                            torch.from_numpy(mask).to(dev)).float().cpu()
+    cos = (torch.from_numpy(got) * own).sum(dim=1)
+    if float(cos.min()) < TRAINED_COSINE:
+        raise AssertionError(f"slice_train (e): float16 checkpoint against "
+                             f"the trainer, cosine {float(cos.min())}")
+    rep["float16_checkpoint"] = {"texts": len(sample),
+                                 "min_cosine": float(cos.min()),
+                                 "max_abs_diff": float(
+                                     (torch.from_numpy(got) - own).abs().max()),
+                                 "tolerance": TRAINED_COSINE}
+    del svc
+    ck = TrainCheckpointer(os.path.join(work, "train_ckpt"))
+    done = len(log["steps"])
+    t1 = time.perf_counter()
+    ck.save(done, {"params": trainer.params, "opt_state": trainer.opt_state,
+                   "step": done})
+    save_s = time.perf_counter() - t1
+    batch = log["steps"][0]["args"]
+    whole = trainer.train_step(*batch)
+    want = cpu_copy(trainer.params)
+    del trainer, log
+    resumed = training.BiEncoderTrainer(cfg, mesh, learning_rate=TRAIN_LR,
+                                        seed=SEED + 1)
+    state = ck.restore()
+    resumed.params, resumed.opt_state = state["params"], state["opt_state"]
+    again = resumed.train_step(*batch)
+    diff = max(float((want[k] - v.cpu()).abs().max())
+               for k, v in resumed.params.items())
+    rep["checkpoint_resume"] = {
+        "step": state["step"], "save_seconds": save_s,
+        "loss_uninterrupted": whole, "loss_resumed": again,
+        "bitwise": again == whole and diff == 0.0,
+        "weight_max_diff": diff}
+    if abs(again - whole) > 1e-6 * abs(whole) or diff > 2 * TRAIN_LR:
+        raise AssertionError(f"slice_train (e): resumed step differs: "
+                             f"{rep['checkpoint_resume']}")
+    del resumed, state, want
+    torch.cuda.empty_cache()
+
+    # (b) The cross-encoder as ``train`` configures it, (c) the decoder.
+    settings = Settings()
+    ce = settings.cross_encoder
+    ccfg = TransformerConfig(
+        vocab_size=settings.encoder.vocab_size, hidden_dim=ce.hidden_dim,
+        num_layers=ce.num_layers, num_heads=ce.num_heads,
+        mlp_dim=ce.mlp_dim, max_seq_len=128)
+    dcfg = pretrain.load_pretrained(TRAIN_CKPT, "decoder")[0]
+    for what, cls, run in (
+            ("crossencoder", "CrossEncoderTrainer",
+             lambda: pretrain.train_cross_encoder(
+                 texts, ccfg, mesh, steps=CE_STEPS, batch=TRAIN_BATCH,
+                 seed=SEED)),
+            ("decoder", "DecoderTrainer",
+             lambda: pretrain.train_decoder(
+                 texts, dcfg, mesh, steps=DEC_STEPS, batch=DEC_BATCH,
+                 seed=SEED))):
+        log = {}
+        torch.cuda.reset_peak_memory_stats(dev)
+        with recorded_trainer(training, cls, log, keep_after=(1,)):
+            run()
+        losses = [s["out"] for s in log["steps"]]
+        r = train_report(log, lambda a: a[0].size, dev)
+        r["loss"] = loss_falls(what, log)
+        t1 = time.perf_counter()
+        replay = getattr(training, cls)(
+            ccfg if what == "crossencoder" else dcfg, cpu_mesh,
+            learning_rate=TRAIN_LR, seed=SEED)
+        replay.params = log["init"]
+        r["cpu_replay"] = hold_replay(
+            what, losses[:1], [replay.train_step(*log["steps"][0]["args"])],
+            TRAIN_LOSS_RTOL, log["after"][1], replay.params, 1)
+        r["cpu_replay"]["seconds"] = time.perf_counter() - t1
+        rep[what] = r
+        del replay, log
+        torch.cuda.empty_cache()
+
+    # (d) GroundedTrainer from the grounded_r5 weights.
+    gcfg, gstate = pretrain.load_pretrained(LM_CKPT, "grounded",
+                                            param_dtype=torch.float32)
+    p_len, t_len = gcfg.prompt_len, gcfg.target_len
+    sampler = GroundedSampler(chunks, prompt_len=p_len, target_len=t_len)
+    rng = np.random.default_rng(SEED)
+    log = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with recorded_trainer(pg, "GroundedTrainer", log):
+        gt = pg.GroundedTrainer(gcfg, mesh, prompt_len=p_len,
+                                target_len=t_len, learning_rate=GROUNDED_LR,
+                                seed=SEED)
+    gt.params = gstate
+    norms = []
+    for _ in range(GROUNDED_STEPS):
+        gt.train_step(*sampler.batch(rng, GROUNDED_BATCH))
+        norms.append(float(gt.last_grad_norm))
+    g = {"prompt_len": p_len, "target_len": t_len, "batch": GROUNDED_BATCH,
+         "pre_clip_grad_norms": norms, "clipped_steps": sum(
+             n >= 1.0 for n in norms),
+         **train_report(log, lambda a: a[0].size, dev)}
+    g["loss"] = loss_falls("grounded", log)
+    if not all(map(math.isfinite, norms)):
+        raise AssertionError(f"slice_train (d): pre-clip norms {norms}")
+    del gt
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    replay = pg.GroundedTrainer(gcfg, cpu_mesh, prompt_len=p_len,
+                                target_len=t_len, learning_rate=GROUNDED_LR,
+                                seed=SEED)
+    replay.params = gstate
+    g["cpu_replay"] = hold_replay(
+        "grounded step 0", list(log["steps"][0]["out"]),
+        list(replay.batch_loss(*log["steps"][0]["args"])),
+        GROUNDED_LOSS_RTOL)
+    g["cpu_replay"]["seconds"] = time.perf_counter() - t1
+    rep["grounded"] = g
+    del replay, log, gstate
+
+    # (f) ``train`` from the CLI, its recall check's kernels counted.
+    data = os.path.join(work, "train_data")
+    agent = serving_agent(data, dev)
+    agent.ingestor.upload_directory(os.path.join(HERE, "optimized_rag_tpu",
+                                                 "eval", "qa_docs"))
+    agent.save_indexes()
+    del agent
+    torch.cuda.empty_cache()
+    out = os.path.join(work, "train_cli")
+    saved = os.environ.get("ORAG_DATA_DIR")
+    os.environ["ORAG_DATA_DIR"] = data
+    calls, paths, buf = [], {}, io.StringIO()
+    t1 = time.perf_counter()
+    try:
+        with recording(T_, K_, calls), contextlib.redirect_stdout(buf):
+            K_.reset_launch_counts()
+            rc = cli.main(["train", "--device", dev.type, "--steps",
+                           str(CLI_TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+                           "--out", out])
+            paths["train_recall"] = K_.launch_counts()
+    finally:
+        if saved is None:
+            os.environ.pop("ORAG_DATA_DIR", None)
+        else:
+            os.environ["ORAG_DATA_DIR"] = saved
+    said = buf.getvalue()
+    recall = re.search(r"synthetic recall@10: trained=([\d.]+) "
+                       r"random-init=([\d.]+)", said)
+    corpus = re.search(r"training corpus: (\d+) chunks \((\d+) ingested",
+                       said)
+    if rc != 0 or not recall or not corpus or int(corpus.group(2)) == 0 \
+            or f"checkpoints -> {out}" not in said:
+        raise AssertionError(f"slice_train (f): rc {rc}, {said[-1500:]!r}")
+    seen = {m: sum(c == m for c, _ in calls) for m in K_.KERNELS}
+    if seen != paths["train_recall"]:
+        raise AssertionError(f"slice_train: recorded {seen}, counted "
+                             f"{paths['train_recall']}")
+    if not sum(seen.values()):
+        raise AssertionError("slice_train (f): train's recall check launched "
+                             "no kernel")
+    rep["cli_train"] = {"seconds": time.perf_counter() - t1, "rc": rc,
+                        "steps": CLI_TRAIN_STEPS,
+                        "corpus_chunks": int(corpus.group(1)),
+                        "ingested_chunks": int(corpus.group(2)),
+                        "recall_at_10_trained": float(recall.group(1)),
+                        "recall_at_10_random_init": float(recall.group(2)),
+                        "losses": [ln for ln in said.splitlines()
+                                   if ln.startswith("losses:")]}
+    held = hold_recorded(K_, T_, {p: calls for p in TRAIN_KERNEL_PATHS}, 5,
+                         "slice_train")
+    emit({"phase": "slice_train", "card": smi, **rep,
+          "launches_by_path": paths, "seconds": time.perf_counter() - t0})
+    for rec in held:
+        emit({"phase": "slice_train", "card": smi, "kernel": rec["name"],
+              **{key: v for key, v in rec.items() if key != "name"}})
+    return held
+
+
 SOURCES = {"packed_extract": ("optimized_rag_tpu_torch/csrc/packed_extract.cu",
                               "optimized_rag_tpu/ops/topk.py:511"),
            "extract": ("optimized_rag_tpu_torch/csrc/extract.cu",
@@ -4877,6 +5331,8 @@ def main() -> None:
         peak = max(peak, torch.cuda.max_memory_allocated())
         phase_slice_local_lm(dev, chunks, work, smi)
         peak = max(peak, torch.cuda.max_memory_allocated())
+        held_t = phase_slice_train(K_, T_, dev, chunks, work, smi)
+        peak = max(peak, torch.cuda.max_memory_allocated())
     finally:
         shutil.rmtree(work, ignore_errors=True)
     bench16, held16, bench8, held8 = phase_bench_shape(K_, T_, dev)
@@ -4896,7 +5352,8 @@ def main() -> None:
     # indexes gave K6, K1 and K4, then each shape slice_agent's chat turns
     # gave a kernel, then each shape slice_serve's /search and /chat gave
     # K6, then each shape slice_sharded's kernel searches gave K6 on a
-    # shard. The direct calls of the checks are not counted.
+    # shard, then each shape the recall check of slice_train's ``train``
+    # gave a kernel. The direct calls of the checks are not counted.
     kernels = []
     for dtype, paths, user, recs in (
             ("f32", paths32, USER_PATHS_F32, recs32),
@@ -4932,6 +5389,11 @@ def main() -> None:
         kernels.append(kernel_entry(
             rec["name"],
             f"{rec['dtype']} slice_sharded shard N={rec['N']} {rec['shape']}",
+            rec["launches_by_path"], rec))
+    for rec in held_t:
+        kernels.append(kernel_entry(
+            rec["name"],
+            f"{rec['dtype']} slice_train N={rec['N']} {rec['shape']}",
             rec["launches_by_path"], rec))
     idle = [k["name"] for k in kernels if not k["launches"]]
     missing = set(K_.KERNELS) - {k["name"].split("[")[0] for k in kernels}

@@ -1,20 +1,23 @@
-"""CLI: chat REPL + ingest + info commands, and the HTTP server.
+"""CLI: chat REPL + ingest + info + train commands, and the HTTP server.
 
 Held against ``optimized_rag_tpu/cli.py``: the same subcommands, flags and
-output. Every subcommand that builds an agent (``chat``, ``ingest``,
-``serve``) and ``info`` also take ``--device`` ("cuda" by default, or
+output. Every subcommand that computes (``chat``, ``ingest``, ``serve``,
+``info`` and ``train``) also takes ``--device`` ("cuda" by default, or
 "cpu"); without a card they raise unless given ``--device cpu``.
 
   python -m optimized_rag_tpu_torch chat
   python -m optimized_rag_tpu_torch ingest <path> [path ...]
   python -m optimized_rag_tpu_torch info
   python -m optimized_rag_tpu_torch serve --port 8080
+  python -m optimized_rag_tpu_torch train --steps 300 --batch 64
 
 The hidden ``--local-lm`` flag of ``chat`` and ``serve`` generates with
 the repo's own checkpoints on the device (``ORAG_LOCAL_LM_CKPT``, else the
-checkpoint directory the agent finds). ``train`` needs the training loops,
-which are not ported yet: it raises ``NotImplementedError`` naming the
-training half of ``ROADMAP.md`` Queue 1 item 9.
+checkpoint directory the agent finds). ``train`` pretrains the encoders
+(and the decoder LM unless ``--no-decoder``) on the ingested chunks plus
+the synthetic corpus, writes them to ``--out`` (default
+``<data_dir>/models``, where the agent finds them) in the JAX package's
+checkpoint layout, and reports recall@10 trained against random-init.
 """
 
 from __future__ import annotations
@@ -156,11 +159,75 @@ def cmd_ingest(args) -> int:
 
 
 def cmd_train(args) -> int:
-    """Pretrain the encoders and the decoder LM (the JAX package's
-    ``train``)."""
-    raise NotImplementedError(
-        "train: training is not ported yet (the training half of "
-        "ROADMAP.md Queue 1 item 9)")
+    """Pretrain bi-encoder + cross-encoder + decoder LM on the ingested
+    corpus (plus the synthetic topic corpus) on ``--device`` and report
+    trained-vs-random recall@10 on the synthetic eval."""
+    from optimized_rag_tpu_torch.device import resolve_device
+    from optimized_rag_tpu_torch.models.decoder import DecoderConfig
+    from optimized_rag_tpu_torch.models.encoder import (
+        EmbeddingService, TransformerConfig)
+    from optimized_rag_tpu_torch.models import pretrain
+    from optimized_rag_tpu_torch.store.db import MetadataStore
+
+    device = resolve_device(args.device)
+    settings = Settings.from_env()
+    out_dir = args.out or os.path.join(settings.data_dir, "models")
+    # Real chunks from the ingested store, when any exist.
+    store = MetadataStore(os.path.join(settings.data_dir, "metadata.db"))
+    rows = store.execute("SELECT content FROM chunks LIMIT 5000")
+    extra = [r[0] for r in rows]
+    texts = pretrain.default_corpus(extra)
+    print(f"training corpus: {len(texts)} chunks "
+          f"({len(extra)} ingested + synthetic)")
+    e = settings.encoder
+    enc_cfg = TransformerConfig(
+        vocab_size=e.vocab_size, hidden_dim=e.hidden_dim,
+        num_layers=e.num_layers, num_heads=e.num_heads, mlp_dim=e.mlp_dim,
+        max_seq_len=128, out_dim=e.dim)
+    c = settings.cross_encoder
+    cross_cfg = TransformerConfig(
+        vocab_size=e.vocab_size, hidden_dim=c.hidden_dim,
+        num_layers=c.num_layers, num_heads=c.num_heads, mlp_dim=c.mlp_dim,
+        max_seq_len=128)
+    dec_cfg = DecoderConfig(hidden_dim=256, num_layers=4, num_heads=4,
+                            mlp_dim=1024, max_seq_len=1024) \
+        if not args.no_decoder else None
+    losses = pretrain.pretrain_all(
+        out_dir, texts, encoder_cfg=enc_cfg, cross_cfg=cross_cfg,
+        decoder_cfg=dec_cfg, steps=args.steps, batch=args.batch,
+        device=device)
+    print("losses:", losses)
+
+    # Trained-vs-random recall@10 on the synthetic eval.
+    from optimized_rag_tpu_torch.eval.synthetic import (
+        evaluate_retriever, make_dataset)
+    from optimized_rag_tpu_torch.index.dense import DenseIndex
+    ds = make_dataset(num_docs=400, num_topics=20, num_queries=40,
+                      seed=99)
+
+    def recall_with(service):
+        idx = DenseIndex(dim=service.dim, capacity_block=1024, tile=256,
+                         device=device)
+        idx.add(service.encode(ds.texts))
+
+        def retrieve(q, k):
+            return idx.search(service.encode([q]), k).ids[0].tolist()
+        return evaluate_retriever(retrieve, ds, k=10)["recall@10"]
+
+    cfg_params = pretrain.load_pretrained(out_dir, "biencoder")
+    trained = EmbeddingService(
+        cfg_params[0], params=cfg_params[1], max_len=64,
+        tokenizer=pretrain.load_tokenizer(out_dir,
+                                          cfg_params[0].vocab_size, 64),
+        device=device)
+    random_init = EmbeddingService(enc_cfg, max_len=64, seed=7,
+                                   device=device)
+    r_trained = recall_with(trained)
+    r_random = recall_with(random_init)
+    print(f"synthetic recall@10: trained={r_trained:.3f} "
+          f"random-init={r_random:.3f}")
+    print(f"checkpoints -> {out_dir}")
+    return 0
 
 
 def cmd_env_example(args) -> int:
@@ -280,6 +347,7 @@ def main(argv=None) -> int:
     pt.add_argument("--out", default=None,
                     help="checkpoint dir (default <data_dir>/models)")
     pt.add_argument("--no-decoder", action="store_true")
+    _device_flag(pt)
     pt.set_defaults(fn=cmd_train)
     pi = sub.add_parser("ingest", help="ingest files or directories")
     pi.add_argument("paths", nargs="+")

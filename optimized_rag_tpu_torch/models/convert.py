@@ -9,7 +9,9 @@ checkpoint is ``<name>.config.json`` plus ``<name>.params.npz``, whose keys
 are the Flax tree paths joined by ``/`` (``params/trunk/block_0/attn/query/
 kernel``; a grounded checkpoint's under ``backbone/params/`` and
 ``heads/params/``), stored as float16 or float32. Weights are converted in
-memory; nothing is written.
+memory. The readers' inverses (``torch_to_flax``, ``decoder_torch_to_flax``,
+``grounded_torch_to_flax``) give a trained model's state dict back in that
+layout, which ``models/loader.save_params`` writes.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from optimized_rag_tpu_torch.device import resolve_device
+from optimized_rag_tpu_torch.models.loader import _flatten
 from optimized_rag_tpu_torch.models.encoder import (
     CrossEncoderService, EmbeddingService, TransformerConfig)
 from optimized_rag_tpu_torch.models.tokenizer import HashTokenizer
@@ -80,19 +83,20 @@ def _decoder_dtype(cfg, prefix: str = ""):
         (f"{prefix}ln_f", f"{prefix}head")) else cfg.dtype)
 
 
-def decoder_flax_to_torch(flat_params: dict[str, np.ndarray], cfg
-                          ) -> dict[str, torch.Tensor]:
+def decoder_flax_to_torch(flat_params: dict[str, np.ndarray], cfg,
+                          param_dtype=None) -> dict[str, torch.Tensor]:
     """DecoderLM state dict (``models/decoder.py``) from the flattened Flax
     params of a decoder checkpoint. Dense kernels [in, out] become Linear
     weights [out, in]; ``qkv``'s columns keep the reference's q | k | v,
-    head-major order. Tensors come back on the CPU in the module's dtypes.
+    head-major order. Tensors come back on the CPU in the module's dtypes,
+    or all in ``param_dtype`` (float32 for the training form).
     """
     return _tensors(_decoder_arrays(_tree(flat_params), cfg.num_layers),
-                    _decoder_dtype(cfg))
+                    _param_dtype(_decoder_dtype(cfg), param_dtype))
 
 
-def grounded_flax_to_torch(flat_params: dict[str, np.ndarray], cfg
-                           ) -> dict[str, torch.Tensor]:
+def grounded_flax_to_torch(flat_params: dict[str, np.ndarray], cfg,
+                           param_dtype=None) -> dict[str, torch.Tensor]:
     """GroundedGenerator state dict (``backbone.*``, ``heads.*``) from the
     flattened params of a grounded checkpoint (``backbone/params/...``,
     ``heads/params/...``); the heads stay float32."""
@@ -103,12 +107,102 @@ def grounded_flax_to_torch(flat_params: dict[str, np.ndarray], cfg
         arrays.update(_dense(f"heads.{name}", heads[name]["kernel"],
                              heads[name]["bias"]))
     dtype = _decoder_dtype(cfg, "backbone.")
-    return _tensors(arrays, lambda key: (
-        torch.float32 if key.startswith("heads.") else dtype(key)))
+    return _tensors(arrays, _param_dtype(lambda key: (
+        torch.float32 if key.startswith("heads.") else dtype(key)),
+        param_dtype))
+
+
+def _param_dtype(dtype_of, param_dtype):
+    """``dtype_of``, or every key in ``param_dtype`` when one is given."""
+    return dtype_of if param_dtype is None else (lambda key: param_dtype)
+
+
+def _numpy(state: dict) -> dict[str, np.ndarray]:
+    return {k: v.detach().to("cpu", torch.float32).numpy()
+            for k, v in state.items()}
+
+
+def _kernel(state: dict, prefix: str, shape=None) -> dict:
+    """Flax Dense params of the Linear ``prefix``: kernel [in, out]
+    (reshaped to ``shape``), bias [out]."""
+    kernel = state[f"{prefix}.weight"].T
+    return {"kernel": kernel if shape is None else kernel.reshape(shape),
+            "bias": state[f"{prefix}.bias"]}
+
+
+def _norm_params(state: dict, prefix: str) -> dict:
+    return {"scale": state[f"{prefix}.scale"],
+            "bias": state[f"{prefix}.bias"]}
+
+
+def _decoder_tree(state: dict, num_layers: int, prefix: str = "") -> dict:
+    tree = {"tok": {"embedding": state[f"{prefix}tok.weight"]},
+            "pos": {"embedding": state[f"{prefix}pos.weight"]},
+            "ln_f": _norm_params(state, f"{prefix}ln_f"),
+            "head": _kernel(state, f"{prefix}head")}
+    for i in range(num_layers):
+        pre = f"{prefix}blocks.{i}"
+        tree[f"block_{i}"] = {
+            "ln1": _norm_params(state, f"{pre}.ln1"),
+            "ln2": _norm_params(state, f"{pre}.ln2"),
+            **{name: _kernel(state, f"{pre}.{name}")
+               for name in ("qkv", "attn_out", "mlp_in", "mlp_out")}}
+    return tree
+
+
+def decoder_torch_to_flax(state: dict, cfg) -> dict[str, np.ndarray]:
+    """The inverse of ``decoder_flax_to_torch``: a DecoderLM state dict as
+    the flattened float32 Flax params of a decoder checkpoint."""
+    return _flatten({"params": _decoder_tree(_numpy(state), cfg.num_layers)})
+
+
+def grounded_torch_to_flax(state: dict, cfg) -> dict[str, np.ndarray]:
+    """The inverse of ``grounded_flax_to_torch``: ``backbone/params/...``
+    and ``heads/params/...``, float32."""
+    arrays = _numpy(state)
+    heads = {name: _kernel(arrays, f"heads.{name}")
+             for name in ("copy_q", "copy_k", "p_gen")}
+    return _flatten({"backbone": {"params": _decoder_tree(
+        arrays, cfg.num_layers, "backbone.")}, "heads": {"params": heads}})
+
+
+def torch_to_flax(state: dict, cfg: TransformerConfig
+                  ) -> dict[str, np.ndarray]:
+    """The inverse of ``flax_to_torch``: a BiEncoder or CrossEncoder state
+    dict as the flattened float32 Flax params (``params/trunk/...`` and the
+    heads it holds), attention kernels back in [H, heads, head_dim] and
+    [heads, head_dim, H], their biases in [heads, head_dim] and [H]."""
+    a = _numpy(state)
+    h, heads = cfg.hidden_dim, cfg.num_heads
+    hd = h // heads
+    trunk = {"emb": {"tok": {"embedding": a["trunk.emb.tok.weight"]},
+                     "pos": {"embedding": a["trunk.emb.pos.weight"]},
+                     "typ": {"embedding": a["trunk.emb.typ.weight"]},
+                     "ln": _norm_params(a, "trunk.emb.ln")},
+             "ln_f": _norm_params(a, "trunk.ln_f")}
+    for i in range(cfg.num_layers):
+        pre = f"trunk.blocks.{i}"
+        attn = {}
+        for name in ("query", "key", "value"):
+            d = _kernel(a, f"{pre}.attn.{name}", (h, heads, hd))
+            attn[name] = {"kernel": d["kernel"],
+                          "bias": d["bias"].reshape(heads, hd)}
+        attn["out"] = _kernel(a, f"{pre}.attn.out", (heads, hd, h))
+        trunk[f"block_{i}"] = {
+            "attn": attn, "ln1": _norm_params(a, f"{pre}.ln1"),
+            "ln2": _norm_params(a, f"{pre}.ln2"),
+            "mlp_in": _kernel(a, f"{pre}.mlp_in"),
+            "mlp_out": _kernel(a, f"{pre}.mlp_out")}
+    tree = {"trunk": trunk}
+    for head in ("proj", "pool", "score"):
+        if f"{head}.weight" in a:
+            tree[head] = _kernel(a, head)
+    return _flatten({"params": tree})
 
 
 def flax_to_torch(flat_params: dict[str, np.ndarray],
-                  cfg: TransformerConfig) -> dict[str, torch.Tensor]:
+                  cfg: TransformerConfig, param_dtype=None
+                  ) -> dict[str, torch.Tensor]:
     """BiEncoder or CrossEncoder state dict from the flattened Flax params
     of the npz: the trunk, and the heads the params hold (``proj`` for the
     BiEncoder; ``pool`` and ``score`` for the CrossEncoder).
@@ -116,7 +210,8 @@ def flax_to_torch(flat_params: dict[str, np.ndarray],
     Attention kernels are [H, heads, head_dim] for query/key/value and
     [heads, head_dim, H] for out; flattening (heads, head_dim) row-major
     gives the head-major feature order the torch module splits by.
-    Tensors come back on the CPU in the module's dtypes.
+    Tensors come back on the CPU in the module's dtypes, or all in
+    ``param_dtype`` (float32 for the training form).
     """
     tree = _tree(flat_params)
     h = cfg.hidden_dim
@@ -149,21 +244,26 @@ def flax_to_torch(flat_params: dict[str, np.ndarray],
                           blk["mlp_in"]["bias"]))
         out.update(_dense(f"{pre}.mlp_out", blk["mlp_out"]["kernel"],
                           blk["mlp_out"]["bias"]))
-    state = {}
-    for key, val in out.items():
-        t = torch.from_numpy(np.ascontiguousarray(val))
-        # The trunk computes in cfg.dtype; norms and heads stay float32.
-        if key.startswith("trunk.") and ".ln" not in key:
-            t = t.to(cfg.dtype)
-        state[key] = t
-    return state
+    # The trunk computes in cfg.dtype; norms and heads stay float32.
+    return _tensors(out, _param_dtype(lambda key: (
+        cfg.dtype if key.startswith("trunk.") and ".ln" not in key
+        else torch.float32), param_dtype))
+
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
 
 
 def config_dtype(blob: dict) -> torch.dtype:
     """The compute dtype a checkpoint's config names (bfloat16 unless it
     says float32 or float16)."""
-    return {"float32": torch.float32, "float16": torch.float16}.get(
-        str(blob.get("dtype", "bfloat16")), torch.bfloat16)
+    return _DTYPES.get(str(blob.get("dtype", "bfloat16")), torch.bfloat16)
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The name a checkpoint's config gives ``dtype`` (``config_dtype``'s
+    inverse)."""
+    return next((k for k, v in _DTYPES.items() if v == dtype), "bfloat16")
 
 
 def load_config(ckpt_dir: str, name: str = "biencoder") -> TransformerConfig:

@@ -1,0 +1,264 @@
+"""Label-free training corpora harvested from the local machine.
+
+Held against ``optimized_rag_tpu/models/corpus.py`` (:1-267), of which it
+is a copy but for one thing: a package's files are found with
+``importlib.util.find_spec``, not ``__import__``, so nothing is imported
+(the JAX package's list names jax, flax, optax and orbax, which the port
+never imports). Over the same installed packages both harvest the same
+chunks; a package whose import raises is harvested here and skipped there,
+and a machine without some of the packages (the card's has no JAX) gives
+fewer chunks.
+
+With zero network egress, the richest local source of English prose is
+the documentation embedded in installed Python packages: module, class
+and function docstrings, function source, and markdown. Harvesting parses
+source files with ``ast``.
+"""
+
+from __future__ import annotations
+
+import ast
+import hashlib
+import importlib.util
+import os
+import re
+from typing import Iterable, List, Optional
+
+_WS = re.compile(r"[ \t]+")
+_DEFAULT_PACKAGES = (
+    "numpy", "jax", "jaxlib", "flax", "optax", "chex", "orbax",
+    "torch", "transformers", "pandas", "scipy",
+    # Stdlib modules carry dense, well-edited prose docstrings — a
+    # different register from ML-library prose (VERDICT r2 #5:
+    # "stdlib docs" as a harvest source).
+    "asyncio", "email", "logging", "unittest", "http", "xml",
+    "multiprocessing", "concurrent", "ctypes", "collections", "urllib",
+    "sqlite3", "json", "importlib", "statistics", "decimal",
+)
+
+
+def _package_roots(packages: Iterable[str]) -> List[str]:
+    """The directory of each package's ``__init__`` (or of a module's
+    file), found by ``importlib.util.find_spec`` without importing it;
+    packages not installed, and namespace packages, are skipped as the
+    JAX package's ``__import__`` skips them."""
+    roots = []
+    for pkg in packages:
+        try:
+            spec = importlib.util.find_spec(pkg)
+        except (ImportError, ValueError):
+            continue
+        origin = getattr(spec, "origin", None)
+        if spec is not None and spec.has_location and origin:
+            roots.append(os.path.dirname(origin))
+    return roots
+
+
+def _clean(doc: str) -> str:
+    """Normalize whitespace; drop doctest/signature noise lines."""
+    lines = []
+    for ln in doc.splitlines():
+        ln = _WS.sub(" ", ln.strip())
+        if ln.startswith((">>>", "...", "---", "===")):
+            continue
+        lines.append(ln)
+    return "\n".join(lines).strip()
+
+
+def _iter_docstrings(path: str) -> Iterable[str]:
+    try:
+        with open(path, encoding="utf-8", errors="ignore") as f:
+            tree = ast.parse(f.read())
+    except (SyntaxError, ValueError, OSError):
+        return
+    nodes = [tree] + [n for n in ast.walk(tree)
+                      if isinstance(n, (ast.FunctionDef,
+                                        ast.AsyncFunctionDef, ast.ClassDef))]
+    for node in nodes:
+        doc = ast.get_docstring(node)
+        if doc:
+            yield doc
+
+
+def harvest_docstrings(packages: Optional[Iterable[str]] = None,
+                       min_chars: int = 200, max_chars: int = 1200,
+                       max_files_per_pkg: int = 1600,
+                       max_chunks: int = 30000,
+                       seed: int = 0) -> List[str]:
+    """Collect docstring paragraphs from installed packages as text chunks.
+
+    Docstrings longer than ``max_chars`` are split on blank lines and
+    re-packed greedily; fragments under ``min_chars`` are dropped (they
+    are mostly one-line summaries with little syntax to learn from).
+    Deterministic for a fixed environment + seed.
+    """
+    import numpy as np
+    roots = _package_roots(packages or _DEFAULT_PACKAGES)
+    chunks: List[str] = []
+    seen = set()
+    for root in roots:
+        files = []
+        for dirpath, dirnames, filenames in os.walk(root):
+            dirnames[:] = [d for d in sorted(dirnames)
+                           if d not in ("tests", "test", "__pycache__")]
+            files.extend(os.path.join(dirpath, f)
+                         for f in sorted(filenames) if f.endswith(".py"))
+        for path in files[:max_files_per_pkg]:
+            for doc in _iter_docstrings(path):
+                doc = _clean(doc)
+                if len(doc) < min_chars:
+                    continue
+                # Greedy re-pack of paragraphs into <= max_chars chunks.
+                cur: List[str] = []
+                cur_len = 0
+                for para in doc.split("\n\n"):
+                    if cur_len + len(para) > max_chars and cur:
+                        chunks.append("\n\n".join(cur))
+                        cur, cur_len = [], 0
+                    cur.append(para)
+                    cur_len += len(para) + 2
+                if cur and cur_len >= min_chars:
+                    chunks.append("\n\n".join(cur))
+            if len(chunks) >= 4 * max_chunks:
+                break
+    # Dedup (identical docstrings repeat across re-exports) and subsample
+    # deterministically to max_chunks.
+    unique = []
+    for c in chunks:
+        # Stable digest, not hash(): the per-process salted str hash can
+        # collide (silently dropping a distinct chunk) and makes cross-run
+        # determinism depend on salt behavior (ADVICE r2).
+        key = hashlib.sha1(c.encode("utf-8")).digest()
+        if key not in seen:
+            seen.add(key)
+            unique.append(c)
+    if len(unique) > max_chunks:
+        rng = np.random.default_rng(seed)
+        idx = rng.choice(len(unique), max_chunks, replace=False)
+        unique = [unique[i] for i in sorted(idx)]
+    return unique
+
+
+def _dedup_cap(chunks: List[str], max_chunks: int, seed: int) -> List[str]:
+    import numpy as np
+    seen = set()
+    unique = []
+    for c in chunks:
+        key = hashlib.sha1(c.encode("utf-8")).digest()
+        if key not in seen:
+            seen.add(key)
+            unique.append(c)
+    if len(unique) > max_chunks:
+        rng = np.random.default_rng(seed)
+        idx = rng.choice(len(unique), max_chunks, replace=False)
+        unique = [unique[i] for i in sorted(idx)]
+    return unique
+
+
+def harvest_source_functions(packages: Optional[Iterable[str]] = None,
+                             min_chars: int = 200, max_chars: int = 1200,
+                             max_files_per_pkg: int = 2400,
+                             max_chunks: int = 60000,
+                             seed: int = 1) -> List[str]:
+    """Function/class SOURCE segments (signature + body) as text chunks.
+
+    Code is structured text the encoder must handle anyway (a RAG corpus
+    over a software project is half code), and the installed packages
+    hold two orders of magnitude more source lines than docstring prose —
+    the round-2 docstring-only harvest (~14.5k chunks) was the measured
+    quality ceiling (VERDICT r2 weak #5 / ROADMAP 9c)."""
+    roots = _package_roots(packages or _DEFAULT_PACKAGES)
+    chunks: List[str] = []
+    for root in roots:
+        files = []
+        for dirpath, dirnames, filenames in os.walk(root):
+            dirnames[:] = [d for d in sorted(dirnames)
+                           if d not in ("tests", "test", "__pycache__")]
+            files.extend(os.path.join(dirpath, f)
+                         for f in sorted(filenames) if f.endswith(".py"))
+        for path in files[:max_files_per_pkg]:
+            try:
+                with open(path, encoding="utf-8", errors="ignore") as f:
+                    src = f.read()
+                tree = ast.parse(src)
+            except (SyntaxError, ValueError, OSError):
+                continue
+            lines = src.splitlines()
+            for node in ast.walk(tree):
+                if not isinstance(node, (ast.FunctionDef,
+                                         ast.AsyncFunctionDef)):
+                    continue
+                seg = "\n".join(
+                    lines[node.lineno - 1:
+                          getattr(node, "end_lineno", node.lineno)])
+                if len(seg) < min_chars:
+                    continue
+                chunks.append(seg[:max_chars])
+            if len(chunks) >= 4 * max_chunks:
+                break
+        if len(chunks) >= 4 * max_chunks:
+            break
+    return _dedup_cap(chunks, max_chunks, seed)
+
+
+def harvest_markdown(dirs: Optional[Iterable[str]] = None,
+                     min_chars: int = 200, max_chars: int = 1200,
+                     max_chunks: int = 8000, seed: int = 2) -> List[str]:
+    """Markdown/rst prose from installed packages (READMEs, docs) and any
+    extra directories (e.g. the repo itself)."""
+    roots = list(dirs or []) + _package_roots(_DEFAULT_PACKAGES)
+    chunks: List[str] = []
+    for root in roots:
+        for dirpath, dirnames, filenames in os.walk(root):
+            dirnames[:] = [d for d in sorted(dirnames)
+                           if d not in ("__pycache__", ".git")]
+            for fn in sorted(filenames):
+                if not fn.endswith((".md", ".rst", ".txt")):
+                    continue
+                try:
+                    with open(os.path.join(dirpath, fn), encoding="utf-8",
+                              errors="ignore") as f:
+                        text = f.read()
+                except OSError:
+                    continue
+                cur: List[str] = []
+                cur_len = 0
+                for para in text.split("\n\n"):
+                    para = para.strip()
+                    if not para:
+                        continue
+                    if cur_len + len(para) > max_chars and cur:
+                        blob = "\n\n".join(cur)
+                        if len(blob) >= min_chars:
+                            chunks.append(blob)
+                        cur, cur_len = [], 0
+                    cur.append(para)
+                    cur_len += len(para) + 2
+                if cur:
+                    blob = "\n\n".join(cur)
+                    if min_chars <= len(blob):
+                        chunks.append(blob[:max_chars])
+            if len(chunks) >= 4 * max_chunks:
+                break
+        if len(chunks) >= 4 * max_chunks:
+            break
+    return _dedup_cap(chunks, max_chunks, seed)
+
+
+def harvest_all(max_chunks: int = 100000, seed: int = 0,
+                extra_dirs: Optional[Iterable[str]] = None) -> List[str]:
+    """Combined corpus: docstring prose + function source + markdown.
+
+    Round-2's 14.5k docstring chunks saturated encoder pretraining; this
+    yields ~5-8x more text with three register styles (prose, code,
+    docs), interleaved deterministically."""
+    import numpy as np
+    doc = harvest_docstrings(max_chunks=max_chunks // 2, seed=seed)
+    src = harvest_source_functions(max_chunks=max_chunks // 2, seed=seed + 1)
+    md = harvest_markdown(dirs=extra_dirs, max_chunks=max_chunks // 8,
+                          seed=seed + 2)
+    allc = doc + src + md
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(allc))
+    out = [allc[i] for i in order]
+    return out[:max_chunks]

@@ -19,6 +19,11 @@ numerics follow the Flax modules:
   the reference's GELU in 40% of bfloat16 outputs and moved the
   checkpoint's logits by up to 0.9).
 
+``DecoderLM`` takes ``param_dtype`` as the encoders do
+(``models/encoder.py``): the serving form stores its weights in
+``cfg.dtype``, the training form (``torch.float32``) keeps float32 master
+weights cast to the compute dtype at each use.
+
 Generation runs one prefill over LEFT-padded prompts (pad keys masked,
 per-row positional ids), then a KV-cached decode loop in which every row
 writes the cache at one scalar position; finished rows emit PAD. The
@@ -47,7 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from optimized_rag_tpu_torch.device import resolve_device
-from optimized_rag_tpu_torch.models.encoder import _LayerNorm
+from optimized_rag_tpu_torch.models.encoder import _LayerNorm, embed
 
 PAD = 0
 BOS = 1
@@ -95,10 +100,11 @@ class DecoderConfig:
 
 class Dense(nn.Linear):
     """Flax ``nn.Dense``: the product rounded to the dtype, then the bias
-    (two roundings in bfloat16, where ``addmm`` would round once)."""
+    (two roundings in bfloat16, where ``addmm`` would round once); the
+    weight and bias cast to the input's dtype at use."""
 
     def forward(self, x):
-        return F.linear(x, self.weight) + self.bias
+        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -110,9 +116,9 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 class _CausalBlock(nn.Module):
-    def __init__(self, cfg: DecoderConfig):
+    def __init__(self, cfg: DecoderConfig, param_dtype=None):
         super().__init__()
-        h, dt = cfg.hidden_dim, cfg.dtype
+        h, dt = cfg.hidden_dim, param_dtype or cfg.dtype
         self.cfg = cfg
         self.scale = float(np.float32(1.0 / np.sqrt(cfg.head_dim)))
         self.ln1 = _LayerNorm(h)
@@ -160,14 +166,13 @@ class _CausalBlock(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    def __init__(self, cfg: DecoderConfig):
+    def __init__(self, cfg: DecoderConfig, param_dtype=None):
         super().__init__()
         self.cfg = cfg
-        self.tok = nn.Embedding(cfg.vocab_size, cfg.hidden_dim,
-                                dtype=cfg.dtype)
-        self.pos = nn.Embedding(cfg.max_seq_len, cfg.hidden_dim,
-                                dtype=cfg.dtype)
-        self.blocks = nn.ModuleList(_CausalBlock(cfg)
+        pdt = param_dtype or cfg.dtype
+        self.tok = nn.Embedding(cfg.vocab_size, cfg.hidden_dim, dtype=pdt)
+        self.pos = nn.Embedding(cfg.max_seq_len, cfg.hidden_dim, dtype=pdt)
+        self.blocks = nn.ModuleList(_CausalBlock(cfg, param_dtype)
                                     for _ in range(cfg.num_layers))
         self.ln_f = _LayerNorm(cfg.hidden_dim)
         self.head = Dense(cfg.hidden_dim, cfg.vocab_size)   # float32
@@ -189,7 +194,8 @@ class DecoderLM(nn.Module):
             pos_ids = (torch.arange(ids.shape[1], device=ids.device)[None]
                        if pos is None else
                        torch.full((1, ids.shape[1]), pos, device=ids.device))
-        x = self.tok(ids) + self.pos(pos_ids)
+        dt = self.cfg.dtype
+        x = embed(self.tok, ids, dt) + embed(self.pos, pos_ids, dt)
         new_caches = []
         for i, block in enumerate(self.blocks):
             x, cache = block(x, None if caches is None else caches[i], pos,

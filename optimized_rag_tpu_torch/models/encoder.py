@@ -17,6 +17,15 @@ The numerics follow the Flax modules:
 * the cross-encoder takes the trunk's [CLS] row (float32), then ``pool``,
   tanh and ``score``, all in float32; its service applies the sigmoid in
   float32.
+
+Each model takes ``param_dtype``. The serving form (``None``) stores the
+trunk's weights in ``cfg.dtype``. The training form (``torch.float32``)
+keeps float32 master weights, as Flax does (``param_dtype`` left at
+float32), and casts each to the compute dtype at its use: the embedding
+tables to ``cfg.dtype`` before the gather, a Dense kernel and bias to its
+input's dtype. Both forms run the same code and compute the same function;
+the cast is a no-op in the serving form. ``flax_init_`` draws a fresh
+model's weights from Flax's distributions.
 """
 
 from __future__ import annotations
@@ -67,32 +76,47 @@ class _LayerNorm(nn.Module):
             + self.bias
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` whose weight and bias are cast to the input's dtype at
+    use (Flax's Dense promotes its float32 kernel to the compute dtype)."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+def embed(table: nn.Embedding, ids, dtype: torch.dtype) -> torch.Tensor:
+    """Flax ``nn.Embed(dtype=...)``: the table cast to ``dtype``, then the
+    gather (so its gradient accumulates in ``dtype`` too)."""
+    return F.embedding(ids, table.weight.to(dtype))
+
+
 class _Embeddings(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, param_dtype=None):
         super().__init__()
-        self.tok = nn.Embedding(cfg.vocab_size, cfg.hidden_dim,
-                                dtype=cfg.dtype)
-        self.pos = nn.Embedding(cfg.max_seq_len, cfg.hidden_dim,
-                                dtype=cfg.dtype)
-        self.typ = nn.Embedding(cfg.num_types, cfg.hidden_dim,
-                                dtype=cfg.dtype)
+        pdt = param_dtype or cfg.dtype
+        self.dtype = cfg.dtype
+        self.tok = nn.Embedding(cfg.vocab_size, cfg.hidden_dim, dtype=pdt)
+        self.pos = nn.Embedding(cfg.max_seq_len, cfg.hidden_dim, dtype=pdt)
+        self.typ = nn.Embedding(cfg.num_types, cfg.hidden_dim, dtype=pdt)
         self.ln = _LayerNorm(cfg.hidden_dim)
 
     def forward(self, ids, type_ids):
         pos_ids = torch.arange(ids.shape[-1], device=ids.device)[None, :]
-        x = self.tok(ids) + self.pos(pos_ids) + self.typ(type_ids)
-        return self.ln(x).to(self.tok.weight.dtype)
+        dt = self.dtype
+        x = (embed(self.tok, ids, dt) + embed(self.pos, pos_ids, dt)
+             + embed(self.typ, type_ids, dt))
+        return self.ln(x).to(dt)
 
 
 class _Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, param_dtype=None):
         super().__init__()
-        h, dt = cfg.hidden_dim, cfg.dtype
+        h, dt = cfg.hidden_dim, param_dtype or cfg.dtype
         self.heads = cfg.num_heads
-        self.query = nn.Linear(h, h, dtype=dt)
-        self.key = nn.Linear(h, h, dtype=dt)
-        self.value = nn.Linear(h, h, dtype=dt)
-        self.out = nn.Linear(h, h, dtype=dt)
+        self.query = Linear(h, h, dtype=dt)
+        self.key = Linear(h, h, dtype=dt)
+        self.value = Linear(h, h, dtype=dt)
+        self.out = Linear(h, h, dtype=dt)
 
     def forward(self, x, mask):
         b, length, h = x.shape
@@ -112,13 +136,14 @@ class _Attention(nn.Module):
 
 
 class _Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, param_dtype=None):
         super().__init__()
+        dt = param_dtype or cfg.dtype
         self.ln1 = _LayerNorm(cfg.hidden_dim)
-        self.attn = _Attention(cfg)
+        self.attn = _Attention(cfg, param_dtype)
         self.ln2 = _LayerNorm(cfg.hidden_dim)
-        self.mlp_in = nn.Linear(cfg.hidden_dim, cfg.mlp_dim, dtype=cfg.dtype)
-        self.mlp_out = nn.Linear(cfg.mlp_dim, cfg.hidden_dim, dtype=cfg.dtype)
+        self.mlp_in = Linear(cfg.hidden_dim, cfg.mlp_dim, dtype=dt)
+        self.mlp_out = Linear(cfg.mlp_dim, cfg.hidden_dim, dtype=dt)
 
     def forward(self, x, mask):
         dt = x.dtype
@@ -128,10 +153,11 @@ class _Block(nn.Module):
 
 
 class _Trunk(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, param_dtype=None):
         super().__init__()
-        self.emb = _Embeddings(cfg)
-        self.blocks = nn.ModuleList(_Block(cfg) for _ in range(cfg.num_layers))
+        self.emb = _Embeddings(cfg, param_dtype)
+        self.blocks = nn.ModuleList(_Block(cfg, param_dtype)
+                                    for _ in range(cfg.num_layers))
         self.ln_f = _LayerNorm(cfg.hidden_dim)
 
     def forward(self, ids, mask, type_ids=None):
@@ -146,11 +172,11 @@ class _Trunk(nn.Module):
 class BiEncoder(nn.Module):
     """Masked-mean-pooled sentence encoder producing unit vectors."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, param_dtype=None):
         super().__init__()
         self.cfg = cfg
-        self.trunk = _Trunk(cfg)
-        self.proj = nn.Linear(cfg.hidden_dim, cfg.out_dim)   # float32
+        self.trunk = _Trunk(cfg, param_dtype)
+        self.proj = Linear(cfg.hidden_dim, cfg.out_dim)      # float32
 
     def forward(self, ids, mask):
         x = self.trunk(ids, mask)
@@ -164,16 +190,53 @@ class BiEncoder(nn.Module):
 class CrossEncoder(nn.Module):
     """(query, doc) pair scorer: [CLS] representation -> scalar logit."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, param_dtype=None):
         super().__init__()
         self.cfg = cfg
-        self.trunk = _Trunk(cfg)
-        self.pool = nn.Linear(cfg.hidden_dim, cfg.hidden_dim)   # float32
-        self.score = nn.Linear(cfg.hidden_dim, 1)               # float32
+        self.trunk = _Trunk(cfg, param_dtype)
+        self.pool = Linear(cfg.hidden_dim, cfg.hidden_dim)      # float32
+        self.score = Linear(cfg.hidden_dim, 1)                  # float32
 
     def forward(self, ids, mask, type_ids):
         cls = self.trunk(ids, mask, type_ids)[:, 0]             # [B, H] f32
         return self.score(torch.tanh(self.pool(cls)))[:, 0]
+
+
+@torch.no_grad()
+def flax_init_(module: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Draw every weight of ``module`` from Flax's initialisers, in module
+    order, from ``gen`` (a generator on the weights' device): a Linear's
+    weight from ``lecun_normal`` (a normal truncated to two deviations,
+    scaled to variance 1/fan_in), its bias zero; an Embedding from
+    ``variance_scaling(1.0, "fan_in", "normal", out_axis=0)`` (std
+    1/sqrt(features)); a LayerNorm's scale one and bias zero. Flax's
+    attention kernels ([H, heads, head_dim] and [heads, head_dim, H]) have
+    fan_in H, as the Linear weights they flatten to."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            std = math.sqrt(1.0 / m.in_features) / .87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, 1.0, -2.0, 2.0,
+                                  generator=gen)
+            m.weight.mul_(std)
+            m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 1.0 / math.sqrt(m.embedding_dim),
+                             generator=gen)
+        elif isinstance(m, _LayerNorm):
+            m.scale.fill_(1.0)
+            m.bias.zero_()
+    return module
+
+
+def training_module(make, device, gen_seed: int) -> nn.Module:
+    """``make()`` (a model in its float32 training form) built without
+    torch's default initialisation, on ``device``, then Flax-initialised
+    from a ``torch.Generator`` on that device seeded with ``gen_seed``."""
+    with torch.device("meta"):
+        module = make()
+    module = module.to_empty(device=device)
+    gen = torch.Generator(device=device).manual_seed(gen_seed)
+    return flax_init_(module, gen)
 
 
 def _pad_rows(arrays, rows: int):

@@ -14,7 +14,7 @@ copy keys and its one-hot [B, P, V] are computed once, at prefill. Serving
 renders the agent's generation prompt into the model's compact native
 format (``render_candidates``) and decodes greedily (``models/decoder``'s
 prefill and KV-cached loop). ``GroundedTrainer`` (the reference's
-:395-520) belongs to the training half and is not here.
+:395-520) trains it on rows of ``models/grounded_data.GroundedSampler``.
 """
 
 from __future__ import annotations
@@ -31,8 +31,9 @@ from torch import nn
 
 from optimized_rag_tpu_torch.device import resolve_device
 from optimized_rag_tpu_torch.models.decoder import (
-    MASKED, DecoderConfig, DecoderLM, Dense, cache_buffers, decode_loop,
-    gumbel_pick, left_pad, prefill_masks, texts_of)
+    MASKED, PAD, DecoderConfig, DecoderLM, Dense, cache_buffers,
+    decode_loop, gumbel_pick, left_pad, prefill_masks, texts_of)
+from optimized_rag_tpu_torch.models.training import Trainer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,9 +226,11 @@ def render_candidates(cands, question: str, max_bytes: int = 1700) -> str:
 # ---------------------------------------------------------------------------
 
 class _Grounded(nn.Module):
-    def __init__(self, cfg: GroundedConfig):
+    """The backbone and the pointer heads (float32 in either form)."""
+
+    def __init__(self, cfg: GroundedConfig, param_dtype=None):
         super().__init__()
-        self.backbone = DecoderLM(cfg)
+        self.backbone = DecoderLM(cfg, param_dtype)
         self.heads = CopyHeads(cfg.hidden_dim, cfg.copy_dim)
 
 
@@ -310,6 +313,84 @@ class GroundedGenerator:
 
     def generate(self, prompt: str, **kw) -> str:
         return self.generate_batch([prompt], **kw)[0]
+
+
+# ---------------------------------------------------------------------------
+# Trainer (teacher-forced mixture NLL + copy-alignment auxiliary)
+# ---------------------------------------------------------------------------
+
+class GroundedTrainer(Trainer):
+    """Trains the pointer-generator on synthesized grounded-QA rows on the
+    mesh's data devices (``models/training.Trainer``).
+
+    Row layout (fixed split, static shapes): positions [0, P) hold the
+    LEFT-padded prompt (BOS + rendered context+question+"answer:");
+    positions [P, P+T) hold the target answer bytes + EOS, PAD-padded on
+    the right. ``copy_tgt`` [B, T] marks the known source position in
+    [0, P) each target byte was copied from (-1 = unsupervised), giving the
+    copy attention a direct cross-entropy signal. The loss is the mixture
+    NLL plus ``copy_loss_weight`` times that auxiliary, the first
+    ``early_len`` target positions weighted by ``early_weight`` in both
+    (the sentence-selection decision lives there); the gradients are
+    clipped to a global norm of 1 before AdamW, as optax chains them.
+    ``train_step`` returns (nll, copy loss); ``last_grad_norm`` holds the
+    norm before clipping.
+    """
+
+    def __init__(self, cfg: GroundedConfig, mesh, prompt_len: int = 2560,
+                 target_len: int = 320, learning_rate=3e-4, seed: int = 0,
+                 copy_loss_weight: float = 0.3,
+                 early_weight: float = 8.0, early_len: int = 6):
+        if prompt_len + target_len > cfg.max_seq_len:
+            raise ValueError(f"{prompt_len} + {target_len} > max_seq_len "
+                             f"{cfg.max_seq_len}")
+        self.cfg = cfg
+        self.P, self.T = prompt_len, target_len
+        self._copy_w = copy_loss_weight
+        self._early_w, self._early_len = early_weight, early_len
+        super().__init__(lambda: _Grounded(cfg, torch.float32), mesh,
+                         learning_rate, seed, clip_norm=1.0)
+
+    def _rows(self, model, ids, pad_len, copy_tgt):
+        """Per-row log-probs of each target byte under the mixture, and of
+        its known copy source under the copy attention: [b, T] each."""
+        P, T = self.P, self.T
+        ids = ids.long()
+        col = torch.arange(ids.shape[1], device=ids.device)[None]
+        key_valid = col >= pad_len[:, None]
+        pos_ids = torch.clamp_min(col - pad_len[:, None], 0)
+        logits, _, h = model.backbone(ids, key_valid=key_valid,
+                                      pos_ids=pos_ids)
+        qc, kc, pg = model.heads(h)
+        labels = ids[:, P:]                                   # [B, T]
+        att = copy_attention(qc[:, P - 1:P + T - 1], kc[:, :P],
+                             key_valid[:, :P])                # [B, T, P]
+        onehot = F.one_hot(ids[:, :P], self.cfg.vocab_size).float()
+        logp = mixed_log_probs(logits[:, P - 1:P + T - 1], att, onehot,
+                               pg[:, P - 1:P + T - 1])        # [B, T, V]
+        tgt_lp = torch.gather(logp, -1, labels[..., None])[..., 0]
+        safe = torch.clamp_min(copy_tgt.long(), 0)
+        att_lp = torch.log(torch.gather(att, -1, safe[..., None])[..., 0]
+                           + 1e-9)
+        return tgt_lp, att_lp
+
+    def _loss(self, rows, ids, copy_tgt):
+        tgt_lp, att_lp = rows
+        labels = ids[:, self.P:]
+        mask = (labels != PAD).float()
+        tpos = torch.arange(self.T, device=ids.device)[None]
+        pw = torch.where(tpos < self._early_len, self._early_w, 1.0)
+        wm = mask * pw
+        nll = -(tgt_lp * wm).sum() / torch.clamp_min(wm.sum(), 1.0)
+        cwm = ((copy_tgt >= 0) & (labels != PAD)).float() * pw
+        closs = -(att_lp * cwm).sum() / torch.clamp_min(cwm.sum(), 1.0)
+        return nll + self._copy_w * closs, (nll.detach(), closs.detach())
+
+    def _batch(self, ids, pad_len, copy_tgt):
+        return (ids, pad_len, copy_tgt), (ids, copy_tgt)
+
+    def _result(self, loss, aux):
+        return float(aux[0]), float(aux[1])       # (nll, copy loss)
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,8 @@ Every case of ``tests/test_cli.py`` runs on both CLIs, the port's with
 two outputs are held line for line once timings and the data directory
 are masked. Then the subcommands that test file leaves out: ``env-example``
 (equal but for the line naming the package), ``hitl list / approve /
-reject``, ``train`` (which raises, naming ROADMAP Queue 1 item 9's
-training half), ``--local-lm`` (the same provider from the same
+reject``, ``train`` on the CPU (the JAX CLI's lines, checkpoints the
+agent finds), ``--local-lm`` (the same provider from the same
 checkpoint), and ``python -m optimized_rag_tpu_torch`` in a subprocess that
 loads no JAX.
 """
@@ -207,17 +207,62 @@ def test_hitl_list_approve_reject_match_jax(tmp_path, monkeypatch, capsys):
     assert outs["port"][4][1].count("Q: question") == 1
 
 
+SMALL_WIDTHS = {"ORAG_ENCODER_HIDDEN_DIM": "32", "ORAG_ENCODER_DIM": "32",
+                "ORAG_ENCODER_NUM_LAYERS": "1", "ORAG_ENCODER_NUM_HEADS": "4",
+                "ORAG_ENCODER_MLP_DIM": "64", "ORAG_ENCODER_VOCAB_SIZE": "2048",
+                "ORAG_CROSS_ENCODER_HIDDEN_DIM": "32",
+                "ORAG_CROSS_ENCODER_NUM_LAYERS": "1",
+                "ORAG_CROSS_ENCODER_NUM_HEADS": "4",
+                "ORAG_CROSS_ENCODER_MLP_DIM": "64"}
+
+
 def test_train_and_local_lm_raise_naming_item_9(tmp_path, monkeypatch,
                                                 capsys):
-    """``train`` still raises, naming the training half of item 9.
-    ``--local-lm`` (item 9's serving half) builds the JAX package's
-    provider from the same checkpoint: the grounded generator from
-    ORAG_LOCAL_LM_CKPT, else the decoder of the checkpoint directory the
-    agent finds, else a random-init decoder; ``chat --local-lm`` starts
+    """``train`` (item 9's training half, which used to raise) runs on the
+    CPU: ``train --device cpu --steps 2 --batch 8 --no-decoder`` at widths
+    set through the environment prints the JAX CLI's lines (the corpus,
+    the losses' keys, the recall@10 line, the checkpoint directory) and
+    writes <data_dir>/models, which the JAX package's ``load_pretrained``
+    reads and the port's agent then finds; without a card it needs
+    ``--device cpu``. ``--local-lm`` (item 9's serving half) builds the JAX
+    package's provider from the same checkpoint: the grounded generator
+    from ORAG_LOCAL_LM_CKPT, else the decoder of the checkpoint directory
+    the agent finds, else a random-init decoder; ``chat --local-lm`` starts
     with the JAX CLI's output."""
+    from optimized_rag_tpu.models import pretrain as j_pretrain
+    for key, val in SMALL_WIDTHS.items():
+        monkeypatch.setenv(key, val)
+    if not torch.cuda.is_available():
+        monkeypatch.setenv("ORAG_DATA_DIR", str(tmp_path / "nowhere"))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["train", "--steps", "1"])
+    outs = {}
+    for pkg, mod, extra in (("jax", jax_cli, []), ("port", cli, CPU)):
+        data = str(tmp_path / pkg)
+        monkeypatch.setenv("ORAG_DATA_DIR", data)
+        argv = ["train", "--steps", "2", "--batch", "8", "--no-decoder"]
+        assert mod.main(argv + extra) == 0
+        outs[pkg] = capsys.readouterr().out.replace(data, "<data>")
+    masked = {pkg: re.sub(r"\d+\.\d+", "<x>", text).splitlines()
+              for pkg, text in outs.items()}
+    assert [ln for ln in masked["port"] if "step" not in ln] == \
+        [ln for ln in masked["jax"] if "step" not in ln]
+    assert "synthetic recall@10: trained=" in outs["port"]
+    assert "checkpoints -> <data>/models" in outs["port"]
+    models = tmp_path / "port" / "models"
+    for name in ("biencoder", "crossencoder"):
+        cfg, _ = j_pretrain.load_pretrained(str(models), name)
+        assert cfg.hidden_dim == 32 and cfg.num_layers == 1
+    assert not (models / "decoder.params.npz").exists()
+    settings = Settings.from_env()
+    settings.data_dir = str(tmp_path / "port")
+    settings.flags.enable_metrics_export = False
+    agent = RAGAgent(settings, llm=DeterministicLLM(), device="cpu")
+    assert agent.embedder.cfg.hidden_dim == 32        # the trained ones
+    assert agent.cross_encoder.cfg.hidden_dim == 32
+    for key in SMALL_WIDTHS:
+        monkeypatch.delenv(key)
     monkeypatch.setenv("ORAG_DATA_DIR", str(tmp_path / "data"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli.main(["train", "--steps", "1"])
     empty = tmp_path / "no_checkpoint"
     empty.mkdir()
     for ckpt in (os.path.join(REPO, "checkpoints", "grounded_r5"), None,

@@ -34,6 +34,7 @@ from optimized_rag_tpu_torch.models.encoder import (
     CrossEncoderService, EmbeddingService, TransformerConfig)
 from optimized_rag_tpu_torch.models.grounded import (
     GroundedConfig, GroundedGenerator)
+from optimized_rag_tpu_torch.models import pretrain
 from optimized_rag_tpu_torch.parallel.mesh import (
     make_mesh, make_multihost_mesh)
 from optimized_rag_tpu_torch.store.db import MetadataStore
@@ -42,7 +43,7 @@ from optimized_rag_tpu_torch.utils.health import check_device_health
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(optimized_rag_tpu_torch.__file__)
-FORBIDDEN = ("jax", "flax", "optimized_rag_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "chex", "optimized_rag_tpu")
 
 
 def _submodules():
@@ -59,9 +60,11 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
-    assert len(_submodules()) >= 83
+    assert len(_submodules()) >= 90
     for m in ("parallel.mesh", "parallel.sharded_topk", "parallel.sharded_ivf",
-              "models.decoder", "models.grounded"):
+              "models.decoder", "models.grounded", "models.training",
+              "models.loader", "models.grounded_data", "models.corpus",
+              "models.xlingual", "eval.llm_endpoint", "store.checkpoint"):
         assert f"optimized_rag_tpu_torch.{m}" in _submodules()
 
 
@@ -126,7 +129,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
                                    max_new_tokens=8),
                  lambda: GroundedGenerator(tiny_grounded, max_prompt_len=32,
                                            max_new_tokens=8),
-                 lambda: cli._local_lm_provider(Settings())):
+                 lambda: cli._local_lm_provider(Settings()),
+                 lambda: pretrain.default_mesh(),
+                 lambda: pretrain.pretrain_all(
+                     "unused", ["a b c"], encoder_cfg=tiny, cross_cfg=tiny),
+                 lambda: pretrain.train_biencoder(["a b c"], tiny),
+                 lambda: pretrain.train_cross_encoder(["a b c"], tiny),
+                 lambda: pretrain.train_decoder(["a b c"], tiny_lm),
+                 lambda: pretrain.train_grounded(["a b c"], tiny_grounded),
+                 lambda: cli.main(["train", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     report = check_device_health(timeout_s=60, matmul_dim=8)

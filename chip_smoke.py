@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: the /search serving path,
 the retrieval half of a chat turn, the components a chat turn consumes, the
 agent's chat turns, the CLI and HTTP server, IVF, sharded retrieval over a
-device mesh, the local generators behind ``--local-lm``, training, and the
-reference benchmark's retrieval path.
+device mesh, the local generators behind ``--local-lm``, training, the
+eval tools, tensor-parallel training, and the reference benchmark's
+retrieval path.
 
     python3 chip_smoke.py            # from any directory; needs one CUDA card
 
@@ -39,10 +40,13 @@ Phases, each printing one JSON line with its seconds:
 6. ``slice_int8`` int8 storage: 16,777,216 rows (6.44 GB of codes, 4x the
                f32 slice's rows in the same bytes) filled by the same
                generator, quantize_int8 on the card held bit for bit against
-               the CPU over every row and query; the same two QueryServer
-               loads, a direct search of 64 queries and a 131,072-row index
-               (K7 alone); every answer held against the oracle of the route
-               its batch took (certified: exact int8-native scores; fallback
+               the CPU over every query and three of the 17 blocks of rows
+               (the chunks', the first synthetic and the last; every block's
+               stored codes held against quantize_int8 on the card); the
+               same two QueryServer loads, a direct search of 64 queries
+               and a 131,072-row index (K7 alone); every answer held
+               against the oracle of the route its batch took (certified:
+               exact int8-native scores; fallback
                or direct: K7's scoring, differences allowed only at a
                near-tied cc-th candidate, counted); 64 queries alone through
                the certified int8 search; recall@10 against the f32 oracle of
@@ -219,7 +223,47 @@ Phases, each printing one JSON line with its seconds:
                path ``train_recall`` and held against its twin; per trainer
                ms a step, tokens/s, MFU (6 x matmul parameters x tokens over
                989 TFLOP/s), peak memory and the device's idle share;
-15. ``bench_shape`` the reference benchmark's retrieval path at its full
+15. ``slice_eval`` the eval tools as a user runs them: (a)
+               ``kg_eval.main(["--loopback", ...])``, every precision,
+               recall, tp, fp and fn equal to docs/results_r5/kg_eval.json;
+               (b) ``qa_sheet.main(["--device", "cuda",
+               "--no-translation-xl", ...])``: QA_SHEET (31 items) over
+               ``build_agent`` with the in-repo encoders, the four
+               language sheets (34) online to a loopback
+               ``MockOpenAIServer``, the same four with translation
+               disabled; 16 of those turns replayed on the CPU by agents
+               built the same way, each row equal unless the CPU run shows
+               a near-tie (counted); the language sections' accuracies
+               beside the reference's (qa_full.json, qa_nt.json); (c)
+               ``main --local-lm`` with checkpoints/grounded_r5 over
+               QA_SHEET, 4 turns replayed on the CPU (a generation step's
+               near-tie counted, as in slice_local_lm); (d)
+               ``encoder_gauntlet.run_gauntlet(device="cuda")`` at its
+               defaults (300 gold chunks, 4 spans each, 8 negatives, a
+               30,000-chunk pool of this machine's harvest, the bundled
+               bi-encoder): 320 texts embedded again on the CPU (cosine
+               0.9999), every dense top-10 against a float64 oracle over
+               the card's embeddings, recall@1 and @10 of both channels
+               beside the reference's (docs/results_r5/gauntlet.json, a
+               larger harvest); the top-k kernels of (b)-(d) counted on
+               the paths ``eval_sheet``, ``eval_local_lm`` and
+               ``eval_gauntlet`` and held against their twins;
+16. ``slice_tp`` tensor parallelism for training on this one card (both
+               model positions name ``cuda:0``: two head parts and two
+               partial sums a layer; at data=2 two copies, their gradients
+               summed and both stepping; the code paths and not NVLink),
+               float32:
+               the bi-encoder at the bundled checkpoint's widths (384,
+               6 layers, 12 heads, mlp 1,536; max_len 64, batch 64), 3
+               steps at model=1, data=1 x model=2 and data=2 x model=2;
+               the decoder at checkpoints/pretrained's widths and
+               ``GroundedTrainer`` from checkpoints/grounded_r5, one step
+               at model=1 and model=2; losses within 1e-5 relative,
+               weights within what two AdamW runs can move them apart; ms
+               a step and peak memory of each, the copies equal bit for
+               bit at the end, and the bytes of weights and moments at
+               each model position below model=1's whole;
+17. ``bench_shape`` the reference benchmark's retrieval path at its full
                shape (bench.py:180-265, :540-575): 10,485,760 x 128 bf16
                rows (clustered, 300 near-duplicate runs), tile 4096, k=10,
                unit-normal queries in batches of 1024 and 512; the
@@ -242,8 +286,9 @@ QueryServer rounds, DenseIndex.search and the small indexes; each shape of
 bench_shape's routes; each shape of slice_hybrid's dense routes; each
 shape of slice_components' archival and restored indexes; each shape
 of slice_agent's turns; each shape of slice_serve's /search and
-/chat; each shape slice_sharded's kernel searches gave a shard; and each
-shape the recall check of slice_train's ``train`` gave a kernel), its
+/chat; each shape slice_sharded's kernel searches gave a shard; each
+shape the recall check of slice_train's ``train`` gave a kernel; and each
+shape slice_eval's sheets and gauntlet gave a kernel), its
 numbers measured at that shape and its
 ``launches`` counted on those paths alone (``launches_by_path`` gives each
 path), its ``bound_share`` (bound_ms / ms) and its ``library_factor``
@@ -270,6 +315,7 @@ import time
 from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+QA_DOCS = os.path.join(HERE, "optimized_rag_tpu_torch", "eval", "qa_docs")
 sys.path.insert(0, HERE)
 
 import numpy as np  # noqa: E402
@@ -370,8 +416,7 @@ def plan_runs(rng: random.Random, n_rows, first_row, n_runs):
 
 def qa_chunks():
     out = []
-    for path in sorted(glob.glob(os.path.join(
-            HERE, "optimized_rag_tpu", "eval", "qa_docs", "*.md"))):
+    for path in sorted(glob.glob(os.path.join(QA_DOCS, "*.md"))):
         with open(path, encoding="utf-8") as f:
             out += [p.strip() for p in f.read().split("\n\n") if p.strip()]
     if not out:
@@ -1214,16 +1259,19 @@ def phase_slice_int8(K_, T_, dev, svc, chunks, queries):
                        dtype=torch.int8, device=dev)
 
     def on_block(x, start):
-        # quantize_int8 on the card equals its CPU result bit for bit, and
-        # add stored exactly quantize_int8(normalize(rows)).
+        # add stored exactly quantize_int8(normalize(rows)), and, in the
+        # blocks of cpu_blocks, quantize_int8 on the card equals its CPU
+        # result bit for bit.
         u = normalize(x.float())
         c8, cs = quantize_int8(u)
-        h8, hs = quantize_int8(u.cpu())
-        if not (torch.equal(c8.cpu(), h8)
-                and torch.equal(cs.cpu().view(torch.int32),
-                                hs.view(torch.int32))):
-            raise AssertionError(f"quantize_int8 on the card differs from "
-                                 f"the CPU's in rows {start}..")
+        if start in cpu_blocks:
+            h8, hs = quantize_int8(u.cpu())
+            if not (torch.equal(c8.cpu(), h8)
+                    and torch.equal(cs.cpu().view(torch.int32),
+                                    hs.view(torch.int32))):
+                raise AssertionError(f"quantize_int8 on the card differs "
+                                     f"from the CPU's in rows {start}..")
+            cpu_blocks.discard(start)
         n = x.shape[0]
         if not (torch.equal(index.embeddings()[start:start + n], c8)
                 and torch.equal(index.row_scale[start:start + n], cs)):
@@ -1237,8 +1285,15 @@ def phase_slice_int8(K_, T_, dev, svc, chunks, queries):
         f32["i"] = torch.gather(cand_i, 1, pos)
         f32["rows"] += n
 
+    # The blocks held against the CPU (by first row): the chunks', the
+    # first synthetic block (the rest of fill_index's first 2**20 rows)
+    # and the last.
+    cpu_blocks = {0, len(chunks), (N_INT8 - 1) >> 20 << 20}
     runs = fill_index(index, svc, chunks, dev, N_INT8, on_block)
     torch.cuda.synchronize()
+    if cpu_blocks:
+        raise AssertionError(f"slice_int8: blocks {sorted(cpu_blocks)} "
+                             "were never checked against the CPU")
     t_fill = time.perf_counter() - t0
     with svc._cache_lock:
         svc._cache.clear()
@@ -1905,16 +1960,16 @@ def device_busy(fn, cpu=True):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    dev_ms = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0)) / 1e3
-    # The kernels' own events: an operator's entry counts its kernels again.
-    events = sorted((e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=dev_ms, reverse=True)
-    busy = sum(dev_ms(e) for e in events)
+    # The device's own events (kernels, copies, fills), read from the raw
+    # trace: building the profiler's event tree costs the host seconds.
+    by_name = Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[e.name()] += e.duration_ns() / 1e6
+    busy = sum(by_name.values())
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall if busy else None,
-            "top_kernels_ms": {e.key[:60]: dev_ms(e) for e in events[:5]}}
+            "top_kernels_ms": {k[:60]: v for k, v in by_name.most_common(5)}}
 
 
 def route_stats(ms):
@@ -3044,12 +3099,13 @@ def turn_differs(card, cpu):
 
 
 def replay(what, card_turns, cpu_agent, texts, counts, phase="slice_agent",
-           ask=None, differ=turn_differs, tie_log=TieLog):
+           ask=None, differ=turn_differs, tie_log=TieLog, independent=False):
     """``texts`` through ``cpu_agent`` in order (``ask(text)``, by default
     one ``turn``), each answer held against the card's: ``differ(card,
     cpu)`` finds no difference, or the first one it finds shows a near-tie
     in the CPU run (counted by kind). After an excused difference the
-    histories differ: later turns are counted, not held."""
+    histories differ: later turns are counted, not held, unless the turns
+    are ``independent`` (no turn sees another's history)."""
     ask = ask or (lambda text: turn(cpu_agent, text))
     log = counts.setdefault(what, {"equal": 0, "excused": [],
                                    "after_divergence": 0,
@@ -3075,7 +3131,7 @@ def replay(what, card_turns, cpu_agent, texts, counts, phase="slice_agent",
         log["excused"].append({"turn": j, "field": where,
                                "ties": dict(ties.kinds), "card": shown[0],
                                "cpu": shown[1]})
-        diverged = True
+        diverged = not independent
 
 
 def phase_slice_agent(K_, T_, dev, chunks, smi):
@@ -3104,7 +3160,7 @@ def phase_slice_agent(K_, T_, dev, chunks, smi):
     paths, log, counts, rep = {}, {}, {}, {}
     clock = time.time
     time.time = lambda: AGENT_CLOCK
-    qa_dir = os.path.join(HERE, "optimized_rag_tpu", "eval", "qa_docs")
+    qa_dir = QA_DOCS
 
     def drive(name, agent, texts):
         """Each text as one turn, launch counts from 0 and every kernel
@@ -3384,7 +3440,7 @@ def serve_corpus(chunks, docs_dir, settings):
                    for x in got) or 1
 
     total, names = 0, []
-    qa_dir = os.path.join(HERE, "optimized_rag_tpu", "eval", "qa_docs")
+    qa_dir = QA_DOCS
     for path in sorted(glob.glob(os.path.join(qa_dir, "*.md"))):
         with open(path, encoding="utf-8") as f:
             text = f.read()
@@ -4493,7 +4549,7 @@ def phase_slice_sharded(K_, T_, dev, handed, queries, data, smi):
 
 LM_CKPT = os.path.join(HERE, "checkpoints", "grounded_r5")
 DECODER_CKPT = os.path.join(HERE, "checkpoints", "pretrained")
-N_LM_PROMPTS, N_LM_REPLAY = 8, 4
+N_LM_PROMPTS, N_LM_REPLAY = 8, 2
 LM_DOCS = 5                       # retrieved chunks a prompt renders
 DECODER_PROMPT, DECODER_NEW, N_DECODER_REPLAY = 768, 128, 2
 N_LM_CHAT_TURNS = 2
@@ -4648,7 +4704,7 @@ def phase_slice_local_lm(dev, chunks, work, smi):
     from qa session questions and their retrieved chunks; prefill ms,
     decode ms a step and tokens/s at B=1 and B=8, the device's idle share
     over the B=8 call and over its decode (the call less a prefill-only
-    call); 4 of the prompts replayed on the CPU, their tokens equal to the
+    call); 2 of the prompts replayed on the CPU, their tokens equal to the
     card's up to a counted near-tie (the CPU run's top two scores at the
     first difference are the two tokens, within GEN_TIE). (b) ``Generator`` on
     ``checkpoints/pretrained/decoder`` (prompt 768, 128 new): the same
@@ -4728,8 +4784,7 @@ def phase_slice_local_lm(dev, chunks, work, smi):
     # (c) chat --local-lm, then agent turns replayed on the CPU.
     data = os.path.join(work, "local_lm_data")
     agent = serving_agent(data, dev)          # its store on disk
-    agent.ingestor.upload_directory(os.path.join(HERE, "optimized_rag_tpu",
-                                                 "eval", "qa_docs"))
+    agent.ingestor.upload_directory(QA_DOCS)
     agent.save_indexes()
     del agent
     forks = [data] + [os.path.join(work, f"local_lm_{n}")
@@ -5164,8 +5219,7 @@ def phase_slice_train(K_, T_, dev, chunks, work, smi):
     # (f) ``train`` from the CLI, its recall check's kernels counted.
     data = os.path.join(work, "train_data")
     agent = serving_agent(data, dev)
-    agent.ingestor.upload_directory(os.path.join(HERE, "optimized_rag_tpu",
-                                                 "eval", "qa_docs"))
+    agent.ingestor.upload_directory(QA_DOCS)
     agent.save_indexes()
     del agent
     torch.cuda.empty_cache()
@@ -5217,6 +5271,703 @@ def phase_slice_train(K_, T_, dev, chunks, work, smi):
         emit({"phase": "slice_train", "card": smi, "kernel": rec["name"],
               **{key: v for key, v in rec.items() if key != "name"}})
     return held
+
+
+# ---------------------------------------------------------------- eval tools
+
+RESULTS = os.path.join(HERE, "docs", "results_r5")
+EVAL_CLOCK = AGENT_CLOCK           # time.time() in the sheets, both runs
+# Turns of the card's sheets the CPU replays (a seeded sample, in sheet
+# order): the English sheet, the language sheets over the loopback
+# endpoint, the same without translation; and of the --local-lm sheet.
+EVAL_REPLAY = {"sheet_en": 6, "sheet_online": 5, "sheet_nt": 5}
+EVAL_LM_REPLAY = 4
+ROW_FIELDS = ("answer", "correct", "refused", "unanswerable",
+              "citations_valid")
+ROW_FLOATS = ("support_ratio", "factuality", "confidence")
+# The gauntlet's rows and queries the CPU embeds again, held by cosine as
+# the encoder tests hold the bf16 trunk (MIN_COSINE).
+GAUNTLET_CPU_QUERIES, GAUNTLET_CPU_ROWS = 64, 256
+GAUNTLET_POOL = 30_000             # run_gauntlet's pool_chunks default
+EVAL_KERNEL_PATHS = ("eval_sheet", "eval_local_lm", "eval_gauntlet")
+LANG_TAGS = ("pt", "es", "fr", "de")
+
+
+def start_harvest():
+    """``models/corpus.harvest_all`` as ``run_gauntlet`` calls it at its
+    defaults, in a process of its own (no card): a deterministic host
+    computation over the installed packages' sources (about 80 s of one
+    core on the card's machine), started at slice_eval's start so that it
+    overlaps (a)-(c) there, whose numbers are gates and not speeds, and no
+    earlier phase. Returns (the process, its JSON's path)."""
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    path = os.path.join(HERE, "build", f"harvest-{os.getpid()}.json")
+    code = ("import json, sys\n"
+            f"sys.path.insert(0, {HERE!r})\n"
+            "from optimized_rag_tpu_torch.models.corpus import harvest_all\n"
+            f"out = harvest_all(max_chunks={GAUNTLET_POOL}, "
+            f"extra_dirs=[{HERE!r}])\n"
+            f"with open({path!r}, 'w', encoding='utf-8') as f:\n"
+            "    json.dump(out, f)\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=HERE,
+                            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    return proc, path
+
+
+def eval_sections(qa_sheet):
+    """slice_eval's replayed sections: (name, sampled items, the id prefix
+    ``main`` gives the section, ``build_agent``'s keywords, the Settings
+    environment), then the --local-lm sheet's sampled items."""
+    lang = [i for t in LANG_TAGS
+            for i in getattr(qa_sheet, f"{t.upper()}_SHEET")]
+    return (
+        ("sheet_en", sampled(qa_sheet.QA_SHEET, EVAL_REPLAY["sheet_en"], 1),
+         "", {}, None),
+        ("sheet_online", sampled(lang, EVAL_REPLAY["sheet_online"], 2), "",
+         {"online": True}, None),
+        ("sheet_nt", sampled(lang, EVAL_REPLAY["sheet_nt"], 3), "nt-", {},
+         {"ORAG_FLAGS_ENABLE_TRANSLATION": "0"})), sampled(
+        qa_sheet.QA_SHEET, EVAL_LM_REPLAY, 4)
+
+
+def eval_cpu_turns(work, out):
+    """The CPU half of slice_eval (b) and (c), as ``start_eval_replay``'s
+    process runs it: each sampled turn through a CPU agent built as the
+    card's was (``build_agent(device="cpu")``, the loopback endpoint for
+    the online section, translation off for ``nt-``, the grounded
+    checkpoint for --local-lm), ``time.time`` pinned to EVAL_CLOCK, under
+    the near-tie log (GenTieLog for --local-lm). Writes ``out``: each
+    section's rows in order with the near-tie kinds each turn showed, and
+    the seconds the sections took."""
+    import tempfile
+    from optimized_rag_tpu_torch.config import Settings
+    from optimized_rag_tpu_torch.eval import qa_sheet
+    from optimized_rag_tpu_torch.eval.llm_endpoint import MockOpenAIServer
+    time.time = lambda: EVAL_CLOCK
+    tempfile.tempdir = work        # the sheets' own data directories
+    # Half the cores: the card's process and the harvest run beside it.
+    torch.set_num_threads(max(1, torch.get_num_threads() // 2))
+    got, t0 = {"seconds": {}}, time.perf_counter()
+
+    def run(what, agent, items, prefix, tie_log):
+        got[what] = []
+        for item in items:
+            with tie_log(agent) as ties:
+                row = sheet_row(qa_sheet, agent, item, prefix)
+            got[what].append({"row": row, "kinds": dict(ties.kinds)})
+    sections, lm_items = eval_sections(qa_sheet)
+    for what, items, prefix, kw, env in sections:
+        data = os.path.join(work, f"cpu_{what}")
+        with contextlib.ExitStack() as stack:
+            if kw:
+                server = stack.enter_context(MockOpenAIServer())
+                stack.enter_context(environ(
+                    ORAG_LLM_API_BASE=server.api_base))
+            if env:
+                settings = Settings.from_env(env)
+                settings.data_dir = data
+                agent = qa_sheet.build_agent(settings=settings, device="cpu")
+            else:
+                agent = qa_sheet.build_agent(data_dir=data, device="cpu",
+                                             **kw)
+            run(what, agent, items, prefix, TieLog)
+        del agent
+    got["seconds"]["sheets"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with environ(ORAG_LOCAL_LM_CKPT=LM_CKPT):
+        agent = qa_sheet.build_agent(
+            local_lm=True, data_dir=os.path.join(work, "cpu_lm"),
+            device="cpu")
+    run("local_lm", agent, lm_items, "", GenTieLog)
+    got["seconds"]["local_lm"] = time.perf_counter() - t0
+    with open(out, "w", encoding="utf-8") as f:
+        json.dump(got, f)
+
+
+def start_eval_replay(work):
+    """``eval_cpu_turns`` in a process of its own (no card), started at
+    slice_eval's start so that it runs beside the card's sheets. Returns
+    (the process, its JSON's path)."""
+    out = os.path.join(work, "cpu_turns.json")
+    code = ("import sys\n"
+            f"sys.path.insert(0, {HERE!r})\n"
+            "import chip_smoke\n"
+            f"chip_smoke.eval_cpu_turns({work!r}, {out!r})\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=HERE,
+                            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                            stdout=sys.stderr)
+    return proc, out
+
+
+class Replayed:
+    """``replay``'s ``ask`` and ``tie_log`` over turns another process
+    ran (``eval_cpu_turns``): each ask hands out the next stored row, and
+    the log then holds that turn's near-tie kinds."""
+
+    def __init__(self, turns):
+        self._turns, self.kinds = iter(turns), Counter()
+
+    def __call__(self, _agent):
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def ask(self, _item):
+        turn_ = next(self._turns)
+        self.kinds = Counter(turn_["kinds"])
+        return turn_["row"]
+
+
+@contextlib.contextmanager
+def harvested(corpus, harvest):
+    """``corpus.harvest_all`` answering ``run_gauntlet``'s default call
+    from ``harvest`` (``start_harvest``'s process, waited for) and any
+    other call as before."""
+    proc, path = harvest
+    if proc.wait() != 0:
+        raise AssertionError(f"slice_eval (d): the harvest exited "
+                             f"{proc.returncode}")
+    with open(path, encoding="utf-8") as f:
+        pool = json.load(f)
+    os.remove(path)
+    base = corpus.harvest_all
+
+    def harvest_all(max_chunks=100000, seed=0, extra_dirs=None):
+        if (max_chunks, seed) == (GAUNTLET_POOL, 0) and [
+                os.path.realpath(d) for d in extra_dirs or ()] == [HERE]:
+            return list(pool)
+        return base(max_chunks, seed, extra_dirs)
+    corpus.harvest_all = harvest_all
+    try:
+        yield len(pool)
+    finally:
+        corpus.harvest_all = base
+
+
+def reference(name):
+    with open(os.path.join(RESULTS, f"{name}.json"), encoding="utf-8") as f:
+        return json.load(f)
+
+
+def kg_numbers(tree):
+    """Every precision, recall, tp, fp and fn of a kg_eval result, by
+    path (the per-case lists left out)."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update({f"{key}/{k}": v for k, v in kg_numbers(val).items()})
+        elif key in ("precision", "recall", "tp", "fp", "fn"):
+            out[key] = val
+    return out
+
+
+def row_differs(card, cpu):
+    """The first field where two QA-sheet rows differ (floats beyond
+    FLOAT_TOL), or None."""
+    return next((f for f in ROW_FIELDS if card[f] != cpu[f]), None) or next(
+        (f for f in ROW_FLOATS if not abs(card[f] - cpu[f]) <= FLOAT_TOL),
+        None)
+
+
+def sheet_row(qa_sheet, agent, item, prefix=""):
+    """One item through ``run_sheet`` (its isolation included): its row,
+    its id prefixed as ``main`` prefixes a section's."""
+    row = qa_sheet.run_sheet(agent, sheet=[item], verbose=False)["rows"][0]
+    return {**row, "id": prefix + row["id"]}
+
+
+def sampled(items, n, salt):
+    """``n`` items of a sheet, a seeded sample kept in sheet order."""
+    keep = sorted(random.Random(SEED + salt).sample(range(len(items)), n))
+    return [items[i] for i in keep]
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """The environment variables ``values`` set inside the block, each
+    restored (or removed) after it."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_main(main, args, **env):
+    """``main(args)`` with its stdout captured and ``env`` set for the call:
+    (exit code, stdout)."""
+    import io
+    buf = io.StringIO()
+    with environ(**env), contextlib.redirect_stdout(buf):
+        rc = main(args)
+    return rc, buf.getvalue()
+
+
+def counted_calls(K_, T_, log, paths, name, fn):
+    """``fn()`` with launch counts from 0 and every kernel call recorded
+    under ``name`` (the recorded calls must equal the counts)."""
+    calls = log.setdefault(name, [])
+    with recording(T_, K_, calls):
+        out = counted(K_, paths, name, fn)
+    seen = {m: sum(c == m for c, _ in calls) for m in K_.KERNELS}
+    if seen != paths[name]:
+        raise AssertionError(f"slice_eval {name}: recorded {seen}, counted "
+                             f"{paths[name]}")
+    return out
+
+
+def gauntlet_oracle(rows, queries, ids):
+    """The card's dense top-k of each query against a float64 oracle over
+    the card's own embeddings (unit rows; ties to the lower row): equal, or
+    equal in score within TIE_TOL (a near-tie, counted)."""
+    r = rows.astype(np.float64)
+    r /= np.linalg.norm(r, axis=1, keepdims=True)
+    q = queries.astype(np.float64)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    k = ids.shape[1]
+    out = {"queries": len(q), "equal": 0, "near_ties": 0}
+    for i in range(0, len(q), 256):
+        s = q[i:i + 256] @ r.T
+        want = np.argsort(-s, axis=1, kind="stable")[:, :k]
+        for j, (a, b) in enumerate(zip(ids[i:i + 256], want)):
+            if (a == b).all():
+                out["equal"] += 1
+                continue
+            got_s = np.sort(s[j, a])[::-1]
+            if (a < 0).any() or np.abs(got_s - s[j, b]).max() > TIE_TOL:
+                raise AssertionError(
+                    f"slice_eval (d): query {i + j}: the card's ids {a}, the "
+                    f"oracle's {b}, scores {got_s} against {s[j, b]}")
+            out["near_ties"] += 1
+    return out
+
+
+def phase_slice_eval(K_, T_, dev, smi):
+    """The eval tools on the card, as a user runs them. (a)
+    ``kg_eval.main(["--loopback", ...])``: every precision, recall, tp, fp
+    and fn equal to docs/results_r5/kg_eval.json's (host code). (b)
+    ``qa_sheet.main(["--device", "cuda", "--no-translation-xl", ...])``:
+    QA_SHEET over an agent built by ``build_agent`` (the in-repo encoders,
+    the qa_docs), the four language sheets over an agent online to a
+    loopback ``MockOpenAIServer``, the same four with translation
+    disabled; EVAL_REPLAY turns of the three sections replayed on the
+    CPU by agents built the same way, each row equal to the card's
+    (floats within FLOAT_TOL) unless the CPU run shows a near-tie
+    (counted). (c) ``main --local-lm`` with checkpoints/grounded_r5 over
+    QA_SHEET, EVAL_LM_REPLAY turns replayed on the CPU (a differing answer
+    excused only by a near-tie, a generation step's included). The CPU
+    turns of (b) and (c) run in a process of their own
+    (``start_eval_replay``) from this phase's start, beside the card's
+    (a)-(d), and are held after (d). (d)
+    ``encoder_gauntlet.run_gauntlet(device="cuda")`` at its defaults over
+    this machine's harvest: GAUNTLET_CPU_QUERIES queries and
+    GAUNTLET_CPU_ROWS index rows embedded again on the CPU (cosine
+    MIN_COSINE), every dense top-10 against a float64 oracle over the
+    card's embeddings (near-ties counted). The top-k kernels of (b), (c)
+    and (d) are counted on the paths ``eval_sheet``, ``eval_local_lm`` and
+    ``eval_gauntlet``. Summaries are printed beside the reference's
+    comparable numbers (docs/results_r5; its headline accuracies include
+    the pdf sections, absent here). ``time.time`` is pinned for (b) and
+    (c). The gauntlet's harvest runs in a process of its own
+    (``start_harvest``) from this phase's start, beside (a)-(c); the
+    gauntlet waits for it. Returns the kernel records."""
+    import shutil
+    import tempfile
+    from optimized_rag_tpu_torch.eval import (
+        encoder_gauntlet, kg_eval, qa_sheet)
+    from optimized_rag_tpu_torch.index.dense import DenseIndex
+    from optimized_rag_tpu_torch.models.encoder import EmbeddingService
+    from optimized_rag_tpu_torch.models import corpus, pretrain
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    work = tempfile.mkdtemp(prefix="slice_eval-",
+                            dir=os.path.join(HERE, "build"))
+    rep, paths, log, counts = {}, {}, {}, {}
+    cpu = "cpu"
+    clock, tmp = time.time, tempfile.tempdir
+    tempfile.tempdir = work        # the sheets' own data directories
+    harvest = start_harvest()
+    cpu_run = start_eval_replay(work)
+    try:
+        # (a) The KG eval, through the loopback endpoint too.
+        t1 = time.perf_counter()
+        out = os.path.join(work, "kg.json")
+        rc, _ = run_main(kg_eval.main, ["--loopback", "--json", out])
+        with open(out, encoding="utf-8") as f:
+            got = kg_numbers(json.load(f))
+        want = kg_numbers(reference("kg_eval"))
+        if rc != 0 or got != want:
+            bad = sorted(k for k in want if got.get(k) != want[k])
+            raise AssertionError(f"slice_eval (a): rc {rc}; differs from "
+                                 f"the reference at {bad}")
+        rep["kg_eval"] = {"numbers_equal_reference": len(want),
+                          "loopback": {k: v for k, v in got.items()
+                                       if k.startswith("loopback")},
+                          "seconds": time.perf_counter() - t1}
+
+        # (b) The QA sheets on the card, then sampled turns on the CPU.
+        time.time = lambda: EVAL_CLOCK
+        t1 = time.perf_counter()
+        out = os.path.join(work, "qa.json")
+        rc, said = counted_calls(
+            K_, T_, log, paths, "eval_sheet", lambda: run_main(
+                qa_sheet.main, ["--device", dev.type, "--pdf-docs", "none",
+                                "--no-translation-xl", "--json", out]))
+        with open(out, encoding="utf-8") as f:
+            card = json.load(f)
+        rows = {r["id"]: r for r in card["rows"]}
+        lang = [i for t in LANG_TAGS
+                for i in getattr(qa_sheet, f"{t.upper()}_SHEET")]
+        if rc != 0 or len(rows) != len(qa_sheet.QA_SHEET) + 2 * len(lang):
+            raise AssertionError(f"slice_eval (b): rc {rc}, {len(rows)} rows")
+        s = card["summary"]
+        ref_full, ref_nt = reference("qa_full")["summary"], reference(
+            "qa_nt")["summary"]
+        keys = [f"{t}_{m}" for t in LANG_TAGS
+                for m in ("accuracy", "probes_refused")]
+        nt_keys = [f"{k}_notranslation" for k in keys]
+        rep["sheet"] = {
+            "seconds": time.perf_counter() - t1, "turns": len(rows),
+            "summary": s,
+            "reference_comparable": {
+                k: {"card": s[k], "reference": (ref_full.get(k) if k in keys
+                                                else ref_nt.get(k))}
+                for k in keys + nt_keys},
+            "not_comparable": {"answer_accuracy": s["answer_accuracy"],
+                               "reference_with_pdf_sections":
+                               ref_full["answer_accuracy"]}}
+
+        # (c) --local-lm: the grounded generator writes the answers.
+        t1 = time.perf_counter()
+        out = os.path.join(work, "qa_lm.json")
+        rc, said = counted_calls(
+            K_, T_, log, paths, "eval_local_lm", lambda: run_main(
+                qa_sheet.main, ["--device", dev.type, "--local-lm",
+                                "--pdf-docs", "none", "--json", out],
+                ORAG_LOCAL_LM_CKPT=LM_CKPT))
+        with open(out, encoding="utf-8") as f:
+            card = json.load(f)
+        if rc != 0 or "loaded grounded checkpoint" not in said or len(
+                card["rows"]) != len(qa_sheet.QA_SHEET):
+            raise AssertionError(f"slice_eval (c): rc {rc}, {said[-500:]!r}")
+        lm_rows = {r["id"]: r for r in card["rows"]}
+        lm = {"seconds": time.perf_counter() - t1,
+              "summary": card["summary"],
+              "reference_with_pdf_sections": reference(
+                  "qa_local_lm")["summary"]["answer_accuracy"]}
+        time.time = clock
+
+        # (d) The gauntlet at its defaults, its dense channel on the card.
+        t1 = time.perf_counter()
+        added, searched, encoded = [], [], {}
+        add, search, encode = (DenseIndex.add, DenseIndex.search,
+                               EmbeddingService.encode)
+
+        def spy_add(self, emb):
+            added.append(np.array(emb, np.float32))
+            return add(self, emb)
+
+        def spy_search(self, q, k, **kw):
+            res = search(self, q, k, **kw)
+            searched.append((np.array(q, np.float32), np.asarray(res.ids)))
+            return res
+
+        def spy_encode(self, texts):
+            vecs = encode(self, texts)
+            encoded.update(zip(texts, vecs))
+            return vecs
+        with harvested(corpus, harvest) as pool:
+            wait_s = time.perf_counter() - t1
+            DenseIndex.add, DenseIndex.search = spy_add, spy_search
+            EmbeddingService.encode = spy_encode
+            try:
+                g = counted_calls(
+                    K_, T_, log, paths, "eval_gauntlet",
+                    lambda: encoder_gauntlet.run_gauntlet(device=dev))
+            finally:
+                DenseIndex.add, DenseIndex.search = add, search
+                EmbeddingService.encode = encode
+        g_s = time.perf_counter() - t1
+        rows_, queries = np.concatenate(added), np.concatenate(
+            [q for q, _ in searched])
+        ids = np.concatenate([i for _, i in searched])
+        if len(rows_) != g["index_size"] or len(queries) != g["n_queries"]:
+            raise AssertionError(f"slice_eval (d): {len(rows_)} rows, "
+                                 f"{len(queries)} queries for {g}")
+        t1 = time.perf_counter()
+        oracle = gauntlet_oracle(rows_, queries, ids)
+        cfg, params = pretrain.load_pretrained(
+            os.path.join(HERE, "checkpoints", "pretrained"), "biencoder")
+        cpu_svc = EmbeddingService(
+            cfg, params=params, max_len=64, cache_size=0, device=cpu,
+            tokenizer=pretrain.load_tokenizer(
+                os.path.join(HERE, "checkpoints", "pretrained"),
+                cfg.vocab_size, 64))
+        texts = list(encoded)
+        pick = random.Random(SEED + 5)
+        queries_t = [t for t in texts if len(t.split()) <= 8]
+        sample = (pick.sample(queries_t, GAUNTLET_CPU_QUERIES)
+                  + pick.sample([t for t in texts if len(t.split()) > 8],
+                                GAUNTLET_CPU_ROWS))
+        got = cpu_svc.encode(sample)
+        cos = (got * np.stack([encoded[t] for t in sample])).sum(axis=1)
+        if not cos.min() >= MIN_COSINE:
+            raise AssertionError(f"slice_eval (d): CPU embeddings at cosine "
+                                 f"{cos.min()} < {MIN_COSINE}")
+        ref_g = reference("gauntlet")
+        rep["gauntlet"] = {
+            **g, "seconds": g_s, "harvest_wait_seconds": wait_s,
+            "harvest_chunks": pool,
+            "reference": {k: ref_g[k] for k in (
+                "n_queries", "index_size", "recall_at_10_dense",
+                "recall_at_1_dense", "recall_at_10_bm25")},
+            "reference_comparable": False,
+            "dense_oracle": oracle,
+            "cpu_embeddings": {"texts": len(sample),
+                               "min_cosine": float(cos.min()),
+                               "tolerance": MIN_COSINE},
+            "check_seconds": time.perf_counter() - t1}
+
+        # The CPU's turns of (b) and (c), each held against the card's row.
+        t1 = time.perf_counter()
+        proc, cpu_out = cpu_run
+        if proc.wait() != 0:
+            raise AssertionError(f"slice_eval: the CPU replay exited "
+                                 f"{proc.returncode}")
+        with open(cpu_out, encoding="utf-8") as f:
+            cpu_turns = json.load(f)
+        wait_s = time.perf_counter() - t1
+        sections, lm_items = eval_sections(qa_sheet)
+        for what, items, prefix, _, _ in sections:
+            done = Replayed(cpu_turns[what])
+            replay(what, [rows[prefix + i.id] for i in items], None, items,
+                   counts, phase="slice_eval", ask=done.ask,
+                   differ=row_differs, tie_log=done, independent=True)
+        rep["sheet"]["cpu_replay"] = {
+            "seconds": cpu_turns["seconds"]["sheets"],
+            **{w: counts[w] for w, *_ in sections}}
+        done = Replayed(cpu_turns["local_lm"])
+        replay("local_lm", [lm_rows[i.id] for i in lm_items], None,
+               lm_items, counts, phase="slice_eval", ask=done.ask,
+               differ=row_differs, tie_log=done, independent=True)
+        lm["cpu_replay"] = {"seconds": cpu_turns["seconds"]["local_lm"],
+                            "wait_seconds": wait_s, **counts["local_lm"]}
+        rep["local_lm"] = lm
+    finally:
+        time.time, tempfile.tempdir = clock, tmp
+        shutil.rmtree(work, ignore_errors=True)
+        for proc in (harvest[0], cpu_run[0]):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    held = hold_recorded(K_, T_, {p: log.get(p, []) for p in
+                                  EVAL_KERNEL_PATHS}, 5, "slice_eval")
+    if not paths["eval_gauntlet"].get("tile_topk"):
+        raise AssertionError(f"slice_eval (d): no K6 launch in the "
+                             f"gauntlet's dense channel: {paths}")
+    emit({"phase": "slice_eval", "card": smi, **rep,
+          "launches_by_path": paths,
+          "peak_device_gbytes": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0})
+    for rec in held:
+        emit({"phase": "slice_eval", "card": smi, "kernel": rec["name"],
+              **{key: v for key, v in rec.items() if key != "name"}})
+    return held
+
+
+# ------------------------------------------------- tensor parallelism
+
+TP_STEPS, TP_BATCH, TP_LEN = 3, 64, 64
+TP_DEC_BATCH, TP_GROUNDED_BATCH = 8, 2
+TP_LOSS_RTOL = 1e-5                # float32 on both meshes
+
+
+def tp_batches(chunks, cfg, n, rng):
+    """``n`` bi-encoder batches of TP_BATCH (query span, its chunk) pairs
+    of ``pretrain.default_corpus`` over the qa_docs, tokenised by the
+    hashing tokenizer."""
+    from optimized_rag_tpu_torch.models.pretrain import default_corpus
+    from optimized_rag_tpu_torch.models.tokenizer import HashTokenizer
+    tok = HashTokenizer(cfg.vocab_size, TP_LEN)
+    chunks = default_corpus(chunks)
+    out = []
+    for _ in range(n):
+        docs = [chunks[i] for i in rng.choice(len(chunks), TP_BATCH,
+                                               replace=False)]
+        spans = []
+        for d in docs:
+            w = d.split()
+            at = int(rng.integers(0, max(len(w) - 8, 0) + 1))
+            spans.append(" ".join(w[at:at + 8]))
+        out.append((*tok.encode_batch(spans, TP_LEN),
+                     *tok.encode_batch(docs, TP_LEN)))
+    return out
+
+
+def tp_copies(trainer):
+    """(the data rows' copies, whether every copy's pieces and AdamW
+    moments equal the first's bit for bit, the bytes of the first copy's
+    parameters and both moments at each model position)."""
+    from optimized_rag_tpu_torch.models.training import _flat
+    flats = [_flat(pieces) for _, pieces in trainer._replicas]
+    equal = all(torch.equal(p, flats[0][key]) and all(
+        torch.equal(opt[m][key], trainer._opt[0][m][key])
+        for m in ("mu", "nu"))
+        for flat, opt in zip(flats[1:], trainer._opt[1:])
+        for key, p in flat.items())
+    held = {}
+    for (_, i), p in flats[0].items():
+        held[i] = held.get(i, 0) + 3 * p.numel() * p.element_size()
+    return len(flats), equal, [held[i] for i in sorted(held)]
+
+
+def tp_run(make, mesh_of, batches, lr):
+    """A trainer per mesh (``make(mesh)``, the first mesh's weights copied
+    to the rest), the same batches through each: per mesh the losses, the
+    host ms of each step (synchronised), the peak memory, the final
+    weights (on the CPU) and ``tp_copies``."""
+    out = {}
+    first = None
+    for name, mesh in mesh_of.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = make(mesh)
+        if first is None:
+            first = cpu_copy(trainer.params)
+        else:
+            trainer.params = first
+        losses, ms = [], []
+        for args in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(*args))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        parts = {len(m.parts) for rep, _ in trainer._replicas
+                 for m in rep.modules() if hasattr(m, "parts")}
+        copies, equal, held = tp_copies(trainer)
+        out[name] = {"losses": losses, "ms": ms, "parts": sorted(parts),
+                     "copies": copies, "copies_equal": equal,
+                     "bytes_by_model_position": held,
+                     "peak_device_gbytes":
+                     torch.cuda.max_memory_allocated() / 1e9,
+                     "weights": cpu_copy(trainer.params), "lr": lr,
+                     "data": mesh.shape["data"]}
+        del trainer
+    return out
+
+
+def tp_hold(what, runs, steps):
+    """Every mesh's run against the first's: losses within TP_LOSS_RTOL,
+    weights within ``adam_bound`` over ``steps`` steps; the model>1 runs
+    split in two parts; one copy per data row, all equal at the end; no
+    model position holds as many bytes as model=1's one."""
+    names = list(runs)
+    base = runs[names[0]]
+    rep = {}
+    for name in names:
+        r = runs[name]
+        rel = max(abs(a - b) / abs(a) for a, b in zip(
+            np.ravel(base["losses"]), np.ravel(r["losses"])))
+        diff = max(float((base["weights"][k] - v).abs().max())
+                   for k, v in r["weights"].items())
+        bound = adam_bound(steps, max(float(w.abs().max()) for w in
+                                      base["weights"].values()), lr=r["lr"])
+        rep[name] = {"losses": r["losses"], "loss_rel_diff": rel,
+                     "weight_max_diff": diff, "weight_bound": bound,
+                     "ms_per_step": r["ms"], "parts": r["parts"],
+                     "copies": r["copies"], "copies_equal": r["copies_equal"],
+                     "bytes_by_model_position": r["bytes_by_model_position"],
+                     "peak_device_gbytes": r["peak_device_gbytes"]}
+        split = "model=2" in name
+        whole = base["bytes_by_model_position"][0]
+        if (rel > TP_LOSS_RTOL or diff > bound or (r["parts"] == [2]) != split
+                or r["copies"] != r["data"] or not r["copies_equal"]
+                or split != (max(r["bytes_by_model_position"]) < whole)):
+            raise AssertionError(f"slice_tp {what} {name}: {rep[name]}")
+    return rep
+
+
+def phase_slice_tp(dev, chunks, smi):
+    """Tensor parallelism for training on one card: both model positions
+    (and both data rows) name ``cuda:0``, so every attention and MLP runs
+    in two head (column) parts with two partial sums added, and each data
+    row holds its own copy (the gradients summed across the copies and
+    every copy stepping), which tests the code paths, not NVLink. In
+    float32: (a) the bi-encoder at the
+    bundled checkpoint's widths (384 wide, 6 layers, 12 heads, mlp 1,536,
+    vocab 32,768; max_len 64, batch 64 of spans and chunks of
+    ``default_corpus``),
+    TP_STEPS steps at model=1, at data=1 x model=2 and at data=2 x
+    model=2 (the same global batch); (b) the decoder at
+    checkpoints/pretrained's widths (1,024 positions, batch TP_DEC_BATCH)
+    and (c) GroundedTrainer from checkpoints/grounded_r5 (prompt 1,792,
+    target 384, batch TP_GROUNDED_BATCH, the fused qkv split by heads in
+    each third), one step each at model=1 and model=2. Losses within
+    TP_LOSS_RTOL of model=1's, weights within ``adam_bound``; ms a step and
+    the peak memory of each."""
+    import dataclasses
+    from optimized_rag_tpu_torch.models import grounded as pg
+    from optimized_rag_tpu_torch.models import pretrain, training
+    from optimized_rag_tpu_torch.models.convert import load_config
+    from optimized_rag_tpu_torch.models.grounded_data import GroundedSampler
+    from optimized_rag_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    f32 = lambda c: dataclasses.replace(c, dtype=torch.float32)  # noqa
+    meshes = {"model=1": make_mesh(data=1, devices=[dev]),
+              "data=1 model=2": make_mesh(data=1, model=2,
+                                          devices=[dev] * 2),
+              "data=2 model=2": make_mesh(data=2, model=2,
+                                          devices=[dev] * 4)}
+    rng = np.random.default_rng(SEED)
+    cfg = f32(load_config(TRAIN_CKPT, "biencoder"))
+    rep = {"biencoder": tp_hold("biencoder", tp_run(
+        lambda m: training.BiEncoderTrainer(cfg, m, learning_rate=TRAIN_LR,
+                                            seed=SEED),
+        meshes, tp_batches(chunks, cfg, TP_STEPS, rng), TRAIN_LR), TP_STEPS)}
+    rep["biencoder"]["config"] = {"hidden": cfg.hidden_dim, "layers":
+                                  cfg.num_layers, "heads": cfg.num_heads,
+                                  "mlp": cfg.mlp_dim, "batch": TP_BATCH,
+                                  "max_len": TP_LEN}
+    two = {k: meshes[k] for k in ("model=1", "data=1 model=2")}
+    dcfg = f32(pretrain.load_pretrained(TRAIN_CKPT, "decoder")[0])
+    ids = rng.integers(3, 259, (TP_DEC_BATCH, dcfg.max_seq_len)).astype(
+        np.int32)
+    ids[:, 0] = 1
+    rep["decoder"] = tp_hold("decoder", tp_run(
+        lambda m: training.DecoderTrainer(dcfg, m, learning_rate=TRAIN_LR,
+                                          seed=SEED),
+        two, [(ids,)], TRAIN_LR), 1)
+    gcfg, gstate = pretrain.load_pretrained(LM_CKPT, "grounded",
+                                            param_dtype=torch.float32)
+    gcfg = f32(gcfg)
+    sampler = GroundedSampler(chunks, prompt_len=gcfg.prompt_len,
+                              target_len=gcfg.target_len)
+
+    def grounded(mesh):
+        trainer = pg.GroundedTrainer(
+            gcfg, mesh, prompt_len=gcfg.prompt_len,
+            target_len=gcfg.target_len, learning_rate=GROUNDED_LR,
+            seed=SEED)
+        trainer.params = gstate
+        return trainer
+    rep["grounded"] = tp_hold("grounded", tp_run(
+        grounded, two, [sampler.batch(rng, TP_GROUNDED_BATCH)], GROUNDED_LR),
+        1)
+    emit({"phase": "slice_tp", "card": smi, **rep,
+          "seconds": time.perf_counter() - t0})
+    return max(r["peak_device_gbytes"] for v in rep.values()
+               for r in v.values() if isinstance(r, dict)
+               and "peak_device_gbytes" in r) * 1e9
 
 
 SOURCES = {"packed_extract": ("optimized_rag_tpu_torch/csrc/packed_extract.cu",
@@ -5289,9 +6040,9 @@ def main() -> None:
     from optimized_rag_tpu_torch.ops import topk_kernels as K_
     start_watchdog()
     kind, smi = phase_device()
+    phase_build()
     dev = torch.device("cuda", 0)
     torch.cuda.reset_peak_memory_stats()
-    phase_build()
     phase_kernels(K_, T_, dev)
     chunks = qa_chunks()
     first = make_queries(chunks, random.Random(SEED))
@@ -5335,6 +6086,9 @@ def main() -> None:
         peak = max(peak, torch.cuda.max_memory_allocated())
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    held_e = phase_slice_eval(K_, T_, dev, smi)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    peak = max(peak, phase_slice_tp(dev, chunks, smi))
     bench16, held16, bench8, held8 = phase_bench_shape(K_, T_, dev)
     peak = max(peak, torch.cuda.max_memory_allocated())
     emit({"phase": "done", "peak_device_gbytes": peak / 1e9,
@@ -5353,7 +6107,8 @@ def main() -> None:
     # gave a kernel, then each shape slice_serve's /search and /chat gave
     # K6, then each shape slice_sharded's kernel searches gave K6 on a
     # shard, then each shape the recall check of slice_train's ``train``
-    # gave a kernel. The direct calls of the checks are not counted.
+    # gave a kernel, then each shape slice_eval's sheets and gauntlet gave
+    # a kernel. The direct calls of the checks are not counted.
     kernels = []
     for dtype, paths, user, recs in (
             ("f32", paths32, USER_PATHS_F32, recs32),
@@ -5394,6 +6149,11 @@ def main() -> None:
         kernels.append(kernel_entry(
             rec["name"],
             f"{rec['dtype']} slice_train N={rec['N']} {rec['shape']}",
+            rec["launches_by_path"], rec))
+    for rec in held_e:
+        kernels.append(kernel_entry(
+            rec["name"],
+            f"{rec['dtype']} slice_eval N={rec['N']} {rec['shape']}",
             rec["launches_by_path"], rec))
     idle = [k["name"] for k in kernels if not k["launches"]]
     missing = set(K_.KERNELS) - {k["name"].split("[")[0] for k in kernels}

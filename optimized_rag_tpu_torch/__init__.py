@@ -11,4 +11,6 @@ from optimized_rag_tpu_torch.device import configure_numerics, resolve_device
 
 configure_numerics()
 
+__version__ = "0.1.0"
+
 __all__ = ["configure_numerics", "resolve_device"]

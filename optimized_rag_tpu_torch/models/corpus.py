@@ -1,13 +1,15 @@
 """Label-free training corpora harvested from the local machine.
 
 Held against ``optimized_rag_tpu/models/corpus.py`` (:1-267), of which it
-is a copy but for one thing: a package's files are found with
+is a copy but for two things: a package's files are found with
 ``importlib.util.find_spec``, not ``__import__``, so nothing is imported
 (the JAX package's list names jax, flax, optax and orbax, which the port
-never imports). Over the same installed packages both harvest the same
-chunks; a package whose import raises is harvested here and skipped there,
-and a machine without some of the packages (the card's has no JAX) gives
-fewer chunks.
+never imports); and the definitions of a parsed file are found by a walk
+that skips expressions (``_walk_blocks``), which meets them in
+``ast.walk``'s order at a fraction of its cost. Over the same installed
+packages both harvest the same chunks; a package whose import raises is
+harvested here and skipped there, and a machine without some of the
+packages (the card's has no JAX) gives fewer chunks.
 
 With zero network egress, the richest local source of English prose is
 the documentation embedded in installed Python packages: module, class
@@ -18,6 +20,7 @@ source files with ``ast``.
 from __future__ import annotations
 
 import ast
+import collections
 import hashlib
 import importlib.util
 import os
@@ -65,13 +68,29 @@ def _clean(doc: str) -> str:
     return "\n".join(lines).strip()
 
 
+_BLOCKS = (ast.stmt, ast.excepthandler, ast.match_case)
+
+
+def _walk_blocks(tree):
+    """``ast.walk(tree)``'s nodes in its order, less every node that is not
+    a statement, an except clause or a match case (nor ``tree``). A
+    definition sits only in statement blocks, so the walk meets every
+    definition, in ``ast.walk``'s order, without entering expressions."""
+    todo = collections.deque([tree])
+    while todo:
+        node = todo.popleft()
+        todo.extend(c for c in ast.iter_child_nodes(node)
+                    if isinstance(c, _BLOCKS))
+        yield node
+
+
 def _iter_docstrings(path: str) -> Iterable[str]:
     try:
         with open(path, encoding="utf-8", errors="ignore") as f:
             tree = ast.parse(f.read())
     except (SyntaxError, ValueError, OSError):
         return
-    nodes = [tree] + [n for n in ast.walk(tree)
+    nodes = [tree] + [n for n in _walk_blocks(tree)
                       if isinstance(n, (ast.FunctionDef,
                                         ast.AsyncFunctionDef, ast.ClassDef))]
     for node in nodes:
@@ -184,7 +203,7 @@ def harvest_source_functions(packages: Optional[Iterable[str]] = None,
             except (SyntaxError, ValueError, OSError):
                 continue
             lines = src.splitlines()
-            for node in ast.walk(tree):
+            for node in _walk_blocks(tree):
                 if not isinstance(node, (ast.FunctionDef,
                                          ast.AsyncFunctionDef)):
                     continue

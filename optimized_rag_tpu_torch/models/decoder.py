@@ -52,7 +52,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from optimized_rag_tpu_torch.device import resolve_device
-from optimized_rag_tpu_torch.models.encoder import _LayerNorm, embed
+from optimized_rag_tpu_torch.models.encoder import (
+    _LayerNorm, embed, serving_module)
 
 PAD = 0
 BOS = 1
@@ -104,7 +105,8 @@ class Dense(nn.Linear):
     weight and bias cast to the input's dtype at use."""
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+        y = F.linear(x, self.weight.to(x.dtype))
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -113,6 +115,31 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     c = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)  # noqa
     inner = c(math.sqrt(2.0 / math.pi)) * (x + c(0.044715) * (x * x * x))
     return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+
+
+def split_qkv(qkv: torch.Tensor, heads: int):
+    """q, k and v [B, L, heads, head_dim] of a fused projection [B, L,
+    3 * heads * head_dim] (its thirds in that order)."""
+    b, length, _ = qkv.shape
+    return (t.reshape(b, length, heads, -1) for t in qkv.chunk(3, dim=-1))
+
+
+def causal_mask(length: int, key_valid, device) -> torch.Tensor:
+    """[1 or B, 1, L, L] causal mask, pad keys (``key_valid`` [B, L] False)
+    masked too."""
+    mask = torch.ones(length, length, dtype=torch.bool,
+                      device=device).tril()[None, None]
+    return mask if key_valid is None else mask & key_valid[:, None, None, :]
+
+
+def attend(q, keys, vals, mask, scale: float, dtype) -> torch.Tensor:
+    """The attention of q [B, L, heads, hd] over keys and vals [B, M, heads,
+    hd]: the score einsum in ``dtype``, then float32 times ``scale``, the
+    mask and softmax in float32, the weights cast back to ``dtype`` for the
+    einsum with vals -> [B, L, heads, hd]."""
+    att = torch.einsum("blhd,bmhd->bhlm", q, keys).float() * scale
+    att = torch.softmax(torch.where(mask, att, MASKED), dim=-1)
+    return torch.einsum("bhlm,bmhd->blhd", att.to(dtype), vals)
 
 
 class _CausalBlock(nn.Module):
@@ -138,14 +165,10 @@ class _CausalBlock(nn.Module):
         c = self.cfg
         h = self.ln1(x).to(c.dtype)
         b, length, _ = h.shape
-        q, k, v = (t.reshape(b, length, c.num_heads, c.head_dim)
-                   for t in self.qkv(h).split(c.hidden_dim, dim=-1))
+        q, k, v = split_qkv(self.qkv(h), c.num_heads)
         if cache is None:
             keys, vals = k, v
-            mask = torch.ones(length, length, dtype=torch.bool,
-                              device=x.device).tril()[None, None]
-            if key_valid is not None:
-                mask = mask & key_valid[:, None, None, :]
+            mask = causal_mask(length, key_valid, x.device)
             new_cache = (k, v)
         else:
             ck, cv = cache
@@ -156,9 +179,7 @@ class _CausalBlock(nn.Module):
                     if key_valid is None else key_valid[:, :pos + 1]
                     )[:, None, None, :]
             new_cache = cache
-        att = torch.einsum("blhd,bmhd->bhlm", q, keys).float() * self.scale
-        att = torch.softmax(torch.where(mask, att, MASKED), dim=-1)
-        out = torch.einsum("bhlm,bmhd->blhd", att.to(c.dtype), vals)
+        out = attend(q, keys, vals, mask, self.scale, c.dtype)
         x = x + self.attn_out(out.reshape(b, length, c.hidden_dim))
         h = self.ln2(x).to(c.dtype)
         h = self.mlp_out(gelu_tanh(self.mlp_in(h)))
@@ -304,12 +325,8 @@ class Generator:
         self.device = resolve_device(device)
         self.max_prompt_len = max_prompt_len
         self.max_new_tokens = max_new_tokens
-        with torch.random.fork_rng(devices=[]):  # seeded init, no leak
-            torch.manual_seed(seed)
-            self.model = DecoderLM(self.cfg)
-        if params is not None:
-            self.model.load_state_dict(params)
-        self.model = self.model.to(self.device).eval()
+        self.model = serving_module(lambda: DecoderLM(self.cfg), params, seed,
+                                    self.device)
 
     @torch.inference_mode()
     def _generate(self, ids, pad_len, temperature: float, top_k: int,

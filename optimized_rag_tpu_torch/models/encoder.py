@@ -81,7 +81,13 @@ class Linear(nn.Linear):
     use (Flax's Dense promotes its float32 kernel to the compute dtype)."""
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Flax's ``nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
 
 
 def embed(table: nn.Embedding, ids, dtype: torch.dtype) -> torch.Tensor:
@@ -109,18 +115,25 @@ class _Embeddings(nn.Module):
 
 
 class _Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, param_dtype=None):
+    """Self-attention over ``heads`` of ``cfg``'s heads (all by default). A
+    part of the heads (tensor parallelism, ``models/training.py``) has no
+    ``out`` bias: the parts' outputs are summed, then the bias added."""
+
+    def __init__(self, cfg: TransformerConfig, param_dtype=None,
+                 heads: int | None = None):
         super().__init__()
         h, dt = cfg.hidden_dim, param_dtype or cfg.dtype
-        self.heads = cfg.num_heads
-        self.query = Linear(h, h, dtype=dt)
-        self.key = Linear(h, h, dtype=dt)
-        self.value = Linear(h, h, dtype=dt)
-        self.out = Linear(h, h, dtype=dt)
+        self.heads = heads or cfg.num_heads
+        width = self.heads * (h // cfg.num_heads)
+        self.query = Linear(h, width, dtype=dt)
+        self.key = Linear(h, width, dtype=dt)
+        self.value = Linear(h, width, dtype=dt)
+        self.out = Linear(width, h, bias=heads is None, dtype=dt)
 
     def forward(self, x, mask):
-        b, length, h = x.shape
-        hd = h // self.heads
+        b, length, _ = x.shape
+        width = self.query.out_features
+        hd = width // self.heads
 
         def split(t):                                   # [B, heads, L, hd]
             return t.view(b, length, self.heads, hd).transpose(1, 2)
@@ -131,7 +144,7 @@ class _Attention(nn.Module):
         w = torch.where(mask[:, None, None, :].bool(), w,
                         torch.finfo(w.dtype).min)
         w = torch.softmax(w, dim=-1)
-        o = (w @ v).transpose(1, 2).reshape(b, length, h)
+        o = (w @ v).transpose(1, 2).reshape(b, length, width)
         return self.out(o)
 
 
@@ -148,7 +161,7 @@ class _Block(nn.Module):
     def forward(self, x, mask):
         dt = x.dtype
         x = x + self.attn(self.ln1(x).to(dt), mask)
-        h = F.gelu(self.mlp_in(self.ln2(x).to(dt)), approximate="tanh")
+        h = gelu(self.mlp_in(self.ln2(x).to(dt)))
         return x + self.mlp_out(h)
 
 
@@ -239,6 +252,23 @@ def training_module(make, device, gen_seed: int) -> nn.Module:
     return flax_init_(module, gen)
 
 
+def serving_module(make, params, seed: int, device) -> nn.Module:
+    """``make()`` in eval mode on ``device``: with ``params`` (a full state
+    dict) its weights are those, and torch's default initialisation is
+    skipped; without, torch's default initialisation from ``seed``, the
+    global generator left as it was."""
+    if params is None:
+        with torch.random.fork_rng(devices=[]):  # seeded init, no leak
+            torch.manual_seed(seed)
+            module = make()
+        return module.to(device).eval()
+    with torch.device("meta"):
+        module = make()
+    module = module.to_empty(device=device)
+    module.load_state_dict(params)          # strict: every weight is set
+    return module.eval()
+
+
 def _pad_rows(arrays, rows: int):
     """Zero rows appended to each [n, L] array up to ``rows``."""
     return [np.pad(a, ((0, rows - a.shape[0]), (0, 0))) for a in arrays]
@@ -265,12 +295,8 @@ class EmbeddingService:
         self.matryoshka_dim = matryoshka_dim
         self.tokenizer = tokenizer or HashTokenizer(self.cfg.vocab_size,
                                                     max_len)
-        with torch.random.fork_rng(devices=[]):  # seeded init, no leak
-            torch.manual_seed(seed)
-            self.model = BiEncoder(self.cfg)
-        if params is not None:
-            self.model.load_state_dict(params)
-        self.model = self.model.to(self.device).eval()
+        self.model = serving_module(lambda: BiEncoder(self.cfg), params, seed,
+                                    self.device)
         self._cache: dict[str, np.ndarray] = {}
         self._cache_size = cache_size
         self._cache_lock = threading.Lock()
@@ -371,12 +397,8 @@ class CrossEncoderService:
         self.max_len = max_len
         self.tokenizer = tokenizer or HashTokenizer(self.cfg.vocab_size,
                                                     max_len)
-        with torch.random.fork_rng(devices=[]):  # seeded init, no leak
-            torch.manual_seed(seed)
-            self.model = CrossEncoder(self.cfg)
-        if params is not None:
-            self.model.load_state_dict(params)
-        self.model = self.model.to(self.device).eval()
+        self.model = serving_module(lambda: CrossEncoder(self.cfg), params,
+                                    seed, self.device)
 
     def _bucket_batch(self, n: int) -> int:
         return next((b for b in self.BATCH_BUCKETS if n <= b),

@@ -33,6 +33,7 @@ from optimized_rag_tpu_torch.device import resolve_device
 from optimized_rag_tpu_torch.models.decoder import (
     MASKED, PAD, DecoderConfig, DecoderLM, Dense, cache_buffers,
     decode_loop, gumbel_pick, left_pad, prefill_masks, texts_of)
+from optimized_rag_tpu_torch.models.encoder import serving_module
 from optimized_rag_tpu_torch.models.training import Trainer
 
 
@@ -256,12 +257,8 @@ class GroundedGenerator:
         self.device = resolve_device(device)
         self.max_prompt_len = max_prompt_len
         self.max_new_tokens = max_new_tokens
-        with torch.random.fork_rng(devices=[]):  # seeded init, no leak
-            torch.manual_seed(seed)
-            self.model = _Grounded(self.cfg)
-        if params is not None:
-            self.model.load_state_dict(params)
-        self.model = self.model.to(self.device).eval()
+        self.model = serving_module(lambda: _Grounded(self.cfg), params, seed,
+                                    self.device)
 
     @torch.inference_mode()
     def _generate(self, ids, pad_len, temperature: float, seed: int,

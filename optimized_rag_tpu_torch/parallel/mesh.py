@@ -10,7 +10,8 @@ GPUs) adds hosts on the ``dcn`` axis.
   dcn    — (multi-host only) one position per process; only the corpus
            and its [B, k] winners cross it
   data   — corpus shards
-  model  — tensor parallelism for training (sets the mesh's shape only)
+  model  — tensor parallelism for training (models/training.py splits
+           the training form's attention and MLP over it)
 
 A row-sharded tensor is one row block per position of its axes, each on
 its own device: the device at model index 0, and on this process's own

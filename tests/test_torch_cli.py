@@ -216,8 +216,8 @@ SMALL_WIDTHS = {"ORAG_ENCODER_HIDDEN_DIM": "32", "ORAG_ENCODER_DIM": "32",
                 "ORAG_CROSS_ENCODER_MLP_DIM": "64"}
 
 
-def test_train_and_local_lm_raise_naming_item_9(tmp_path, monkeypatch,
-                                                capsys):
+def test_train_and_local_lm_run_against_the_jax_cli(tmp_path, monkeypatch,
+                                                   capsys):
     """``train`` (item 9's training half, which used to raise) runs on the
     CPU: ``train --device cpu --steps 2 --batch 8 --no-decoder`` at widths
     set through the environment prints the JAX CLI's lines (the corpus,

@@ -89,6 +89,37 @@ def test_a_package_whose_import_raises_is_harvested_not_imported(packages):
 QUESTIONS = [item.question for item in QA_SHEET]
 
 
+def test_block_walk_meets_every_definition_in_ast_walk_order():
+    """``_walk_blocks`` meets the definitions ``ast.walk`` meets, in its
+    order, over nested, conditional, ``try``, ``with`` and ``match``
+    blocks and over every source file of both packages."""
+    import ast
+    import glob
+    import os
+    kinds = (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)
+    nested = (
+        "def a():\n    def b():\n        class C:\n            def d(s): ...\n"
+        "    return lambda: [x for x in ()]\n"
+        "if x:\n    def e(): ...\nelse:\n    class F: ...\n"
+        "try:\n    def g(): ...\nexcept E:\n    def h(): ...\n"
+        "finally:\n    async def i(): ...\n"
+        "with m() as n:\n    for k in ():\n        def j(): ...\n"
+        "match v:\n    case 1:\n        def l(): ...\n"
+        "while 0:\n    class M:\n        def n(s): ...\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sources = [nested] + [
+        open(f, encoding="utf-8").read() for f in sorted(glob.glob(
+            os.path.join(root, "optimized_rag_tpu*", "**", "*.py"),
+            recursive=True))]
+    for src in sources:
+        tree = ast.parse(src)
+        want = [n for n in ast.walk(tree) if isinstance(n, kinds)]
+        assert [n for n in pc._walk_blocks(tree)
+                if isinstance(n, kinds)] == want
+    assert len([n for n in pc._walk_blocks(ast.parse(nested))
+                if isinstance(n, kinds)]) == 13
+
+
 @pytest.mark.parametrize("lang", ["pt", "es", "fr", "de"])
 def test_translate_en_equals_jax(lang):
     assert len(QUESTIONS) >= 20

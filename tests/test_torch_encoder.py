@@ -105,3 +105,25 @@ def test_embedding_cache_and_buckets():
     np.testing.assert_allclose(np.linalg.norm(a, axis=1), 1.0, atol=1e-5)
     np.testing.assert_array_equal(svc.encode(["z"])[0], a[2])
     assert svc.cache_stats()["hits"] == 2 and svc._bucket_batch(33) == 64
+
+
+def test_services_given_weights_hold_them_and_leave_the_generator():
+    """A service given a state dict holds exactly those weights (torch's
+    default initialisation skipped) and leaves the global generator as it
+    was; without one, its weights are the seeded random init."""
+    from optimized_rag_tpu_torch.models.encoder import CrossEncoderService
+    cfg = TransformerConfig(vocab_size=256, hidden_dim=32, num_layers=1,
+                            num_heads=2, mlp_dim=64, max_seq_len=32,
+                            out_dim=16)
+    for make in (EmbeddingService, CrossEncoderService):
+        ref = make(cfg, seed=3, max_len=32, device="cpu")
+        want = {k: v + 1 for k, v in ref.model.state_dict().items()}
+        state = torch.random.get_rng_state()
+        got = make(cfg, params=want, max_len=32, device="cpu")
+        assert torch.equal(torch.random.get_rng_state(), state)
+        assert not got.model.training
+        for k, v in got.model.state_dict().items():
+            assert v.dtype == want[k].dtype and torch.equal(v, want[k]), k
+        again = make(cfg, seed=3, max_len=32, device="cpu")
+        for k, v in again.model.state_dict().items():
+            assert torch.equal(v, ref.model.state_dict()[k]), k

@@ -22,6 +22,8 @@ from optimized_rag_tpu_torch.engine.consistency import ConsistencyChecker
 from optimized_rag_tpu_torch.engine.rerank import SelectiveReranker
 from optimized_rag_tpu_torch.engine.wrangler import (
     DataWrangler, Deduplicator)
+from optimized_rag_tpu_torch.eval import (
+    encoder_gauntlet, holdout_probes, qa_sheet)
 from optimized_rag_tpu_torch.index.dense import DenseIndex
 from optimized_rag_tpu_torch.index.ivf import IVFIndex
 from optimized_rag_tpu_torch.index.lexical import LexicalIndex
@@ -60,11 +62,13 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
-    assert len(_submodules()) >= 90
+    assert len(_submodules()) >= 94
     for m in ("parallel.mesh", "parallel.sharded_topk", "parallel.sharded_ivf",
               "models.decoder", "models.grounded", "models.training",
               "models.loader", "models.grounded_data", "models.corpus",
-              "models.xlingual", "eval.llm_endpoint", "store.checkpoint"):
+              "models.xlingual", "eval.llm_endpoint", "store.checkpoint",
+              "eval.qa_sheet", "eval.holdout_probes", "eval.kg_eval",
+              "eval.encoder_gauntlet"):
         assert f"optimized_rag_tpu_torch.{m}" in _submodules()
 
 
@@ -137,7 +141,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
                  lambda: pretrain.train_cross_encoder(["a b c"], tiny),
                  lambda: pretrain.train_decoder(["a b c"], tiny_lm),
                  lambda: pretrain.train_grounded(["a b c"], tiny_grounded),
-                 lambda: cli.main(["train", "--steps", "1"])):
+                 lambda: cli.main(["train", "--steps", "1"]),
+                 lambda: qa_sheet.main(["--no-pt"]),
+                 lambda: holdout_probes.main([]),
+                 lambda: encoder_gauntlet.run_gauntlet()):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     report = check_device_health(timeout_s=60, matmul_dim=8)

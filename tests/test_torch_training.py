@@ -7,8 +7,10 @@ give losses within 1e-5 relative and weights within 1e-5 absolute
 (attention-key biases apart: ``tests/train_parity.py``). In bfloat16 one
 step gives the loss within 1e-2 relative and every weight within 2.5 lr.
 A data=4 mesh (four logical CPU devices) holds the JAX trainer on four of
-its eight virtual devices and the port's one-device step; a model axis
-above 1 raises, naming the ROADMAP item.
+its eight virtual devices and the port's one-device step; a model=2 mesh
+and a one-process multi-host mesh take the one-device step too
+(``tests/test_torch_tensor_parallel.py`` holds the model axis against the
+JAX trainers).
 """
 
 import jax
@@ -245,19 +247,37 @@ def test_data4_mesh_matches_jax_and_one_device(name, rng):
         port.train_step(*[a[:6] for a in batch(rng)])
 
 
-def test_model_axis_and_dcn_raise_naming_the_roadmap_item():
+def test_model_axis_step_and_dcn_mesh_on_one_process(rng):
+    """A model=2 mesh (two head parts on one device, their partial sums
+    added) and a multi-host mesh of one process (dcn=1, its data rows this
+    process's) each take the one-device steps; a dcn axis above 1 needs a
+    process group of that size."""
+    from optimized_rag_tpu_torch.parallel.mesh import (
+        Mesh, make_multihost_mesh)
     _, pc = tp.configs("encoder", "float32")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        pt.BiEncoderTrainer(pc, make_mesh(data=1, model=2,
-                                          devices=[CPU] * 2))
-    from optimized_rag_tpu_torch.parallel.mesh import make_multihost_mesh
+    one = pt.BiEncoderTrainer(pc, port_mesh())
     mesh = make_multihost_mesh(devices=[CPU] * 2)
     assert mesh.shape == {"dcn": 1, "data": 2, "model": 1}
-    assert len(pt.data_devices(mesh)) == 2
-    mesh.devices = np.stack([mesh.devices, mesh.devices])
-    mesh.axis_names = ("dcn", "data", "model")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        pt.data_devices(mesh)
+    assert pt.data_rows(mesh) == [[CPU], [CPU]]
+    split = pt.BiEncoderTrainer(pc, make_mesh(data=1, model=2,
+                                              devices=[CPU] * 2))
+    hosts = pt.BiEncoderTrainer(pc, mesh)
+    split.params = hosts.params = one.params
+    for _ in range(2):
+        args = tp.encoder_batch(rng)
+        want = one.train_step(*args)
+        for other in (split, hosts):
+            np.testing.assert_allclose(other.train_step(*args), want,
+                                       rtol=tp.F32_LOSS_RTOL)
+    for other in (split, hosts):
+        tp.hold_weights(tp.port_flat(one.params, "encoder", pc),
+                        tp.port_flat(other.params, "encoder", pc),
+                        tp.F32_WEIGHT_ATOL, pc.hidden_dim, 1e-4, 2)
+    two = Mesh(np.concatenate([mesh.devices, mesh.devices]),
+               mesh.axis_names)
+    assert two.shape == {"dcn": 2, "data": 2, "model": 1}
+    with pytest.raises(ValueError, match="torch.distributed group of 2"):
+        pt.BiEncoderTrainer(pc, two)
 
 
 def test_trainers_start_from_flax_init_on_their_device():

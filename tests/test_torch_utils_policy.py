@@ -57,7 +57,7 @@ def test_build_index_for_dense_on_the_device_asked():
 
 @pytest.mark.parametrize("kind,item", [
     ("sharded_dense", "item 8"), ("sharded_ivf", "item 8")])
-def test_build_index_for_kinds_not_ported_raise(kind, item):
+def test_build_index_for_builds_the_sharded_kinds(kind, item):
     """The sharded kinds, no longer raising since ROADMAP Queue 1 ``item``
     ported them, build the JAX package's index types and settings over a
     mesh of the same shape; a missing mesh and an unknown kind raise."""

@@ -1,0 +1,8 @@
+"""search_ms.batch: mean host time of one DenseIndex.search call that
+starts in the window (it returns numpy, so the device work is in it)."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.mean_ms(run, "search")

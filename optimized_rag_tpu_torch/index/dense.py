@@ -32,6 +32,7 @@ from optimized_rag_tpu_torch.ops.similarity import normalize
 from optimized_rag_tpu_torch.ops.topk import (
     certificate_uncovered, chunked_topk, dispatch_topk, rescore_topk,
     tiled_topk)
+from optimized_rag_tpu_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int8": torch.int8}
@@ -197,54 +198,74 @@ class DenseIndex:
             return scores.cpu().numpy(), ids, "direct"
         if certificate_uncovered(ids) == 0:   # certified exact
             return scores.cpu().numpy(), ids[:-1], "certified"
-        s2, i2 = tiled_topk(q, self._emb, kk, size=self.size, tile=self.tile,
-                            row_scale=self._scale)
-        return s2.cpu().numpy(), i2.cpu().numpy(), "fallback"
+        with span("search.fallback"):
+            s2, i2 = tiled_topk(q, self._emb, kk, size=self.size,
+                                tile=self.tile, row_scale=self._scale)
+            return s2.cpu().numpy(), i2.cpu().numpy(), "fallback"
 
     def search(self, queries, k: int, *, prefer_kernel=None,
                approx_tile_k: int | None = None) -> DenseSearchResult:
-        """Top-k over live rows. queries [B, dim] (any scale)."""
-        q = normalize(torch.atleast_2d(torch.as_tensor(queries).to(
-            self.device)).float())
-        b = q.shape[0]
-        if self.size == 0:
-            return DenseSearchResult(np.full((b, k), -np.inf, np.float32),
-                                     np.full((b, k), -1, np.int64))
-        # Oversample past tombstones (zeroed rows score 0.0 and could
-        # otherwise crowd out genuinely negative matches).
-        slack = min(len(self._tombstones), max(0, self.size - k))
-        kk = min(k + slack, self.size)
-        # Candidates to scan for: int8 and bf16 oversample 4x in the
-        # low-precision scan, then rescore the candidates in float32.
-        if self.quantized:
-            cc = min(4 * kk, self.size)
-        elif self.dtype == torch.bfloat16 and self.size > 4 * kk:
-            cc = 4 * kk
-        else:
-            cc = kk
-        c_s, cand = dispatch_topk(q, self._emb, cc, size=self.size,
-                                  prefer_kernel=prefer_kernel, tile=self.tile,
-                                  approx_tile_k=approx_tile_k,
-                                  defer_certificate=True,
-                                  row_scale=self._scale)
-        scores, ids, route = self._settle_certificate(
-            q, c_s, cand.cpu().numpy(), cc)
-        if cc != kk or self.quantized:
-            scores, ids = rescore_topk(q, self._emb, torch.as_tensor(
-                ids, device=self.device), kk, row_scale=self._scale)
-            scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
-        ids = ids.astype(np.int64)
-        if self._tombstones or kk > k:
-            out_s = np.full((b, k), -np.inf, np.float32)
-            out_i = np.full((b, k), -1, np.int64)
-            for r in range(b):
-                cols = [c for c in range(kk)
-                        if ids[r, c] >= 0 and
-                        int(ids[r, c]) not in self._tombstones][:k]
-                out_s[r, :len(cols)] = scores[r, cols]
-                out_i[r, :len(cols)] = ids[r, cols]
-            return DenseSearchResult(out_s, out_i, route)
-        return DenseSearchResult(scores, ids, route)
+        """Top-k over live rows. queries [B, dim] (any scale).
+
+        While a profiler session is active it records ``search`` (B, k,
+        cc, route, and the certificate's uncovered count where there is
+        one) and, under it, ``search.prepare`` (normalise and copy in),
+        ``search.scan`` (the top-k issued), ``search.wait`` (the
+        candidates' copy back, which waits for the scan),
+        ``search.fallback`` (the exact rerun after a nonzero certificate,
+        with its copy), ``search.rescore`` and ``search.filter`` (the
+        tombstones)."""
+        with span("search") as sp:
+            with span("search.prepare"):
+                q = normalize(torch.atleast_2d(torch.as_tensor(queries).to(
+                    self.device)).float())
+            b = q.shape[0]
+            if self.size == 0:
+                return DenseSearchResult(np.full((b, k), -np.inf, np.float32),
+                                         np.full((b, k), -1, np.int64))
+            # Oversample past tombstones (zeroed rows score 0.0 and could
+            # otherwise crowd out genuinely negative matches).
+            slack = min(len(self._tombstones), max(0, self.size - k))
+            kk = min(k + slack, self.size)
+            # Candidates to scan for: int8 and bf16 oversample 4x in the
+            # low-precision scan, then rescore the candidates in float32.
+            if self.quantized:
+                cc = min(4 * kk, self.size)
+            elif self.dtype == torch.bfloat16 and self.size > 4 * kk:
+                cc = 4 * kk
+            else:
+                cc = kk
+            with span("search.scan"):
+                c_s, cand = dispatch_topk(
+                    q, self._emb, cc, size=self.size,
+                    prefer_kernel=prefer_kernel, tile=self.tile,
+                    approx_tile_k=approx_tile_k, defer_certificate=True,
+                    row_scale=self._scale)
+            with span("search.wait"):
+                cand = cand.cpu().numpy()
+            scores, ids, route = self._settle_certificate(q, c_s, cand, cc)
+            if sp:
+                sp.attrs.update(B=b, k=k, cc=cc, route=route)
+                if route != "direct":
+                    sp.attrs["uncovered"] = certificate_uncovered(cand)
+            if cc != kk or self.quantized:
+                with span("search.rescore"):
+                    scores, ids = rescore_topk(q, self._emb, torch.as_tensor(
+                        ids, device=self.device), kk, row_scale=self._scale)
+                    scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
+            ids = ids.astype(np.int64)
+            if self._tombstones or kk > k:
+                with span("search.filter"):
+                    out_s = np.full((b, k), -np.inf, np.float32)
+                    out_i = np.full((b, k), -1, np.int64)
+                    for r in range(b):
+                        cols = [c for c in range(kk)
+                                if ids[r, c] >= 0 and
+                                int(ids[r, c]) not in self._tombstones][:k]
+                        out_s[r, :len(cols)] = scores[r, cols]
+                        out_i[r, :len(cols)] = ids[r, cols]
+                    return DenseSearchResult(out_s, out_i, route)
+            return DenseSearchResult(scores, ids, route)
 
     def search_tail(self, queries, k: int, from_row: int
                     ) -> DenseSearchResult:

@@ -41,6 +41,7 @@ from torch import nn
 
 from optimized_rag_tpu_torch.device import resolve_device
 from optimized_rag_tpu_torch.models.tokenizer import HashTokenizer
+from optimized_rag_tpu_torch.utils.profiling import span
 
 _LN_EPS = 1e-6
 
@@ -314,43 +315,65 @@ class EmbeddingService:
 
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
-            out = self.model(torch.from_numpy(ids).long().to(self.device),
-                             torch.from_numpy(mask).to(self.device))
-        return out.float().cpu().numpy()
+            with span("encode.upload"):
+                ids_t = torch.from_numpy(ids).long().to(self.device)
+                mask_t = torch.from_numpy(mask).to(self.device)
+            with span("encode.forward"):
+                out = self.model(ids_t, mask_t)
+            with span("encode.fetch"):
+                return out.float().cpu().numpy()
 
     def encode(self, texts: list[str]) -> np.ndarray:
-        """Embed a list of texts -> [n, dim] float32 unit vectors."""
-        out = np.zeros((len(texts), self.dim), np.float32)
-        todo_idx: list[int] = []
-        seen: dict[str, list[int]] = {}
-        with self._cache_lock:
-            for i, t in enumerate(texts):
-                hit = self._cache.get(t)
-                if hit is not None:
-                    out[i] = hit
-                    self.stats["hits"] += 1
-                elif t in seen:          # duplicate within this batch
-                    seen[t].append(i)
-                    self.stats["hits"] += 1
-                else:
-                    seen[t] = []
-                    todo_idx.append(i)
-                    self.stats["misses"] += 1
-        if todo_idx:
-            todo = [texts[i] for i in todo_idx]
-            ids, mask = self.tokenizer.encode_batch(todo, self.max_len)
-            ids, mask = _pad_rows((ids, mask), self._bucket_batch(len(todo)))
-            emb = self._forward(ids, mask)[:len(todo)]
-            if self.matryoshka_dim:
-                emb = np.array(emb[:, :self.matryoshka_dim])
-                emb /= np.maximum(
-                    np.linalg.norm(emb, axis=1, keepdims=True), 1e-9)
-            with self._cache_lock:
-                for j, i in enumerate(todo_idx):
-                    out[i] = emb[j]
-                    for dup in seen.get(texts[i], ()):
-                        out[dup] = emb[j]
-                    self._cache_insert(texts[i], emb[j])
+        """Embed a list of texts -> [n, dim] float32 unit vectors.
+
+        While a profiler session is active it records ``encode`` (texts,
+        misses, bucket) and, under it, ``encode.cache`` (the lookup under
+        the lock), ``encode.tokenize`` (tokenizer and padding),
+        ``encode.upload`` (the tokens' copy to the device, which waits for
+        the work queued on its stream), ``encode.forward`` (the module call:
+        the forward issued), ``encode.fetch`` (the wait for the device and
+        the copy back) and ``encode.store`` (the Matryoshka cut and the
+        cache insert)."""
+        with span("encode") as sp:
+            out = np.zeros((len(texts), self.dim), np.float32)
+            todo_idx: list[int] = []
+            seen: dict[str, list[int]] = {}
+            with span("encode.cache"), self._cache_lock:
+                for i, t in enumerate(texts):
+                    hit = self._cache.get(t)
+                    if hit is not None:
+                        out[i] = hit
+                        self.stats["hits"] += 1
+                    elif t in seen:          # duplicate within this batch
+                        seen[t].append(i)
+                        self.stats["hits"] += 1
+                    else:
+                        seen[t] = []
+                        todo_idx.append(i)
+                        self.stats["misses"] += 1
+            if sp:
+                sp.attrs.update(texts=len(texts), misses=len(todo_idx))
+            if todo_idx:
+                todo = [texts[i] for i in todo_idx]
+                bucket = self._bucket_batch(len(todo))
+                with span("encode.tokenize"):
+                    ids, mask = self.tokenizer.encode_batch(todo,
+                                                            self.max_len)
+                    ids, mask = _pad_rows((ids, mask), bucket)
+                if sp:
+                    sp.attrs["bucket"] = bucket
+                emb = self._forward(ids, mask)[:len(todo)]
+                with span("encode.store"):
+                    if self.matryoshka_dim:
+                        emb = np.array(emb[:, :self.matryoshka_dim])
+                        emb /= np.maximum(
+                            np.linalg.norm(emb, axis=1, keepdims=True), 1e-9)
+                    with self._cache_lock:
+                        for j, i in enumerate(todo_idx):
+                            out[i] = emb[j]
+                            for dup in seen.get(texts[i], ()):
+                                out[dup] = emb[j]
+                            self._cache_insert(texts[i], emb[j])
         return out
 
     def _cache_insert(self, text: str, vec: np.ndarray) -> None:

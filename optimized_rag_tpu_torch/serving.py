@@ -13,6 +13,14 @@ or when the wait deadline passes with no dispatch in flight; batches and k
 are padded to powers of two; the bounded hand-off queue gives the collector
 backpressure. All threads are daemons, and ``stop()`` joins them.
 
+While a profiler session is active (``utils.profiling.span``) the server
+records ``serve.collect`` (first request taken to batch emitted),
+``serve.handoff`` (emitted to taken by a worker, the backpressure
+included), ``serve.dispatch`` (the batch on its worker, with the requests'
+queue waits) and ``serve.settle`` (the futures settled, callers' callbacks
+inline); a batch's id is on the first three, and its ``encode`` and
+``search`` spans lie under its ``serve.dispatch``.
+
 Usage:
     server = QueryServer(embed_fn, index, max_batch=64, max_wait_ms=5)
     server.start()
@@ -22,6 +30,7 @@ Usage:
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -30,6 +39,8 @@ from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
 import numpy as np
+
+from optimized_rag_tpu_torch.utils.profiling import detached, span
 
 
 @dataclass
@@ -179,11 +190,12 @@ class QueryServer:
         self.max_k = max_k
         self.workers = workers
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
-        self._batches: "queue.Queue[Optional[List[_Request]]]" = \
+        self._batches: "queue.Queue[Optional[tuple]]" = \
             queue.Queue(maxsize=max(workers, 1))
         self._threads: List[threading.Thread] = []
         self._running = False
         self._inflight = 0
+        self._batch_ids = itertools.count()
         self._stats_lock = threading.Lock()
         self.stats = {"batches": 0, "queries": 0, "max_batch_seen": 0,
                       "wait_ms_sum": 0.0}
@@ -243,7 +255,7 @@ class QueryServer:
             b *= 2
         return min(b, max(self.max_batch, n))
 
-    def _collect(self, q) -> List[_Request]:
+    def _collect(self, q, bid: int) -> List[_Request]:
         """Block for the first request, then coalesce.
 
         Emits when the batch is full, or when the wait deadline passes
@@ -254,6 +266,7 @@ class QueryServer:
         first = q.get()
         if first is None:
             return []
+        sp = detached("serve.collect")
         batch = [first]
         deadline = time.perf_counter() + self.max_wait_s
         graced = False
@@ -285,18 +298,25 @@ class QueryServer:
                 q.put(None)  # stop after this batch drains
                 break
             batch.append(req)
+        if sp:
+            sp.attrs.update(batch=bid, n=len(batch))
+        sp.finish()
         return batch
 
     def _collector_loop(self, q, batches) -> None:
         while self._running:
-            batch = self._collect(q)
+            bid = next(self._batch_ids)
+            batch = self._collect(q, bid)
             if not batch:
                 break
+            handoff = detached("serve.handoff")
+            if handoff:
+                handoff.attrs["batch"] = bid
             with self._stats_lock:
                 self._inflight += 1
             # Blocks when `workers` batches are already in flight —
             # backpressure keeps coalescing ahead of dispatch.
-            batches.put(batch)
+            batches.put((bid, handoff, batch))
         # Drain: anything still queued after stop() must fail fast, not
         # leave callers hanging in future.result(timeout).
         while True:
@@ -311,44 +331,55 @@ class QueryServer:
 
     def _dispatch_loop(self, batches) -> None:
         while True:
-            batch = batches.get()
-            if batch is None:
+            item = batches.get()
+            if item is None:
                 break
+            bid, handoff, batch = item
+            handoff.finish()
             t0 = time.perf_counter()
-            try:
-                # k and the batch are bucketed to powers of two as in the
-                # JAX package, so both search the same shapes.
-                k_eff = min(self._bucket(max(r.k for r in batch)),
-                            self.max_k)
-                texts = [r.query for r in batch]
-                bucket = self._bucket(len(texts))
-                texts += [texts[-1]] * (bucket - len(texts))
-                q = self.embed_fn(texts)
-                res = self.index.search(np.atleast_2d(q), k=k_eff)
-                scores, ids = (res.scores, res.ids) \
-                    if hasattr(res, "scores") else res
-                for row, req in enumerate(batch):
-                    # A caller may have cancelled (e.g. its own timeout) —
-                    # including between a cancelled() check and set_result.
-                    # Settle each future independently so one racing cancel
-                    # can never poison the rest of the batch (ADVICE r2).
-                    try:
-                        req.future.set_result(
-                            (scores[row, : req.k], ids[row, : req.k]))
-                    except InvalidStateError:
-                        pass
-            except Exception as exc:
-                for req in batch:
-                    if not req.future.done():
-                        req.future.set_exception(exc)
+            waits = [(t0 - r.enqueued_at) * 1e3 for r in batch]
+            with span("serve.dispatch") as sp:
+                try:
+                    # k and the batch are bucketed to powers of two as in
+                    # the JAX package, so both search the same shapes.
+                    k_eff = min(self._bucket(max(r.k for r in batch)),
+                                self.max_k)
+                    texts = [r.query for r in batch]
+                    bucket = self._bucket(len(texts))
+                    if sp:
+                        sp.attrs.update(batch=bid, n=len(batch),
+                                        bucket=bucket, k_eff=k_eff,
+                                        wait_ms_sum=sum(waits),
+                                        wait_ms_max=max(waits))
+                    texts += [texts[-1]] * (bucket - len(texts))
+                    q = self.embed_fn(texts)
+                    res = self.index.search(np.atleast_2d(q), k=k_eff)
+                    scores, ids = (res.scores, res.ids) \
+                        if hasattr(res, "scores") else res
+                    with span("serve.settle"):
+                        for row, req in enumerate(batch):
+                            # A caller may have cancelled (e.g. its own
+                            # timeout) — including between a cancelled()
+                            # check and set_result. Settle each future
+                            # independently so one racing cancel can never
+                            # poison the rest of the batch.
+                            try:
+                                req.future.set_result(
+                                    (scores[row, : req.k],
+                                     ids[row, : req.k]))
+                            except InvalidStateError:
+                                pass
+                except Exception as exc:
+                    for req in batch:
+                        if not req.future.done():
+                            req.future.set_exception(exc)
             with self._stats_lock:
                 self._inflight -= 1
                 self.stats["batches"] += 1
                 self.stats["queries"] += len(batch)
                 self.stats["max_batch_seen"] = max(
                     self.stats["max_batch_seen"], len(batch))
-                self.stats["wait_ms_sum"] += sum(
-                    (t0 - r.enqueued_at) * 1e3 for r in batch)
+                self.stats["wait_ms_sum"] += sum(waits)
 
     def get_stats(self) -> dict:
         with self._stats_lock:

@@ -14,6 +14,7 @@ JAX package's outputs.
 import json
 import logging
 import os
+import threading
 import time
 
 import numpy as np
@@ -141,14 +142,63 @@ def test_stage_timer_matches_jax(monkeypatch):
     assert set(stats[0]) == {"turn", "turn/retrieve", "turn/generate"}
 
 
-def test_stage_timer_export(tmp_path):
+def test_stage_timer_keeps_a_stack_per_thread(monkeypatch):
+    """Two threads nest spans at once, one step at a time in turn (held in
+    step by a barrier): each span's path and duration are its own
+    thread's. The clock reads k*k at its k-th read."""
+    reads = iter(float(k * k) for k in range(100))
+    monkeypatch.setattr(profiling, "time", _Clock("perf_counter",
+                                                  lambda: next(reads)))
     t = profiling.StageTimer()
-    with t.span("x"):
-        pass
-    t.export(metrics_export.MetricsExporter(str(tmp_path)))
-    (path,) = list(tmp_path.iterdir())
-    rec = json.loads(path.read_text())
-    assert rec["kind"] == "stage_timings" and rec["stages"]["x"]["count"] == 1
+    step = threading.Barrier(2, timeout=30)
+    names = {"a": ("turn", "retrieve"), "b": ("ingest", "embed")}
+
+    def run(me):
+        outer, inner = t.span(names[me][0]), t.span(names[me][1])
+        # Steps in turn: a opens its outer span, then b, a its inner, b,
+        # then a closes its inner, b, a its outer, b.
+        for act in (outer.__enter__, inner.__enter__,
+                    lambda: inner.__exit__(None, None, None),
+                    lambda: outer.__exit__(None, None, None)):
+            for who in "ab":
+                if who == me:
+                    act()
+                step.wait()
+    threads = [threading.Thread(target=run, args=(me,)) for me in "ab"]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=30)
+    assert not any(th.is_alive() for th in threads)
+    # Reads 0-7: a outer, b outer, a inner, b inner, then the same closing.
+    assert {p: (s["count"], s["total_s"]) for p, s in t.stats().items()} \
+        == {"turn": (1, 36.0 - 0.0), "ingest": (1, 49.0 - 1.0),
+            "turn/retrieve": (1, 16.0 - 4.0),
+            "ingest/embed": (1, 25.0 - 9.0)}
+
+
+def test_stage_timer_keeps_its_last_records():
+    """With a capacity the timer keeps its last spans as records (in the
+    order they closed); its stats still count every span."""
+    t = profiling.StageTimer(capacity=4)
+    t0 = time.perf_counter()
+    for j in range(5):
+        with t.span("turn") as outer:
+            outer.attrs["j"] = j
+            with t.span("retrieve"):
+                pass
+    recs = t.records(t0)
+    assert t.stats()["turn"]["count"] == t.stats()["turn/retrieve"][
+        "count"] == 5
+    assert [(r.name, r.attrs) for r in recs] == [
+        ("retrieve", {}), ("turn", {"j": 3}), ("retrieve", {}),
+        ("turn", {"j": 4})]
+    for kid, top in (recs[:2], recs[2:]):
+        assert (kid.parent, top.parent) == (top.id, None)
+        assert top.start_ns <= kid.start_ns <= kid.end_ns <= top.end_ns
+        assert 0 <= kid.cpu_ns and 0 <= top.cpu_ns
+    assert {r.thread for r in recs} == {threading.get_native_id()}
+    assert t.records(t0, t0) == [] and t.records(time.perf_counter()) == []
 
 
 def test_device_trace_and_annotate_on_the_cpu(tmp_path):

@@ -33,7 +33,8 @@ Phases, each printing one JSON line with its seconds:
                chunked exact f32 oracle's ids; a 131,072-row index routes to
                K6 alone; 64 queries go one at a time through the certified
                search, and each answer its certificate passes is held against
-               the oracle; a forced fallback reruns K6;
+               the oracle; a forced fallback repairs its uncovered pairs
+               (K4p), and with every pair named reruns K6;
 5. ``slice_bf16`` the same rows in bf16 storage through DenseIndex.search,
                held against the plain bf16-scan, top-40, f32-rescore
                pipeline, and its certified answers one query at a time;
@@ -45,12 +46,12 @@ Phases, each printing one JSON line with its seconds:
                stored codes held against quantize_int8 on the card); the
                same two QueryServer loads, a direct search of 64 queries
                and a 131,072-row index (K7 alone); every answer held
-               against the oracle of the route its batch took (certified:
-               exact int8-native scores; fallback
-               or direct: K7's scoring, differences allowed only at a
-               near-tied cc-th candidate, counted); 64 queries alone through
-               the certified int8 search; recall@10 against the f32 oracle of
-               the unquantized rows printed, not gated;
+               against the oracle of the route its batch took (certified,
+               and fallback, whose uncovered pairs K4p repairs: exact
+               int8-native scores; direct: K7's scoring, differences allowed
+               only at a near-tied cc-th candidate, counted); 64 queries
+               alone through the certified int8 search; recall@10 against
+               the f32 oracle of the unquantized rows printed, not gated;
 7. ``slice_hybrid`` the retrieval half of a chat turn: 262,144 chunks (the
                qa_docs chunks and seeded 40-word filler chunks of their own
                words, created over the last 365 days) embedded by the
@@ -274,8 +275,11 @@ Phases, each printing one JSON line with its seconds:
                codes on the int8-native (union 64, pad_r 26) and scaled
                (K2 -> K5a) routes, and F; every certified or verified answer
                equals its route's oracle, a nonzero certificate's rerun
-               too, and its rerun is timed in the route's record; qps and
-               ms per route and batch. Every kernel call the
+               too, and its rerun is timed in the route's record; the batch
+               cell's scan, dispatch_topk of 4,096 queries at k=40 (four
+               sub-batches; K4p repairs the pairs a nonzero certificate
+               leaves), held against the oracle up to near-tie swaps; qps
+               and ms per route and batch. Every kernel call the
                routes make is recorded, and one call of each distinct
                shape is held against its twin and timed there.
 
@@ -340,6 +344,8 @@ N_QUERIES, N_CLIENTS = 256, 8
 # x 128 bf16 rows, tile 4096, k 10, batches of 1024 and 512.
 N_BENCH, DIM_BENCH, BENCH_TILE = 10_485_760, 128, 4096
 B_HEAD, B_CMP = 1024, 512
+# The batch cell's scan (portbench): 4,096 queries at k = 4 x 10.
+B_BATCH, K_BATCH = 4096, 40
 MAX_DEVICE_BYTES = 30e9
 TIE_TOL = 1e-5                    # f32 scores: ~1e-7 summation-order drift
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 on the CUDA
@@ -474,8 +480,8 @@ def int8_oracle(qn, c8, cs, size, k):
     """Top-k of an int8 corpus under both of the int8 search's scorings,
     ties to the lower row, for queries ``qn`` [M, D] normalised as the
     index normalised them. "certified": the int8-native score, a float32
-    product of the codes (exact below 2**24), * cs, * qs; "k7": the
-    fallback's, bf16(q) x codes, an f32 sum, * cs."""
+    product of the codes (exact below 2**24), * cs, * qs; "k7": the tiled
+    search's, bf16(q) x codes, an f32 sum, * cs."""
     from optimized_rag_tpu_torch.ops.quantize import quantize_int8
     q8, qs = quantize_int8(qn)
     q8f, qb = q8.float(), qn.to(torch.bfloat16).float()
@@ -501,17 +507,18 @@ def rescore_oracle(qn, c8, cs, cand, kk):
 
 def hold_route(what, route, ids, vals, oracle, qn, c8, cs, cc, kk):
     """Answers [B, >=k] of one int8 search against the oracle of the route
-    it took. Certified: every id equal to the pipeline of exact int8-native
-    scores, top-cc, f32 rescore, top-kk. Fallback or direct (K7): the same
-    pipeline with K7's scoring; an answer may differ only where the
-    oracle's cc-th and (cc+1)-th candidates score within TIE_TOL (K7 sums
-    in another order). Returns the count of such boundary differences."""
-    o_s, o_i = oracle["certified" if route == "certified" else "k7"]
+    it took. Certified or fallback (the pairs the covers left, repaired by
+    K4p scoring as K5b): every id equal to the pipeline of exact int8-native
+    scores, top-cc, f32 rescore, top-kk. Direct (K7): the same pipeline
+    with K7's scoring; an answer may differ only where the oracle's cc-th
+    and (cc+1)-th candidates score within TIE_TOL (K7 sums in another
+    order). Returns the count of such boundary differences."""
+    o_s, o_i = oracle["k7" if route == "direct" else "certified"]
     want_s, want_i = rescore_oracle(qn, c8, cs, o_i[:, :cc], kk)
     k = ids.shape[1]
     differ = (ids.long() != want_i[:, :k]).any(dim=1)
     edge = (o_s[:, cc - 1] - o_s[:, cc]).abs() <= TIE_TOL
-    if route == "certified":
+    if route != "direct":
         check_answers(what, ids, vals, want_i[:, :k], want_s[:, :k])
         return 0
     bad = differ & ~edge
@@ -608,6 +615,10 @@ def call_operands(name, args):
     if name == "scan_floor":
         q, corpus, tile = args
         return q, corpus, None, None, tile, 1, None, args
+    if name == "extract_pairs":           # tiles: the pairs' tiles
+        q, corpus, size, tile, m, pair_tile, _, *scales = args
+        return (q, corpus, scales[0] if scales else None, size, tile, m,
+                pair_tile, args)
     core = args
     if name.startswith("packed"):         # drop the range flag, if passed
         core = args[:{"dense": 5, "scaled": 6, "int8": 7}[kind]]
@@ -696,6 +707,8 @@ def hold_call(K_, T_, name, args, reps, where, plain_reps=None):
     bits name; selections within TIE_TOL, near-tie swaps only; F within
     TIE_TOL. Returns the record: errors, ms, plain_ms, library_ms, bytes,
     flops, bound_ms, bound_by and the call's shape."""
+    if name == "extract_pairs":
+        return hold_pairs(K_, args, reps, where, plain_reps)
     kind = kernel_kind(name)
     q, corpus, cs, size, tile, m, tiles, core = call_operands(name, args)
     b, (n, d) = q.shape[0], corpus.shape
@@ -786,6 +799,100 @@ def hold_call(K_, T_, name, args, reps, where, plain_reps=None):
     rec["bound_ms"], rec["bound_by"] = bound_ms(rec["bytes"], rec["flops"],
                                                 peak)
     return rec
+
+
+def hold_pairs(K_, args, reps, where, plain_reps=None):
+    """K4p on ``args`` (``extract_pairs``'s, as ``repair_uncovered`` passes
+    them) against its twin on the same inputs, each pair's list held as a
+    selection of its query over its tile (int8-native bit for bit), then
+    timed beside the twin and a library yardstick: each pair's tile
+    gathered, a batched matmul with its query, ``torch.topk``. A block of
+    up to 64 pairs of one tile reads the tile's live rows once. Returns the
+    record ``hold_call`` returns, U the pairs' count."""
+    q, corpus, size, tile, m, pt, pq, *scales = args
+    row_scale, q_scale = (*scales, None, None)[:2]
+    native = q.dtype == torch.int8
+    if native:
+        qt, rows_dtype = q, None
+    elif row_scale is not None:
+        qt, rows_dtype = K_._bf16_queries(q), K_.scaled_rows_dtype(corpus)
+    else:
+        qt, rows_dtype = K_._scan_queries(q, corpus), None
+    kernel = lambda: K_.extract_pairs(*args)
+    plain = lambda: K_.extract_pairs_plain(
+        qt, corpus, size, tile, m, pt, pq, row_scale=row_scale,
+        q_scale=q_scale, rows_dtype=rows_dtype)
+    (v, i), (v_p, i_p) = kernel(), plain()
+    if native:
+        differ = int((v != v_p).sum()) + int((i != i_p).sum())
+        if differ:
+            raise AssertionError(f"{where} extract_pairs: {differ} values "
+                                 "differ from the twin's")
+        rec = {"max_abs_err": 0.0, "tolerance": 0.0}
+    else:
+        # One selection per pair, [1, rounds, P]: pair j's query is row j.
+        base = (pt.long() * tile)[None, :]
+        err, swaps = check_selection(
+            f"{where} extract_pairs", qt[pq], corpus, (i.long() + base)[None],
+            v[None], (i_p.long() + base)[None], v_p[None],
+            row_scale=row_scale, rows_dtype=rows_dtype)
+        rec = {"max_abs_err": err, "tolerance": TIE_TOL,
+               "near_tie_swaps": swaps}
+    del v, i, v_p, i_p
+    n, d = corpus.shape
+    t_ids = pt.long()
+    rows3 = corpus.view(n // tile, tile, d)
+    if corpus.dtype == torch.bfloat16 and not native and row_scale is None:
+        qs, label = qt.to(torch.bfloat16), "bf16 torch.bmm"
+    else:
+        qs, label = qt.float(), "f32 torch.bmm"
+    step = max(1, LIB_ELEMS // 4 // (tile * d))
+
+    def lib():
+        for lo in range(0, t_ids.shape[0], step):
+            rows = rows3[t_ids[lo:lo + step]].to(qs.dtype)
+            s = torch.bmm(rows, qs[pq[lo:lo + step]][:, :, None])[..., 0]
+            if row_scale is not None:
+                s = s * row_scale.view(n // tile, tile)[t_ids[lo:lo + step]]
+            torch.topk(s, m)
+    rec.update(ms=median_ms(kernel, reps),
+               plain_ms=median_ms(plain, plain_reps or reps),
+               library_ms=median_ms(lib, plain_reps or reps),
+               library=f"{label} per pair, torch.topk")
+    live = n if size is None else min(int(size), n)
+    tile_live = (live - torch.arange(n // tile, device=pt.device) * tile
+                 ).clamp(0, tile)
+    blocks = -(-torch.bincount(t_ids, minlength=n // tile)
+               // K_.SELECTION_QUERY_BLOCK)
+    rows_read = int((blocks * tile_live).sum())
+    scored = int(tile_live[t_ids].sum())
+    p = t_ids.shape[0]
+    row_bytes = d * corpus.element_size() + (0 if row_scale is None else 4)
+    q_bytes = p * (d + 4) if native else p * d * 4
+    peak = (PEAK_INT8 if native else PEAK_F32
+            if corpus.dtype == torch.float32 and row_scale is None
+            else PEAK_BF16)
+    rec.update(bytes=rows_read * row_bytes + q_bytes + 2 * p * m * 4,
+               flops=2 * scored * d, B=q.shape[0], N=n, live_rows=rows_read,
+               D=d, tile=tile, m=m, U=p)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(rec["bytes"], rec["flops"],
+                                                peak)
+    return rec
+
+
+def pairs_call(T_, q, corpus, size, tile, rounds):
+    """K4p's call as ``repair_uncovered`` makes it for ``q``: the pairs the
+    covers leave open (or, where they certify ``q``, those one union slot
+    leaves)."""
+    for union in (32, 1):
+        _, _, _, cover = T_._packed_search(q, corpus, rounds, size, tile,
+                                           GROUPS, union, None, None, True,
+                                           covers=True)
+        pairs = cover.need.T.nonzero()
+        if pairs.shape[0]:
+            break
+    return ("extract_pairs", (q, corpus, size, tile, rounds, pairs[:, 0],
+                              pairs[:, 1]))
 
 
 def dense_calls(q, corpus, size, tile, tiles, rounds, floor=False):
@@ -1108,7 +1215,8 @@ def phase_slice_f32(K_, T_, dev, chunks, queries):
     os_, oi_ = oracle_topk(qb, small.embeddings(), small.size, K)
     check_answers("small index", torch.from_numpy(res.ids).to(dev),
                   torch.from_numpy(res.scores).to(dev), oi_, os_)
-    require_launched(paths, USER_PATHS_F32, FLOAT_KERNELS, "f32")
+    require_launched(paths, USER_PATHS_F32, FLOAT_KERNELS + ("extract_pairs",),
+                     "f32")
 
     # Certified answers held one query at a time (served batches mostly
     # fall back, so few certified answers reach the oracle above).
@@ -1118,22 +1226,25 @@ def phase_slice_f32(K_, T_, dev, chunks, queries):
 
     # Forced fallback: one union slot cannot cover the batch, so the
     # deferred certificate reads nonzero and DenseIndex's settle step
-    # reruns the exact tiled search (K6).
-    def forced():
-        s_c, packed = T_.topk_certified(qb, emb, kk, index.size, tile=TILE,
-                                        union_tiles=1)
-        return T_.certificate_uncovered(packed), index._settle_certificate(
-            qb, s_c, packed.cpu().numpy(), kk)
-    uncovered, (f_s, f_i, route) = counted(K_, paths, "forced_fallback",
-                                           forced)
-    if uncovered == 0 or route != "fallback":
-        raise AssertionError("union_tiles=1 certified every query: the "
-                             "forced fallback did not trigger")
-    if paths["forced_fallback"]["tile_topk"] != 1:
-        raise AssertionError("the fallback did not rerun K6")
+    # repairs the pairs the covers left (K4p); with a cover that names every
+    # pair it reruns the exact tiled search (K6) instead.
+    s_c, packed, _, cover = T_._packed_search(
+        qb, emb, kk, index.size, TILE, GROUPS, 1, None, None, True,
+        covers=True)
+    every = T_.Cover(torch.ones_like(cover.need), cover.mode)
     of_s, of_i = oracle_topk(qb, emb, index.size, kk)
-    check_answers("forced fallback", torch.from_numpy(f_i).to(dev),
-                  torch.from_numpy(f_s).to(dev), of_i, of_s)
+    for name, cov, k6 in (("forced_fallback", every, 1),
+                          ("forced_repair", cover, 0)):
+        f_s, f_i, route, uncovered = counted(
+            K_, paths, name, lambda: index._settle_certificate(
+                qb, s_c, packed, kk, cov))
+        if uncovered == 0 or route != "fallback":
+            raise AssertionError("union_tiles=1 certified every query: the "
+                                 "forced fallback did not trigger")
+        launched = (paths[name]["tile_topk"], paths[name]["extract_pairs"])
+        if launched != (k6, 1 - k6):
+            raise AssertionError(f"{name}: {launched} K6 and K4p launches")
+        check_answers(name.replace("_", " "), f_i, f_s, of_i, of_s)
     d_s, d_i = counted(K_, paths, "dispatch_topk", lambda: T_.dispatch_topk(
         qb, emb, kk, index.size, tile=TILE))
     check_answers("dispatch_topk", d_i, d_s, of_i, of_s)
@@ -1160,7 +1271,9 @@ def phase_slice_f32(K_, T_, dev, chunks, queries):
     sel_tiles = torch.tensor(sorted({s // TILE for s, _ in runs})[:32],
                              dtype=torch.int32, device=dev)
     recs = hold_calls(K_, T_, dense_calls(qb, emb, index.size, TILE,
-                                          sel_tiles, kk), 3, "slice_f32")
+                                          sel_tiles, kk)
+                      + [pairs_call(T_, qb, emb, index.size, TILE, kk)], 3,
+                      "slice_f32")
     emit({"phase": "slice_f32", "rows": index.size, "dim": DIM,
           "encoder": {"layers": cfg.num_layers, "hidden": cfg.hidden_dim,
                       "heads": cfg.num_heads, "vocab": cfg.vocab_size,
@@ -1523,6 +1636,7 @@ def shape_label(name, rec):
     (covers) or tile_k."""
     m = ("" if name == "scan_floor"
          else f" groups={rec['m']}" if name.startswith("packed")
+         else f" rounds={rec['m']} P={rec['U']}" if name == "extract_pairs"
          else f" rounds={rec['m']} U={rec['U']}" if name.startswith("extract")
          else f" tile_k={rec['m']}")
     return f"B={rec['B']} tile={rec['tile']}{m}"
@@ -1588,7 +1702,7 @@ def phase_bench_shape(K_, T_, dev):
         x = rng.standard_normal((b, d)).astype(np.float32)
         x /= np.linalg.norm(x, axis=1, keepdims=True)
         return torch.from_numpy(x).to(dev)
-    q_head, q_cmp = qbatch(B_HEAD), qbatch(B_CMP)
+    q_head, q_cmp, q_batch = qbatch(B_HEAD), qbatch(B_CMP), qbatch(B_BATCH)
     torch.cuda.synchronize()
     t_fill = time.perf_counter() - t0
     oracle = {B_HEAD: oracle_topk(q_head, corpus, n, k, torch.bfloat16),
@@ -1648,6 +1762,28 @@ def phase_bench_shape(K_, T_, dev):
                                                        tile=tile),
               oracle[q.shape[0]])
 
+    # 1b. The batch cell's scan: dispatch_topk settles a nonzero
+    # certificate by K4p on the pairs the covers left (no K6); the answer
+    # against the oracle up to near-tie swaps (c1's cuBLAS sums against
+    # K4p's FMA chain).
+    batch = lambda: T_.dispatch_topk(q_batch, corpus, K_BATCH, tile=tile)
+    b_s, b_i = run("dispatch_b4096", batch)
+    o_s, o_i = oracle_topk(q_batch, corpus, n, K_BATCH, torch.bfloat16,
+                           chunk=65_536)
+    _, swaps = check_selection(
+        "bench_shape dispatch_b4096", K_._scan_queries(q_batch, corpus),
+        corpus, b_i.T[None], b_s.T[None], o_i.T[None], o_s.T[None])
+    if paths["dispatch_b4096"]["extract_pairs"] != 1 or \
+            paths["dispatch_b4096"]["tile_topk"]:
+        raise AssertionError("bench_shape dispatch_b4096: "
+                             f"{paths['dispatch_b4096']}, not one K4p "
+                             "launch and no K6")
+    ms = median_ms(batch, 3)
+    routes["dispatch_b4096"] = {"B": B_BATCH, "k": K_BATCH,
+                                "near_tie_swaps": swaps, "ms": ms,
+                                "qps": B_BATCH / ms * 1e3}
+    del b_s, b_i, o_s, o_i
+
     # 2. ANN at oversample 32, b1024, against the same pipeline with the
     # scan's twin; K1's words held as in the kernel phase.
     ann = lambda: T_.topk_ann(q_head, corpus, k, tile=tile, groups=GROUPS,
@@ -1702,7 +1838,8 @@ def phase_bench_shape(K_, T_, dev):
                              "oracle's best score")
     del f
     bf16_paths = tuple(log)
-    require_launched(paths, bf16_paths, FLOAT_KERNELS + ("scan_floor",),
+    require_launched(paths, bf16_paths,
+                     FLOAT_KERNELS + ("scan_floor", "extract_pairs"),
                      "bench_shape bf16")
     held16 = hold_recorded(K_, T_, log, 3, "bench_shape bf16")
 
@@ -5991,7 +6128,11 @@ SOURCES = {"packed_extract": ("optimized_rag_tpu_torch/csrc/packed_extract.cu",
            # F ports F1 (replaces) and F2, benchmarks/sweep_r4c.py:157,
            # the same function.
            "scan_floor": ("optimized_rag_tpu_torch/csrc/floor.cu",
-                          "benchmarks/sweep_r4_kernel.py:128")}
+                          "benchmarks/sweep_r4_kernel.py:128"),
+           # K4p has no TPU kernel: it stands in for the whole tiled rerun
+           # after a nonzero certificate.
+           "extract_pairs": ("optimized_rag_tpu_torch/csrc/extract.cu",
+                             "optimized_rag_tpu/ops/topk.py:1328")}
 
 
 # The tensor-core scan: K1 and F over bf16/f16 rows, K2 over int8 codes and

@@ -171,6 +171,7 @@ inline int row_words(int D) {
 // TR are: one FMA chain over the words in ascending order. With SkipDead,
 // a thread whose queries all lie at or after B skips the chain (its scores
 // are then 0 without the work: a batch of 8 keeps one warp of eight busy).
+// A query's words lie `ldq` apart (B where the caller does not say).
 template <typename Ops, int QB, int TQ, int TR, bool SkipDead = false>
 struct ScoreBlock {
   using Word = typename Ops::Word;
@@ -186,6 +187,12 @@ struct ScoreBlock {
   __device__ static void run(const Ops& ops, int B, int Dw, int qbase,
                              long long row0, float* stage,
                              float (&out)[TQ][TR]) {
+    run(ops, B, B, Dw, qbase, row0, stage, out);
+  }
+
+  __device__ static void run(const Ops& ops, int B, int ldq, int Dw,
+                             int qbase, long long row0, float* stage,
+                             float (&out)[TQ][TR]) {
     Word* q_s = reinterpret_cast<Word*>(stage);            // [kDepth][QB]
     Word* c_s = reinterpret_cast<Word*>(stage + kQStage);  // [kDepth][kCStride]
     const int tid = threadIdx.x;
@@ -200,7 +207,7 @@ struct ScoreBlock {
       for (int idx = tid; idx < kDepth * QB; idx += kThreads) {
         const int kk = idx / QB, qi = idx % QB;
         const int k = k0 + kk, b = qbase + qi;
-        q_s[idx] = (k < Dw && b < B) ? ops.q_word(k, b, B) : Word(0);
+        q_s[idx] = (k < Dw && b < B) ? ops.q_word(k, b, ldq) : Word(0);
       }
       for (int idx = tid; idx < kRows * kDepth; idx += kThreads) {
         const int r = idx / kDepth, kk = idx % kDepth;
@@ -559,15 +566,15 @@ struct MmaStage {
     return (kQB + kChunk) * ld(D) / 2 + kQB + kChunk;
   }
 
-  __device__ static void queries(const DenseOps<T>& ops, int B, int qbase,
-                                 float* stage) {
+  __device__ static void queries(const DenseOps<T>& ops, int B, int ldq,
+                                 int qbase, float* stage) {
     const int D = ops.D, L = ld(D), tid = threadIdx.x;
     uint16_t* q_s = reinterpret_cast<uint16_t*>(stage);
     float* qn = stage + floats(D) - kQB - kChunk;
     for (int idx = tid; idx < L * kQB; idx += kThreads) {
       const int k = idx / kQB, qi = idx % kQB, b = qbase + qi;
       q_s[qi * L + k] =
-          (k < D && b < B) ? half_bits<T>(ops.qT[(long long)k * B + b]) : 0;
+          (k < D && b < B) ? half_bits<T>(ops.qT[(long long)k * ldq + b]) : 0;
     }
     __syncthreads();
     const int warp = tid / 32, lane = tid % 32;
@@ -748,10 +755,11 @@ struct FmaStage {
   using Block = ScoreBlock<Ops, kQB, 4, 8, true>;
   static constexpr int kFloats = Block::kStageFloats;
 
-  __device__ static void chunk(const Ops& ops, int B, int Dw, int qbase,
-                               long long row0, float* stage, float* S) {
+  __device__ static void chunk(const Ops& ops, int B, int ldq, int Dw,
+                               int qbase, long long row0, float* stage,
+                               float* S) {
     float acc[4][8];
-    Block::run(ops, B, Dw, qbase, row0, stage, acc);
+    Block::run(ops, B, ldq, Dw, qbase, row0, stage, acc);
     const int tq = threadIdx.x / Block::NR, tr = threadIdx.x % Block::NR;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -798,18 +806,18 @@ inline size_t stream_smem_bytes(int D, int P) {
           2 * (size_t)kQB * P + 2 * kQB) * sizeof(float);
 }
 
-// Block (slot, query block qb, part `rank` of `split`): the top-`rounds` of
-// tile t = tiles ? tiles[slot] : slot, written to val/col[(slot * rounds +
-// r) * B + b], columns tile-local plus t * tile where `global_ids`. A slot
-// with t < 0 or t * tile >= N has no live row: it writes sentinels. D is
-// the feature count (the tensor-core stage's width).
+// One block's selection: rows [r_lo, r_hi) of tile t, part `rank` of a
+// cluster of `split`, against queries [qbase, qend) (at most kQB) of a batch
+// whose query words lie `ldq` apart; the top-`rounds` of each query go to
+// val/col[(slot * rounds + r) * ldq + b], columns tile-local plus t * tile
+// where `global_ids`. A tile with t < 0 or t * tile >= N has no live row:
+// it writes sentinels. D is the feature count (the tensor-core stage's
+// width).
 template <typename Ops, bool Mma>
-__global__ void __launch_bounds__(kThreads, 2)
-    stream_topk_kernel(const Ops ops, const int* __restrict__ size_ptr,
-                       const int* __restrict__ tiles, float* __restrict__ val,
-                       int* __restrict__ col, int B, int N, int D, int Dw,
-                       int tile, int rounds, int nqb, int split,
-                       int global_ids) {
+__device__ __forceinline__ void select_block(
+    const Ops& ops, int size, int t, int slot, int qbase, int qend, int ldq,
+    float* __restrict__ val, int* __restrict__ col, int N, int D, int Dw,
+    int tile, int rounds, int rank, int split, int global_ids) {
   namespace cg = cooperative_groups;
   extern __shared__ float smem[];
   float* stage = smem;
@@ -820,14 +828,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* fv = reinterpret_cast<float*>(lc + kQB * P); // [kQB] floors
   int* fc = reinterpret_cast<int*>(fv + kQB);
 
-  const int rank = blockIdx.x % split;
-  const int qb = (blockIdx.x / split) % nqb;
-  const int slot = blockIdx.x / split / nqb;
-  const int qbase = qb * kQB;
-  const int t = tiles ? tiles[slot] : slot;
   const bool valid = t >= 0 && (long long)t * tile < N;
   const long long base = valid ? (long long)t * tile : 0;
-  const int size = *size_ptr;
   const int nlive =
       valid ? (int)max(0LL, min((long long)tile, (long long)size - base)) : 0;
   const int seg = tile / split;
@@ -837,7 +839,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   if constexpr (Mma) {
     if (r_lo < r_hi)
-      MmaStage<typename MmaType<Ops>::T>::queries(ops, B, qbase, stage);
+      MmaStage<typename MmaType<Ops>::T>::queries(ops, qend, ldq, qbase,
+                                                  stage);
   }
   if (tid < kQB) {
     fv[tid] = INFINITY;  // pass 0: every key lies below the floor
@@ -849,23 +852,24 @@ __global__ void __launch_bounds__(kThreads, 2)
       lv[i] = kNegInf;
       lc[i] = 0;
     }
-    const bool open = __syncthreads_or(tid < kQB && qbase + tid < B &&
+    const bool open = __syncthreads_or(tid < kQB && qbase + tid < qend &&
                                        fv[tid] > kNegInf);
     if (open) {
       for (int r0 = r_lo; r0 < r_hi; r0 += kChunk) {
         if constexpr (Mma)
-          MmaStage<typename MmaType<Ops>::T>::chunk(ops, B, qbase, base + r0,
-                                                    stage, S);
+          MmaStage<typename MmaType<Ops>::T>::chunk(ops, qend, qbase,
+                                                    base + r0, stage, S);
         else
-          FmaStage<Ops>::chunk(ops, B, Dw, qbase, base + r0, stage, S);
+          FmaStage<Ops>::chunk(ops, qend, ldq, Dw, qbase, base + r0, stage,
+                               S);
         __syncthreads();
         if constexpr (Mma) {
-          MmaStage<typename MmaType<Ops>::T>::fold(ops, stage, S, qbase, B,
+          MmaStage<typename MmaType<Ops>::T>::fold(ops, stage, S, qbase, qend,
                                                    r0, nlive, lv, lc, P, W,
                                                    fv, fc, warp, lane);
         } else {
           for (int q = warp; q < kQB; q += kThreads / 32) {
-            if (qbase + q >= B) break;
+            if (qbase + q >= qend) break;
             FmaStage<Ops>::fold(S, q, r0, nlive, lv + q * P, lc + q * P, W,
                                 fv[q], fc[q], lane);
           }
@@ -879,7 +883,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       cluster.sync();
       if (rank == 0) {
         for (int q = warp; q < kQB; q += kThreads / 32) {
-          if (qbase + q >= B) break;
+          if (qbase + q >= qend) break;
           float* Lv = lv + q * P;
           int* Lc = lc + q * P;
           float tv = Lv[W - 1];
@@ -901,8 +905,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (rank == 0) {
       for (int i = tid; i < kQB * W; i += kThreads) {
         const int r = i / kQB, q = i % kQB, b = qbase + q;
-        if (b < B) {
-          const long long o = ((long long)slot * rounds + p0 + r) * B + b;
+        if (b < qend) {
+          const long long o = ((long long)slot * rounds + p0 + r) * ldq + b;
           val[o] = lv[q * P + r];
           col[o] = lc[q * P + r] + col_base;
         }
@@ -916,26 +920,43 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// Block (slot, query block qb, part `rank` of `split`): the top-`rounds` of
+// tile t = tiles ? tiles[slot] : slot for queries [qb * kQB, +kQB) of B,
+// written to val/col[(slot * rounds + r) * B + b].
 template <typename Ops, bool Mma>
-int launch_stream_as(const Ops& ops, const int* size, const int* tiles,
-                     int slots, float* val, int* col, int B, int N, int D,
-                     int tile, int rounds, bool global_ids,
-                     cudaStream_t stream) {
-  const int Dw = row_words<Ops>(D);
-  const int nqb = (B + kQB - 1) / kQB;
+__global__ void __launch_bounds__(kThreads, 2)
+    stream_topk_kernel(const Ops ops, const int* __restrict__ size_ptr,
+                       const int* __restrict__ tiles, float* __restrict__ val,
+                       int* __restrict__ col, int B, int N, int D, int Dw,
+                       int tile, int rounds, int nqb, int global_ids,
+                       int split) {
+  const int rank = blockIdx.x % split;
+  const int qb = (blockIdx.x / split) % nqb;
+  const int slot = blockIdx.x / split / nqb;
+  select_block<Ops, Mma>(ops, *size_ptr, tiles ? tiles[slot] : slot, slot,
+                         qb * kQB, B, B, val, col, N, D, Dw, tile, rounds,
+                         rank, split, global_ids);
+}
+
+// Launch a selection kernel over `units` blocks of work, each a tile (or a
+// part of one) against up to kQB queries: the cluster split (above), the
+// grid and the dynamic shared memory. The kernel takes `args`, then the
+// split.
+template <typename Ops, bool Mma, typename Kernel, typename... Args>
+int launch_selection(Kernel* kernel, long long units, int tile, int rounds,
+                     int D, cudaStream_t stream, Args... args) {
   const int P = rounds < kListCap ? rounds : kListCap;
   int split = 1;
   if (rounds <= kListCap)
     while (split < kMaxSplit && 2 * split * kChunk <= tile &&
-           (long long)slots * nqb * split < kFillBlocks)
+           units * split < kFillBlocks)
       split *= 2;
-  const long long blocks = (long long)slots * nqb * split;
+  const long long blocks = units * split;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const size_t smem = stream_smem_bytes<Ops, Mma>(D, P);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      stream_topk_kernel<Ops, Mma>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)blocks);
@@ -949,34 +970,42 @@ int launch_stream_as(const Ops& ops, const int* size, const int* tiles,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, stream_topk_kernel<Ops, Mma>, ops, size,
-                           tiles, val, col, B, N, D, Dw, tile, rounds, nqb,
-                           split, global_ids ? 1 : 0);
+  err = cudaLaunchKernelEx(&cfg, kernel, args..., split);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// Calls f(std::true_type) where the selection scores on the tensor cores
+// (bf16/f16 rows up to kMmaMaxD features, where its whole rows fit in
+// shared memory: up to about 400 features at 64 rounds), else
+// f(std::false_type): the stage is chosen from the shape alone.
+template <typename Ops, typename F>
+int with_stage(int D, int rounds, F&& f) {
+  if constexpr (!std::is_void<typename MmaType<Ops>::T>::value) {
+    const int P = rounds < kListCap ? rounds : kListCap;
+    if (D <= kMmaMaxD &&
+        stream_smem_bytes<Ops, true>(D, P) <= (size_t)kMaxSmem)
+      return f(std::true_type{});
+  }
+  return f(std::false_type{});
+}
+
 // Launch the streaming selection over `slots` tiles (ids from `tiles`, or
-// the slot itself where `tiles` is null). The tensor-core stage (bf16/f16
-// rows up to kMmaMaxD features, where its whole rows fit in shared memory:
-// up to about 400 features at 64 rounds) and the split over a cluster are
-// chosen from the shape alone.
+// the slot itself where `tiles` is null).
 template <typename Ops>
 int launch_stream(const Ops& ops, const int* size, const int* tiles,
                   int slots, float* val, int* col, int B, int N, int D,
                   int tile, int rounds, bool global_ids,
                   cudaStream_t stream) {
   if (slots <= 0) return 0;
-  if constexpr (!std::is_void<typename MmaType<Ops>::T>::value) {
-    const int P = rounds < kListCap ? rounds : kListCap;
-    if (D <= kMmaMaxD &&
-        stream_smem_bytes<Ops, true>(D, P) <= (size_t)kMaxSmem)
-      return launch_stream_as<Ops, true>(ops, size, tiles, slots, val, col,
-                                         B, N, D, tile, rounds, global_ids,
-                                         stream);
-  }
-  return launch_stream_as<Ops, false>(ops, size, tiles, slots, val, col, B,
-                                      N, D, tile, rounds, global_ids, stream);
+  const int nqb = (B + kQB - 1) / kQB;
+  return with_stage<Ops>(D, rounds, [&](auto mma) {
+    constexpr bool kMma = decltype(mma)::value;
+    return launch_selection<Ops, kMma>(
+        stream_topk_kernel<Ops, kMma>, (long long)slots * nqb, tile, rounds,
+        D, stream, ops, size, tiles, val, col, B, N, D, row_words<Ops>(D),
+        tile, rounds, nqb, global_ids ? 1 : 0);
+  });
 }
 
 // Calls f(ops) with the DenseOps of the corpus dtype code (f32, bf16, f16).

@@ -30,8 +30,8 @@ from optimized_rag_tpu_torch.ops.quantize import (
     dequantize_int8, quantize_int8)
 from optimized_rag_tpu_torch.ops.similarity import normalize
 from optimized_rag_tpu_torch.ops.topk import (
-    certificate_uncovered, chunked_topk, dispatch_topk, rescore_topk,
-    tiled_topk)
+    certificate_uncovered, chunked_topk, dispatch_deferred, dispatch_topk,
+    repair_uncovered, rescore_topk)
 from optimized_rag_tpu_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -40,6 +40,12 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _wait_for(t: torch.Tensor) -> None:
+    """Wait until the card has made ``t`` (its current stream drained)."""
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
 
 
 def host_rows(arr, dtype: torch.dtype) -> torch.Tensor:
@@ -59,7 +65,8 @@ class DenseSearchResult:
     scores: np.ndarray   # [B, k] f32
     ids: np.ndarray      # [B, k] int64 (-1 for missing)
     # How the batch was searched: "certified" (certificate 0), "fallback"
-    # (certificate nonzero, exact tiled rerun) or "direct" (one pass).
+    # (certificate nonzero: the uncovered pairs repaired, or the exact tiled
+    # search rerun) or "direct" (one pass).
     route: str = "direct"
 
 
@@ -185,23 +192,31 @@ class DenseIndex:
             return dequantize_int8(self._emb[rows], self._scale[rows])
         return self._emb[rows]
 
-    def _settle_certificate(self, q, scores, ids, kk):
-        """Resolve a deferred certificate: ``ids`` fetched as numpy.
+    def _settle_certificate(self, q, scores, ids, kk, cover=None):
+        """Resolve a deferred certificate: ``ids`` (numpy or a tensor).
 
         The certified path appends an uncovered-count row (ids [B+1, kk]);
-        a nonzero count (cover overflow) reruns the exact tiled search. A
-        count of -1 (a score outside (-2, 2)) raises ``ValueError``.
-        Returns (scores, ids, route).
+        a nonzero count is settled by ``repair_uncovered`` with the covers'
+        ``cover``: the pairs they left are repaired, or where those would
+        cost more, the whole search reruns. A count of -1 (a score outside
+        (-2, 2)) raises ``ValueError``. Returns (scores, ids, route, the
+        count or None), the answer on the index's device; the repair is
+        issued, not waited for.
         """
         b = q.shape[0]
+        ids = torch.as_tensor(ids, device=self.device)
         if ids.shape[0] == b:                 # one-pass path
-            return scores.cpu().numpy(), ids, "direct"
-        if certificate_uncovered(ids) == 0:   # certified exact
-            return scores.cpu().numpy(), ids[:-1], "certified"
-        with span("search.fallback"):
-            s2, i2 = tiled_topk(q, self._emb, kk, size=self.size,
-                                tile=self.tile, row_scale=self._scale)
-            return s2.cpu().numpy(), i2.cpu().numpy(), "fallback"
+            return scores, ids, "direct", None
+        uncovered = certificate_uncovered(ids)
+        if uncovered == 0:                    # certified exact
+            return scores, ids[:-1], "certified", 0
+        with span("search.fallback") as sp:
+            s2, i2, pairs, rerun = repair_uncovered(
+                q, self._emb, kk, self.size, self.tile, scores, ids[:-1],
+                cover, row_scale=self._scale)
+            if sp:
+                sp.attrs.update(pairs=pairs, rerun=rerun)
+        return s2, i2, "fallback", uncovered
 
     def search(self, queries, k: int, *, prefer_kernel=None,
                approx_tile_k: int | None = None) -> DenseSearchResult:
@@ -210,11 +225,15 @@ class DenseIndex:
         While a profiler session is active it records ``search`` (B, k,
         cc, route, and the certificate's uncovered count where there is
         one) and, under it, ``search.prepare`` (normalise and copy in),
-        ``search.scan`` (the top-k issued), ``search.wait`` (the
-        candidates' copy back, which waits for the scan),
-        ``search.fallback`` (the exact rerun after a nonzero certificate,
-        with its copy), ``search.rescore`` and ``search.filter`` (the
-        tombstones)."""
+        ``search.scan`` (the top-k issued), ``search.wait`` (the wait for
+        the scan), ``search.fallback`` (the repair, or the whole search's
+        rerun, issued after a nonzero certificate; ``pairs``, the pairs the
+        covers left, and ``rerun``, whether the whole search reran),
+        ``search.rescore`` (the float32 rescore issued) and
+        ``search.filter`` (the tombstones). The candidates stay on the card:
+        only the certificate's count (after ``search.wait``), the pairs'
+        count (in ``search.fallback``) and the answer come back, and no
+        span waits for the card only to time it."""
         with span("search") as sp:
             with span("search.prepare"):
                 q = normalize(torch.atleast_2d(torch.as_tensor(queries).to(
@@ -236,23 +255,23 @@ class DenseIndex:
             else:
                 cc = kk
             with span("search.scan"):
-                c_s, cand = dispatch_topk(
+                c_s, cand, cover = dispatch_deferred(
                     q, self._emb, cc, size=self.size,
                     prefer_kernel=prefer_kernel, tile=self.tile,
-                    approx_tile_k=approx_tile_k, defer_certificate=True,
-                    row_scale=self._scale)
+                    approx_tile_k=approx_tile_k, row_scale=self._scale)
             with span("search.wait"):
-                cand = cand.cpu().numpy()
-            scores, ids, route = self._settle_certificate(q, c_s, cand, cc)
+                _wait_for(cand)
+            scores, ids, route, uncovered = self._settle_certificate(
+                q, c_s, cand, cc, cover)
             if sp:
                 sp.attrs.update(B=b, k=k, cc=cc, route=route)
-                if route != "direct":
-                    sp.attrs["uncovered"] = certificate_uncovered(cand)
+                if uncovered is not None:
+                    sp.attrs["uncovered"] = uncovered
             if cc != kk or self.quantized:
                 with span("search.rescore"):
-                    scores, ids = rescore_topk(q, self._emb, torch.as_tensor(
-                        ids, device=self.device), kk, row_scale=self._scale)
-                    scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
+                    scores, ids = rescore_topk(q, self._emb, ids, kk,
+                                               row_scale=self._scale)
+            scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
             ids = ids.astype(np.int64)
             if self._tombstones or kk > k:
                 with span("search.filter"):

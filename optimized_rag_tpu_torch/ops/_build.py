@@ -58,6 +58,18 @@ _SIGNATURES = {
     # stream
     "orag_extract_int8": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                           _I, _P],
+    # qT, corpus, dtype, size, pair_tile, block_n, P, val, col, N, D, tile,
+    # rounds, stream
+    "orag_extract_pairs": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                           _I, _P],
+    # qT, corpus, dtype, cs, size, pair_tile, block_n, P, val, col, N, D,
+    # tile, rounds, stream
+    "orag_extract_pairs_scaled": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
+                                  _I, _I, _I, _I, _P],
+    # qwT, qs, corpus, cs, size, pair_tile, block_n, P, val, col, N, D,
+    # tile, rounds, stream
+    "orag_extract_pairs_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I,
+                                _I, _I, _I, _P],
     # qT, corpus, dtype, size, s, idx, B, N, D, tile, tile_k, stream
     "orag_tile_topk": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # qT, corpus, dtype, cs, size, s, idx, B, N, D, tile, tile_k, stream

@@ -32,19 +32,29 @@ certificate to -1, and ``certificate_uncovered`` (where every caller reads
 the certificate) raises the same error. ``topk_ann`` has no certificate: it
 reads the flag itself, one device-to-host copy a call.
 
+A nonzero certificate is settled by ``repair_uncovered``: the covers'
+state (``Cover``) names every (query, tile) pair they left unproven, K4p
+takes each such tile's exact top-k for its query, and the merge is the
+exact answer for the certified path's scoring; the reference reruns the
+tiled search instead, as ``repair_uncovered`` still does where the pairs
+would cost more than the rerun.
+
 Not ported: ``tile_k``-approximate extraction beyond ``dispatch_topk``'s
 ``approx_tile_k`` opt-in.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from optimized_rag_tpu_torch.ops.quantize import quantize_int8
 from optimized_rag_tpu_torch.ops.topk_kernels import (
-    _EXACT_CODES, NEG_INF, RANGE_ERROR, extract, extract_int8,
-    extract_scaled, new_flag, packed_extract, packed_extract_int8,
-    packed_extract_scaled, scaled_rows_dtype, tile_topk, tile_topk_scaled)
+    _EXACT_CODES, NEG_INF, RANGE_ERROR, SELECTION_QUERY_BLOCK, extract,
+    extract_int8, extract_pairs, extract_scaled, new_flag, packed_extract,
+    packed_extract_int8, packed_extract_scaled, scaled_rows_dtype, tile_topk,
+    tile_topk_scaled)
 
 
 def _topk(x: torch.Tensor, k: int):
@@ -199,12 +209,25 @@ def _duplicates(rows: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(ok).scatter(1, order, dup_sorted)
 
 
+@dataclasses.dataclass
+class Cover:
+    """What the certified covers leave to repair. ``need`` [B, T] bool: the
+    (query, tile) pairs outside the union whose rows the covers did not
+    prove below tau: c2's (the tile's second unit may beat tau) and, for a
+    c3 query (its best excluded candidate may beat tau), every tile whose
+    best unit may beat tau and was not rescored by c1. ``mode`` is the
+    scoring: "dense" (K4's), "scaled" (K5a's) or "native" (K5b's)."""
+    need: torch.Tensor
+    mode: str
+
+
 def _packed_search(queries, corpus, k, size, tile, groups, union_tiles,
                    pad_r, row_scale, int8_native, covers):
     """``pallas_topk_certified`` with its ``covers`` switch: the packed
     scan, c1's unit-expanded exact rescore and, with ``covers``, the c2/c3
     covers and the certificate row; without, the ANN answer (c1 alone,
-    with +-4 column windows). Returns (scores, ids, range flag)."""
+    with +-4 column windows). Returns (scores, ids, range flag, the covers'
+    ``Cover`` or None)."""
     n, d = corpus.shape
     b = queries.shape[0]
     dev = corpus.device
@@ -269,7 +292,7 @@ def _packed_search(queries, corpus, k, size, tile, groups, union_tiles,
     sc = torch.where(okf, sc, NEG_INF)
     top_s, top_i = _topk_rows(sc, flat, k)
     if not covers:
-        return top_s, torch.where(top_s > NEG_INF / 2, top_i, -1), flag
+        return top_s, torch.where(top_s > NEG_INF / 2, top_i, -1), flag, None
     tau = top_s[:, k - 1]
 
     # c3: the best excluded candidate must be provably below tau.
@@ -287,6 +310,14 @@ def _packed_search(queries, corpus, k, size, tile, groups, union_tiles,
     selected = torch.zeros(num_tiles, dtype=torch.bool, device=dev)
     selected[sel_tiles] = sel_valid
     uncovered = (sus & ~selected[None, :]).sum() + c3_viol.sum()
+    # The pairs a repair must read (Cover). A tile outside the union and
+    # not c2's holds rows above its second unit's bound only in its best
+    # unit, which c1 rescored whole where that word was among its top R.
+    ub1 = _unpack_ub(w_val[:, 0, :], tile).T                       # [B, T]
+    rescored = torch.zeros((b, 2 * num_tiles), dtype=torch.bool,
+                           device=dev).scatter_(1, vpos[:, :r_cnt], True)
+    best_open = (ub1 > tau[:, None]) & ~rescored.view(b, num_tiles, 2)[..., 0]
+    need = (sus | (c3_viol[:, None] & best_open)) & ~selected[None, :]
     tiles32 = sel_tiles.to(torch.int32)
     if mode == "native":
         uval, ucol = extract_int8(q8, q_scale, corpus, row_scale, size,
@@ -308,7 +339,7 @@ def _packed_search(queries, corpus, k, size, tile, groups, union_tiles,
     m_i = torch.cat([top_i, r_i], dim=1)
     out_s, out_i = _topk_rows(m_s, m_i, k)
     return (out_s, torch.cat([out_i, _certificate_row(uncovered, flag, k)]),
-            flag)
+            flag, Cover(need, mode))
 
 
 def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
@@ -328,9 +359,10 @@ def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     over bf16 rows (whose scaled values have such norms). Returns
     (scores [B, k] f32, ids [B+1, k] int64) with ids[B, 0] the uncovered
     count: 0 means exact for the scan's scoring; otherwise rerun with
-    ``tiled_topk``. Read it with ``certificate_uncovered``, which raises
-    when a live score lay outside (-2, 2) or a query's norm past that limit
-    (the count then reads -1).
+    ``tiled_topk`` (``dispatch_topk`` repairs the uncovered pairs
+    instead). Read it with ``certificate_uncovered``, which raises when a
+    live score lay outside (-2, 2) or a query's norm past that limit (the
+    count then reads -1).
 
     c1 rescored exactly the top-R candidates with their full strided units;
     c2 takes the exact per-tile top-k (K4) of the union of tiles whose
@@ -343,10 +375,33 @@ def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     scores bf16(q) x bf16(row) in f32 times the row scale, K2 scanning and
     K5a covering. The certificate means exact for that scoring.
     """
-    s, ids, _ = _packed_search(queries, corpus, k, size, tile, groups,
-                               union_tiles, pad_r, row_scale, int8_native,
-                               covers=True)
+    s, ids, _, _ = _packed_search(queries, corpus, k, size, tile, groups,
+                                  union_tiles, pad_r, row_scale, int8_native,
+                                  covers=True)
     return s, ids
+
+
+def _certified(queries, corpus, k, size=None, sub_batch=1024, tile=4096,
+               groups=8, union_tiles=32, pad_r=None, row_scale=None,
+               int8_native=True):
+    """``topk_certified_multi`` with the covers' state: (scores, ids with
+    the certificate row, the whole batch's ``Cover``)."""
+    mb = queries.shape[0]
+    assert mb % sub_batch == 0, (mb, sub_batch)
+    blocks = [_packed_search(queries[s0:s0 + sub_batch], corpus, k, size,
+                             tile, groups, union_tiles, pad_r, row_scale,
+                             int8_native, covers=True)
+              for s0 in range(0, mb, sub_batch)]
+    if len(blocks) == 1:
+        s, ids, _, cover = blocks[0]
+        return s, ids, cover
+    counts = torch.stack([i[-1, 0] for _, i, _, _ in blocks])
+    count_row = torch.zeros((1, k), dtype=torch.long, device=corpus.device)
+    count_row[0, 0] = torch.where((counts < 0).any(), -1, counts.sum())
+    return (torch.cat([s for s, _, _, _ in blocks]),
+            torch.cat([i[:-1] for _, i, _, _ in blocks] + [count_row]),
+            Cover(torch.cat([c.need for _, _, _, c in blocks]),
+                  blocks[0][3].mode))
 
 
 def topk_certified_multi(queries: torch.Tensor, corpus: torch.Tensor, k: int,
@@ -357,21 +412,9 @@ def topk_certified_multi(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     """``topk_certified`` over M sub-batches; the certificate row sums the
     blocks' uncovered counts (-1 if any block's range flag is set). Ports
     ``pallas_topk_certified_multi``."""
-    mb = queries.shape[0]
-    assert mb % sub_batch == 0, (mb, sub_batch)
-    scores, ids, counts = [], [], []
-    for s0 in range(0, mb, sub_batch):
-        s, i = topk_certified(queries[s0:s0 + sub_batch], corpus, k, size,
-                              tile=tile, groups=groups,
-                              union_tiles=union_tiles, pad_r=pad_r,
-                              row_scale=row_scale, int8_native=int8_native)
-        scores.append(s)
-        ids.append(i[:-1])
-        counts.append(i[-1, 0])
-    counts = torch.stack(counts)
-    count_row = torch.zeros((1, k), dtype=torch.long, device=corpus.device)
-    count_row[0, 0] = torch.where((counts < 0).any(), -1, counts.sum())
-    return torch.cat(scores), torch.cat(ids + [count_row])
+    s, ids, _ = _certified(queries, corpus, k, size, sub_batch, tile, groups,
+                           union_tiles, pad_r, row_scale, int8_native)
+    return s, ids
 
 
 def _check_flag(flag: torch.Tensor) -> None:
@@ -407,8 +450,8 @@ def topk_ann(queries: torch.Tensor, corpus: torch.Tensor, k: int, size=None,
     r = min(max(oversample, k + 8), 2 * num_tiles - 1)
     if 2 * num_tiles <= k or r * groups < k:
         return _ann_small(queries, corpus, k, size, row_scale)
-    s, i, flag = _packed_search(queries, corpus, k, size, tile, groups, 32,
-                                r, row_scale, True, covers=False)
+    s, i, flag, _ = _packed_search(queries, corpus, k, size, tile, groups,
+                                   32, r, row_scale, True, covers=False)
     _check_flag(flag)
     return s, i
 
@@ -551,6 +594,111 @@ def certificate_uncovered(ids) -> int:
     return uncovered
 
 
+def repair_uncovered(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                     size, tile: int, scores: torch.Tensor,
+                     ids: torch.Tensor, cover: Cover, row_scale=None):
+    """The exact top-k after a nonzero certificate: (scores [B, k], ids
+    [B, k], the pairs' count, whether the whole search reran).
+
+    ``scores``, ``ids``: the certified answer (ids without the certificate
+    row); ``cover``: its covers' ``Cover``. K4p takes, for every (query,
+    tile) pair of ``cover.need``, the tile's exact top-k for the query; the
+    answer's rows in those pairs are masked and the rest merged with the
+    pairs' lists. A row never examined scores below its bound, which is at
+    most tau, at most the k-th answer: the answer is exact for the
+    certified path's scoring. Dense and scaled, that is ``tiled_topk``'s
+    function: on the CPU its answer bit for bit; on the card the c1
+    rescore's sums (cuBLAS) may differ from K6's FMA chain in the last bit,
+    as for a certificate of 0. The pairs' count costs one device-to-host
+    wait.
+
+    A pair costs K4p at most one K6 block (one tile against up to
+    SELECTION_QUERY_BLOCK queries), and K6 runs T x ceil(B / that) blocks,
+    each a tile against as many queries; so from that many pairs on the
+    whole search reruns instead: ``tiled_topk``, or for the int8-native
+    scoring, which no tiled kernel scores (K7 scores the scaled one), K4p
+    over every pair.
+    """
+    b = queries.shape[0]
+    num_tiles = corpus.shape[0] // tile
+    need = cover.need
+    pairs = need.T.nonzero()                # (tile, query), sorted by tile
+    n_pairs = pairs.shape[0]
+    rerun = n_pairs >= num_tiles * -(-b // SELECTION_QUERY_BLOCK)
+    if rerun and cover.mode != "native":
+        s, i = tiled_topk(queries, corpus, k, size, tile=tile,
+                          row_scale=row_scale)
+        return s, i, n_pairs, True
+    if rerun:
+        need = torch.ones_like(need)
+        pairs = need.T.nonzero()
+    pt, pq = pairs[:, 0], pairs[:, 1]
+    if cover.mode == "native":
+        q8, q_scale = quantize_int8(queries)
+        val, col = extract_pairs(q8, corpus, size, tile, k, pt, pq,
+                                 row_scale, q_scale)
+    else:
+        val, col = extract_pairs(queries, corpus, size, tile, k, pt, pq,
+                                 row_scale)
+    dev = corpus.device
+    hit = need.gather(1, (ids // tile).clamp(0, num_tiles - 1))
+    cand_s = torch.cat([torch.where(hit, NEG_INF, scores).reshape(-1),
+                        val.reshape(-1)])                        # [(B+P)*k]
+    cand_r = torch.cat([ids.reshape(-1),
+                        (pt[None, :] * tile + col.long()).reshape(-1)])
+    cand_q = torch.cat([torch.arange(b, device=dev).repeat_interleave(k),
+                        pq.repeat(k)])
+    # Each query's candidates by score, ties to the lower row.
+    order = torch.argsort(cand_r, stable=True)
+    order = order[torch.sort(cand_s[order], descending=True, stable=True)[1]]
+    order = order[torch.sort(cand_q[order], stable=True)[1]]
+    per_q = torch.full((b,), k, device=dev).index_add_(
+        0, pq, torch.full_like(pq, k))     # bincount would wait for the card
+    first = torch.cumsum(per_q, 0) - per_q
+    top = order[first[:, None] + torch.arange(k, device=dev)]
+    return cand_s[top], cand_r[top], n_pairs, rerun
+
+
+def dispatch_deferred(queries, corpus, k, size=None, *, prefer_kernel=None,
+                      tile=1024, chunk=65536, approx_tile_k=None,
+                      row_scale=None):
+    """``dispatch_topk(..., defer_certificate=True)`` with the covers'
+    state: (scores, ids, ``Cover``), the ``Cover`` None where the route has
+    no certificate. A nonzero certificate is the caller's to settle with
+    ``repair_uncovered`` and that ``Cover``."""
+    n = corpus.shape[0]
+    if prefer_kernel is None:
+        prefer_kernel = corpus.is_cuda and n % tile == 0 and k <= 128
+    if prefer_kernel:
+        if approx_tile_k is not None:
+            eff_tile_k = max(approx_tile_k, -(-k // max(n // tile, 1)))
+            return (*tiled_topk(queries, corpus, k, size, tile=tile,
+                                tile_k=eff_tile_k, row_scale=row_scale),
+                    None)
+        if n // tile >= 64 * k:
+            b = queries.shape[0]
+            # Batches past 1024 run in sub-batches of 1024; pad rows repeat
+            # the first query: a zero row's tau is 0 and would make every
+            # tile suspicious.
+            pad = (-b) % 1024 if b > 1024 else 0
+            q_run = (torch.cat([queries, queries[:1].expand(pad, -1)])
+                     if pad else queries)
+            scores, packed, cover = _certified(
+                q_run, corpus, k, size, sub_batch=min(b, 1024), tile=tile,
+                row_scale=row_scale)
+            if pad:
+                scores = scores[:b]
+                packed = torch.cat([packed[:b], packed[-1:]])
+                cover = Cover(cover.need[:b], cover.mode)
+            return scores, packed, cover
+        return (*tiled_topk(queries, corpus, k, size, tile=tile,
+                            row_scale=row_scale), None)
+    if n > chunk:
+        return (*chunked_topk(queries, corpus, k, size, chunk=chunk,
+                              row_scale=row_scale), None)
+    return (*exact_topk(queries, corpus, k, size, row_scale=row_scale), None)
+
+
 def dispatch_topk(queries, corpus, k, size=None, *, prefer_kernel=None,
                   tile=1024, chunk=65536, approx_tile_k=None,
                   defer_certificate=False, row_scale=None):
@@ -564,47 +712,25 @@ def dispatch_topk(queries, corpus, k, size=None, *, prefer_kernel=None,
 
     ``defer_certificate=True`` returns the certified path's ids with the
     certificate row still attached ([B+1, k]); the caller reruns
-    ``tiled_topk`` when ``certificate_uncovered(ids)`` is nonzero.
+    ``tiled_topk`` when ``certificate_uncovered(ids)`` is nonzero (or
+    repairs the uncovered pairs with ``dispatch_deferred``'s ``Cover``).
+    Without deferring, a nonzero certificate is settled here by
+    ``repair_uncovered``: the same answer as the rerun where the scoring is
+    ``tiled_topk``'s; for the int8-native scoring the exact answer of that
+    scoring, as a certificate of 0 gives (the reference reruns K7, which
+    scores the scaled function).
     ``approx_tile_k`` opts into unverified approximate extraction.
     ``row_scale`` [N] goes to every route: K7 for the tiled search, the
     int8-native K3/K5b (int8 corpus) or the scaled K2/K5a (float corpus)
     for the certified one.
     """
-    n = corpus.shape[0]
-    if prefer_kernel is None:
-        prefer_kernel = corpus.is_cuda and n % tile == 0 and k <= 128
-    if prefer_kernel:
-        if approx_tile_k is not None:
-            eff_tile_k = max(approx_tile_k, -(-k // max(n // tile, 1)))
-            return tiled_topk(queries, corpus, k, size, tile=tile,
-                              tile_k=eff_tile_k, row_scale=row_scale)
-        if n // tile >= 64 * k:
-            b = queries.shape[0]
-            if b > 1024:
-                # Pad rows repeat the first query: a zero row's tau is 0 and
-                # would make every tile suspicious.
-                pad = (-b) % 1024
-                q_run = (torch.cat([queries, queries[:1].expand(pad, -1)])
-                         if pad else queries)
-                scores, packed = topk_certified_multi(
-                    q_run, corpus, k, size, sub_batch=1024, tile=tile,
-                    row_scale=row_scale)
-                if pad:
-                    scores = scores[:b]
-                    packed = torch.cat([packed[:b], packed[-1:]])
-            else:
-                scores, packed = topk_certified(queries, corpus, k, size,
-                                                tile=tile,
-                                                row_scale=row_scale)
-            if defer_certificate:
-                return scores, packed
-            if certificate_uncovered(packed) == 0:
-                return scores, packed[:-1]
-            return tiled_topk(queries, corpus, k, size, tile=tile,
-                              row_scale=row_scale)
-        return tiled_topk(queries, corpus, k, size, tile=tile,
-                          row_scale=row_scale)
-    if n > chunk:
-        return chunked_topk(queries, corpus, k, size, chunk=chunk,
-                            row_scale=row_scale)
-    return exact_topk(queries, corpus, k, size, row_scale=row_scale)
+    scores, ids, cover = dispatch_deferred(
+        queries, corpus, k, size, prefer_kernel=prefer_kernel, tile=tile,
+        chunk=chunk, approx_tile_k=approx_tile_k, row_scale=row_scale)
+    if cover is None or defer_certificate:
+        return scores, ids
+    if certificate_uncovered(ids) == 0:
+        return scores, ids[:-1]
+    s, i, _, _ = repair_uncovered(queries, corpus, k, size, tile, scores,
+                                  ids[:-1], cover, row_scale=row_scale)
+    return s, i

@@ -7,6 +7,10 @@ sweeps:
   ``_pack_tile_scores`` (:511-527, :576-618), launched by ``_packed_pass``;
 * ``extract`` (K4) ports ``_extract_kernel`` / ``_extract_rounds``
   (:992-1018, :1053-1066), launched by ``_extract_pass``;
+* ``extract_pairs`` (K4p) has no TPU counterpart: K4's selection over
+  (tile, query) pairs instead of every query at a tile, scored as K4, K5a
+  or K5b; it repairs what the certificate's covers leave uncovered (the
+  reference reruns the whole tiled search there);
 * ``tile_topk`` (K6) ports ``_tile_topk_kernel`` / ``_extract_tile_winners``
   (:142-175), launched by ``_tile_pass``;
 * ``packed_extract_int8`` (K3) ports ``_packed_extract_int8_kernel``
@@ -65,12 +69,15 @@ import torch
 NEG_INF = -1e30
 KERNELS = ("packed_extract", "extract", "tile_topk", "packed_extract_int8",
            "extract_int8", "tile_topk_scaled", "packed_extract_scaled",
-           "extract_scaled", "scan_floor")
+           "extract_scaled", "scan_floor", "extract_pairs")
 # The largest tile the selection kernels (K4, K5a, K5b, K6, K7) take. They
 # stream a tile in chunks of 128 rows at 64 queries a block, so neither
 # their shared memory nor their queries a block depend on the tile; the
 # limit is the largest tile the card tests hold them at.
 MAX_EXTRACT_TILE = 16384
+# Queries a selection block scores against one tile (csrc/topk_common.cuh
+# kQB): K4, K6 and K4p run a block per tile and up to this many queries.
+SELECTION_QUERY_BLOCK = 64
 # The most unit winners (tile / groups) a packed-scan block keeps for each
 # of its 16 queries (csrc/packed_extract.cu).
 MAX_UNITS = 2048
@@ -353,6 +360,62 @@ def extract_plain(q: torch.Tensor, corpus: torch.Tensor, size, tile: int,
     """K4's function in PyTorch: (val f32, col int32), each [U, rounds, B]."""
     return _extract_tiles_plain(q, corpus, size, tile, rounds, tiles.long(),
                                 check_range=True)
+
+
+def extract_pairs_plain(q: torch.Tensor, corpus: torch.Tensor, size,
+                        tile: int, rounds: int, pair_tile: torch.Tensor,
+                        pair_query: torch.Tensor, row_scale=None,
+                        q_scale=None, rows_dtype=None):
+    """K4p's function in PyTorch: for pair j, the exact top-``rounds`` rows
+    of tile ``pair_tile[j]`` for query ``pair_query[j]`` of ``q``, scored as
+    K4 (as K5a with ``row_scale`` and ``rows_dtype``, as K5b with int8
+    ``q`` and ``q_scale``): (val f32, col int32 tile-local), each
+    [rounds, P]. Each pair's scores are one query against its tile's rows,
+    the c1 rescore's rowwise products, which give the values of K4's and
+    K6's twins bit for bit."""
+    n, d = corpus.shape
+    num_tiles = n // tile
+    dev = corpus.device
+    p = pair_tile.shape[0]
+    val = torch.empty((rounds, p), dtype=torch.float32, device=dev)
+    col = torch.empty((rounds, p), dtype=torch.int32, device=dev)
+    cols = torch.arange(tile, device=dev)
+    step = max(1, _PLAIN_BLOCK // max(tile * d, 1))
+    for j0 in range(0, p, step):
+        t = pair_tile[j0:j0 + step].long()
+        qi = pair_query[j0:j0 + step].long()
+        valid = (t >= 0) & (t < num_tiles)
+        ts = t.clamp(0, num_tiles - 1)
+        rows = corpus.view(num_tiles, tile, d)[ts]            # [p', tile, D]
+        if q.dtype == torch.int8:
+            s = _pair_int8_dot(q[qi], rows).float()
+        else:
+            if rows_dtype is not None:
+                rows = rows.to(rows_dtype)
+            s = torch.bmm(rows.float(), q[qi][:, :, None])[:, :, 0]
+        if row_scale is not None:
+            s = s * row_scale.view(num_tiles, tile)[ts]
+        if q_scale is not None:
+            s = s * q_scale[qi][:, None]
+        live = valid[:, None] & _live(ts[:, None] * tile + cols, size)
+        _check_score_range(s, live)
+        v, c = _extract_rounds_plain(torch.where(live, s, NEG_INF), rounds)
+        val[:, j0:j0 + step] = v.T
+        col[:, j0:j0 + step] = c.T.to(torch.int32)
+    return val, col
+
+
+def _pair_int8_dot(q8: torch.Tensor, rows8: torch.Tensor) -> torch.Tensor:
+    """The exact int32 dot of each query's codes [P, D] with its rows
+    [P, R, D]: [P, R] (as ``int8_dot``, one query a pair)."""
+    out = None
+    for lo in range(0, q8.shape[-1], _EXACT_CODES):
+        hi = lo + _EXACT_CODES
+        part = torch.bmm(rows8[..., lo:hi].float(),
+                         q8[:, lo:hi].float()[:, :, None])[:, :, 0]
+        out = (part.to(torch.int32) if out is None
+               else out + part.to(torch.int32))
+    return out
 
 
 def _tile_topk_plain(q, corpus, size, tile, tile_k, row_scale=None,
@@ -742,6 +805,74 @@ def extract(queries: torch.Tensor, corpus: torch.Tensor, size, tile: int,
             corpus.data_ptr(), _DTYPE_CODE[corpus.dtype], size_t.data_ptr(),
             tiles.data_ptr(), u, val.data_ptr(), col.data_ptr(), b, n, d,
             tile, rounds)
+    return val, col
+
+
+def _pair_blocks(pair_tile: torch.Tensor) -> torch.Tensor:
+    """K4p's blocks over pairs sorted by tile: int32 [P], the queries of the
+    block that starts at pair j (each run of one tile's pairs cut every
+    SELECTION_QUERY_BLOCK pairs), 0 where none starts. No host wait."""
+    j = torch.arange(pair_tile.shape[0], device=pair_tile.device)
+    first = torch.searchsorted(pair_tile, pair_tile)
+    end = torch.searchsorted(pair_tile, pair_tile, right=True)
+    qb = SELECTION_QUERY_BLOCK
+    return torch.where((j - first) % qb == 0, (end - j).clamp(max=qb),
+                       0).to(torch.int32)
+
+
+def extract_pairs(queries: torch.Tensor, corpus: torch.Tensor, size,
+                  tile: int, rounds: int, pair_tile: torch.Tensor,
+                  pair_query: torch.Tensor, row_scale=None, q_scale=None):
+    """K4p: for each (tile ``pair_tile[j]``, query ``pair_query[j]``) pair,
+    the pairs sorted by tile, the exact top-``rounds`` rows of the tile for
+    the query: (val f32, col int32 tile-local), each [rounds, P], in K4's
+    order and values. Scored as K4 over float ``queries``; as K5a with
+    ``row_scale`` [N]; as K5b with int8 query codes ``queries``, their
+    ``q_scale`` [B] and ``row_scale``. A pair whose tile is negative or
+    past N writes (-1e30, 0)."""
+    native = queries.dtype == torch.int8
+    q = (queries if native else _scan_queries(queries, corpus)
+         if row_scale is None else _bf16_queries(queries))
+    if corpus.device.type == "cpu":
+        rows_dtype = (scaled_rows_dtype(corpus)
+                      if row_scale is not None and not native else None)
+        return extract_pairs_plain(q, corpus, size, tile, rounds, pair_tile,
+                                   pair_query, row_scale=row_scale,
+                                   q_scale=q_scale, rows_dtype=rows_dtype)
+    _check_cuda(q, corpus, tile, extract=True,
+                dtypes=((torch.int8,) if native else _FLOAT_ROWS
+                        if row_scale is None else _SCALED_ROWS))
+    if native or row_scale is not None:
+        _check_scales(corpus, row_scale, *((q, q_scale) if native else ()))
+    _check_rounds(rounds, tile)
+    n, d = corpus.shape
+    p = pair_tile.shape[0]
+    val = torch.empty((rounds, p), dtype=torch.float32, device=corpus.device)
+    col = torch.empty((rounds, p), dtype=torch.int32, device=corpus.device)
+    if p == 0:
+        return val, col
+    # Operands stay bound to names until the launch is enqueued.
+    pt = pair_tile.to(device=corpus.device, dtype=torch.int32).contiguous()
+    pq = pair_query.to(device=corpus.device, dtype=torch.long)
+    blocks = _pair_blocks(pt)
+    size_t = _size_arg(size, n, corpus.device)
+    tail = (size_t.data_ptr(), pt.data_ptr(), blocks.data_ptr(), p,
+            val.data_ptr(), col.data_ptr(), n, d, tile, rounds)
+    if native:
+        qwT, qs = _int8_words(q[pq]), q_scale[pq].contiguous()
+        cs = row_scale.contiguous()
+        _launch("extract_pairs", "orag_extract_pairs_int8", corpus,
+                qwT.data_ptr(), qs.data_ptr(), corpus.data_ptr(),
+                cs.data_ptr(), *tail)
+    elif row_scale is not None:
+        qT, cs = q[pq].T.contiguous(), row_scale.contiguous()
+        _launch("extract_pairs", "orag_extract_pairs_scaled", corpus,
+                qT.data_ptr(), corpus.data_ptr(), _DTYPE_CODE[corpus.dtype],
+                cs.data_ptr(), *tail)
+    else:
+        qT = q[pq].T.contiguous()
+        _launch("extract_pairs", "orag_extract_pairs", corpus, qT.data_ptr(),
+                corpus.data_ptr(), _DTYPE_CODE[corpus.dtype], *tail)
     return val, col
 
 

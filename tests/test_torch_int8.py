@@ -26,13 +26,17 @@ import numpy as np
 import pytest
 import torch
 
+import repair_cases as RC
+
 from optimized_rag_tpu.ops import topk as J
 from optimized_rag_tpu.ops.quantize import dequantize_int8 as j_dequantize
 from optimized_rag_tpu.ops.quantize import quantize_int8 as j_quantize
+from optimized_rag_tpu_torch.index.dense import DenseIndex
 from optimized_rag_tpu_torch.ops import topk as T
 from optimized_rag_tpu_torch.ops import topk_kernels as K
 from optimized_rag_tpu_torch.ops.quantize import (
     dequantize_int8, quantize_int8)
+from optimized_rag_tpu_torch.ops.similarity import normalize
 
 torch.set_num_threads(2)
 
@@ -320,3 +324,60 @@ def test_dispatch_row_scale_routes_like_jax(rng):
     _same(J.dispatch_topk(*jargs, prefer_pallas=False,
                           row_scale=jnp.asarray(cs)),
           T.dispatch_topk(*targs, row_scale=torch.from_numpy(cs)))
+
+
+# ------------------------------------------- repair of a failed certificate
+
+def _native_oracle(qt, c8, cs, k):
+    """The exact top-k of the int8-native score, ties to the lower row."""
+    q8, qs = quantize_int8(qt)
+    return T._topk((K.int8_dot(q8, c8).float() * cs[None, :]) * qs[:, None],
+                   k)
+
+
+@pytest.mark.parametrize("path", ["deferred", "crossover", "settled",
+                                  "index"])
+def test_int8_native_repair_is_the_native_answer(rng, monkeypatch, path):
+    """The int8-native route's failed certificate repaired pair by pair (K4p
+    scoring as K5b) is the exact top-k of the int8-native score, bit for
+    bit, with no K7 rerun (K7 scores another function, the one the JAX
+    package reruns): below the crossover, and past it ("crossover", every
+    pair named), where the whole search reruns as K4p over every pair;
+    through DenseIndex, that candidate set rescored in float32."""
+    tile, k = 64, 1
+    q, c = RC.runs_corpus(rng, 16, 32, tile, 256)
+    qt = normalize(torch.from_numpy(q))   # as DenseIndex.search has them
+    c8, cs = quantize_int8(torch.from_numpy(c))
+    reruns = []
+    real = T.tiled_topk
+    monkeypatch.setattr(T, "tiled_topk",
+                        lambda *a, **kw: reruns.append(1) or real(*a, **kw))
+    cc = 4 * k                            # DenseIndex's int8 oversampling
+    o_s, o_i = _native_oracle(qt, c8, cs, cc)
+    if path == "index":
+        index = DenseIndex(32, capacity_block=len(c), dtype="int8",
+                           tile=tile, device="cpu")
+        index.add(c)
+        got = index.search(q, k, prefer_kernel=True)
+        assert got.route == "fallback"
+        w_s, w_i = T.rescore_topk(qt, index.embeddings(), o_i, k,
+                                  row_scale=index.row_scale)
+        np.testing.assert_array_equal(got.ids, w_i.numpy())
+        np.testing.assert_array_equal(got.scores, w_s.numpy())
+    elif path == "settled":
+        s, i = T.dispatch_topk(qt, c8, cc, prefer_kernel=True, tile=tile,
+                               row_scale=cs)
+        assert torch.equal(i, o_i) and torch.equal(s, o_s)
+    else:
+        s, packed, cover = T.dispatch_deferred(qt, c8, cc, prefer_kernel=True,
+                                               tile=tile, row_scale=cs)
+        assert T.certificate_uncovered(packed) > 0
+        assert cover.mode == "native"
+        assert not torch.equal(packed[:-1], o_i)
+        if path == "crossover":
+            cover = T.Cover(torch.ones_like(cover.need), "native")
+        s2, i2, pairs, rerun = T.repair_uncovered(
+            qt, c8, cc, None, tile, s, packed[:-1], cover, row_scale=cs)
+        assert rerun == (path == "crossover") and pairs > 0
+        assert torch.equal(i2, o_i) and torch.equal(s2, o_s)
+    assert not reruns

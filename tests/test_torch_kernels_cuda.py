@@ -540,6 +540,105 @@ def test_extract_writes_padding_for_absent_tiles(cuda_device):
                col_p + base, v_p)
 
 
+def _pairs(tile, n_tiles, b, dev):
+    """(pair_tile, pair_query) sorted by tile: 70 queries on tile 1 (two
+    blocks of one run), a lone pair on tile 2, two on the tile with 5 live
+    rows, one on the dead tile, three on tile 0."""
+    want = ([(1, qi) for qi in range(70)] + [(2, 5)]
+            + [(n_tiles - 2, 3), (n_tiles - 2, b - 30)]
+            + [(n_tiles - 1, 7), (0, 1), (0, 64), (0, b - 1)])
+    pt, pq = zip(*sorted(want))
+    return (torch.tensor(pt, device=dev), torch.tensor(pq, device=dev))
+
+
+@pytest.mark.parametrize("rounds", [10, 64, 100])
+@pytest.mark.parametrize("tile", [128, 4096])
+def test_extract_pairs_matches_k4_and_twin(cuda_device, tile, rounds):
+    """K4p over f32, bf16 and f16 rows (as K4), scaled f32 rows and int8
+    codes (as K5a) and int8-native (as K5b): each pair's list equals K4's
+    (K5a's, K5b's) list of that tile for that query bit for bit, and its
+    twin's within the drift (the int8-native one bit for bit); pairs grouped
+    on shared tiles, a lone pair, a tile with 5 live rows, a tile past
+    size."""
+    dev = cuda_device
+    q, c, _, size = _corner_data(tile + rounds, 130, 64, tile)
+    qt, c32 = torch.from_numpy(q).to(dev), torch.from_numpy(c).to(dev)
+    n_tiles = c.shape[0] // tile
+    pt, pq = _pairs(tile, n_tiles, q.shape[0], dev)
+    c8, cs = quantize_int8(c32)
+    q8, qs = quantize_int8(qt)
+    cs_f = torch.rand(c.shape[0], generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev) + 0.5
+    cases = [(qt, ct, {}) for ct in (
+        c32, c32.to(torch.bfloat16), c32.to(torch.float16))]
+    cases += [(qt, c32, {"row_scale": cs_f}), (qt, c8, {"row_scale": cs}),
+              (q8, c8, {"row_scale": cs, "q_scale": qs})]
+    for qk, ct, kw in cases:
+        v, col = K.extract_pairs(qk, ct, size, tile, rounds, pt, pq, **kw)
+        if qk.dtype == torch.int8:
+            v4, c4 = K.extract_int8(q8, qs, ct, cs, size, tile, rounds, pt)
+            v_p, c_p = K.extract_pairs_plain(q8, ct, size, tile, rounds, pt,
+                                             pq, **kw)
+        elif kw:
+            v4, c4 = K.extract_scaled(qk, ct, kw["row_scale"], size, tile,
+                                      rounds, pt)
+            qp = K._bf16_queries(qk)
+            v_p, c_p = K.extract_pairs_plain(
+                qp, ct, size, tile, rounds, pt, pq, row_scale=kw["row_scale"],
+                rows_dtype=K.scaled_rows_dtype(ct))
+        else:
+            v4, c4 = K.extract(qk, ct, size, tile, rounds, pt)
+            qp = K._scan_queries(qk, ct)
+            v_p, c_p = K.extract_pairs_plain(qp, ct, size, tile, rounds, pt,
+                                             pq)
+        j = torch.arange(pt.shape[0], device=dev)
+        assert torch.equal(v, v4[j, :, pq].T), (ct.dtype, kw.keys())
+        assert torch.equal(col, c4[j, :, pq].T), (ct.dtype, kw.keys())
+        if qk.dtype == torch.int8:
+            assert torch.equal(v, v_p) and torch.equal(col, c_p)
+        else:
+            base = (pt * tile)[None, :]
+            _agree(qp[pq], ct, col + base, v, c_p + base, v_p,
+                   row_scale=kw.get("row_scale"))
+        dead = pt == n_tiles - 1
+        assert bool((v[:, dead] == K.NEG_INF).all())
+        assert bool((col[:, dead] == 0).all())
+        if rounds > 5:                                 # 5 live rows
+            few = pt == n_tiles - 2
+            assert bool((v[5:, few] == K.NEG_INF).all())
+    empty = torch.zeros(0, dtype=torch.long, device=dev)
+    v, col = K.extract_pairs(qt, c32, size, tile, rounds, empty, empty)
+    assert v.shape == col.shape == (rounds, 0)
+
+
+def test_repaired_search_at_the_bench_shape_equals_the_rerun(cuda_device):
+    """1,048,576 x 128 bf16 rows, tile 4096, B = 1,024, k = 10, each query
+    with near-duplicate rows in 8 tiles: the certificate fails, K4p repairs
+    the uncovered pairs (no rerun), and the answer is the tiled rerun's up
+    to the drift between the c1 rescore's sums (cuBLAS) and K6's FMA chain:
+    scores within 1e-6, ids equal but where two rows score within it (two
+    rows 7e-9 apart swap on this input)."""
+    dev = cuda_device
+    n, d, tile, b, k = 1 << 20, 128, 4096, 1024, 10
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.nn.functional.normalize(
+        torch.randn(b, d, generator=g, device=dev), dim=1)
+    c = torch.randn(n, d, generator=g, device=dev) * 0.1
+    qi = torch.arange(b, device=dev)
+    for j in range(8):
+        rows = ((qi + 37 * j) % (n // tile)) * tile + qi * 4 + j % 4
+        c[rows] = q + 0.02 * torch.randn(b, d, generator=g, device=dev)
+    cb = torch.nn.functional.normalize(c, dim=1).to(torch.bfloat16)
+    s, packed, cover = T._certified(q, cb, k, sub_batch=b, tile=tile)
+    assert T.certificate_uncovered(packed) > 0
+    s2, i2, pairs, rerun = T.repair_uncovered(q, cb, k, None, tile, s,
+                                              packed[:-1], cover)
+    assert not rerun and pairs > 0
+    s_r, i_r = T.tiled_topk(q, cb, k, tile=tile)
+    _agree(K._scan_queries(q, cb), cb, i2.T, s2.T, i_r.T, s_r.T, tol=1e-6)
+    assert bool((i2.sort(dim=1).values.diff(dim=1) > 0).all())
+
+
 def test_wide_bf16_rows_take_the_fma_stage(cuda_device):
     """bf16 rows wider than the tensor-core stage takes (kMmaMaxD, or its
     shared memory) are scored by FMA: the same holds at D=640."""

@@ -33,6 +33,8 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import repair_cases as RC
+
 from optimized_rag_tpu.index.dense import DenseIndex as JaxDense
 from optimized_rag_tpu.ops import topk as J
 from optimized_rag_tpu.ops.quantize import quantize_int8 as j_quantize
@@ -442,10 +444,64 @@ def test_flagged_certificate_raises_where_it_is_read(rng, monkeypatch):
         index._settle_certificate(torch.zeros(2, 16), torch.zeros(2, 4),
                                   ids.numpy(), 4)
     blocks = iter([(torch.zeros(2, 4), torch.cat([torch.zeros(
-        (2, 4), dtype=torch.long), r])) for r in (
+        (2, 4), dtype=torch.long), r]), flag,
+        T.Cover(torch.zeros((2, 2), dtype=torch.bool), "dense")) for r in (
             torch.tensor([[5, 0, 0, 0]]), row)])
-    monkeypatch.setattr(T, "topk_certified", lambda *a, **kw: next(blocks))
+    monkeypatch.setattr(T, "_packed_search", lambda *a, **kw: next(blocks))
     _, ids_m = T.topk_certified_multi(torch.zeros(4, 16),
                                       torch.zeros(256, 16), 4, sub_batch=2,
                                       tile=128)
     assert int(ids_m[-1, 0]) == -1
+
+
+# ------------------------------------------- repair of a failed certificate
+
+@pytest.mark.parametrize("rows", ["float", "int8"])
+def test_scaled_repair_equals_the_rerun(rng, monkeypatch, rows):
+    """The scaled route's failed certificate (float rows with a row scale,
+    or int8 codes read as scaled) repaired pair by pair, K4p scoring as K5a:
+    the K7 rerun's answer bit for bit, deferred and settled, no rerun; and
+    the JAX package's, deferred (the same scores and certificate row, ids
+    the same or another copy of the row) and settled (rerun there)."""
+    tile, k = 64, 2
+    q, c = RC.runs_corpus(rng, 16, 32, tile, 128)
+    # Float rows: a scale of each row's own value, so copies stay equal.
+    c, cs = (_scaled_corpus(rng, c, rows) if rows == "int8"
+             else (c, 0.75 + 0.2 * c[:, 0]))
+    qt, ct, cst = _t(q, c, cs)
+    s, packed, cover = T._certified(qt, ct, k, sub_batch=16, tile=tile,
+                                    row_scale=cst, int8_native=False)
+    assert T.certificate_uncovered(packed) > 0 and cover.mode == "scaled"
+    s_r, i_r = T.tiled_topk(qt, ct, k, tile=tile, row_scale=cst)
+    assert not torch.equal(packed[:-1], i_r)
+    reruns = []
+    real = T.tiled_topk
+    monkeypatch.setattr(T, "tiled_topk",
+                        lambda *a, **kw: reruns.append(1) or real(*a, **kw))
+    s2, i2, pairs, rerun = T.repair_uncovered(qt, ct, k, None, tile, s,
+                                              packed[:-1], cover,
+                                              row_scale=cst)
+    assert not rerun and not reruns and pairs > 0
+    assert torch.equal(i2, i_r) and torch.equal(s2, s_r)
+    qj, cj, csj = (jnp.asarray(np.array(a)) for a in (q, c, cs))
+    if rows == "float":                   # dispatch's scaled route
+        s3, i3 = T.dispatch_topk(qt, ct, k, prefer_kernel=True, tile=tile,
+                                 row_scale=cst)
+        assert not reruns
+        assert torch.equal(i3, i_r) and torch.equal(s3, s_r)
+        _same(J.dispatch_topk(qj, cj, k, prefer_pallas=True, tile=tile,
+                              row_scale=csj), (s3, i3))
+        sj, pj = J.dispatch_topk(qj, cj, k, prefer_pallas=True, tile=tile,
+                                 defer_certificate=True, row_scale=csj)
+    else:                                 # the scaled route over codes
+        _same(J.pallas_topk(qj, cj, k, tile=tile, interpret=True,
+                            row_scale=csj), (s2, i2))
+        sj, pj = J.pallas_topk_certified(qj, cj, k, tile=tile,
+                                         interpret=True, row_scale=csj,
+                                         int8_native=False)
+    sj, pj = np.asarray(sj), np.asarray(pj)
+    np.testing.assert_array_equal(packed[-1].numpy(), pj[-1])
+    np.testing.assert_allclose(s.numpy(), sj, rtol=0, atol=ATOL)
+    rows_t = ct.float().numpy()
+    np.testing.assert_array_equal(rows_t[packed[:-1].numpy()],
+                                  rows_t[pj[:-1]])

@@ -133,8 +133,8 @@ def test_query_server_slice_matches_jax(rng, monkeypatch):
     want = ref_index.search(ref_enc.encode(queries), K, prefer_pallas=True)
 
     certified = []
-    real = port_topk.topk_certified
-    monkeypatch.setattr(port_topk, "topk_certified",
+    real = port_topk._certified
+    monkeypatch.setattr(port_topk, "_certified",
                         lambda *a, **kw: certified.append(1) or real(*a, **kw))
     got, stats = _serve(enc, _KernelRoute(index), queries, K)
     for i, (scores, ids) in enumerate(got):

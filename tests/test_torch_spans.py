@@ -5,9 +5,9 @@ keeps (``torch.autograd.profiler._is_profiler_enabled``), which is pinned
 here; outside one, ``span`` reads no clock and nothing is recorded. A
 ``QueryServer`` over an ``EmbeddingService`` with random weights and a
 small bfloat16 ``DenseIndex`` with tombstones, whose certificate is forced
-to a nonzero count (the exact rerun keeps every answer exact), records
-every span of the served path; each child lies inside its parent on its
-parent's thread, and a batch's spans share its id. Answers are the same
+to a nonzero count (the whole search's exact rerun keeps every answer
+exact), records every span of the served path; each child lies inside its
+parent on its parent's thread, and a batch's spans share its id. Answers are the same
 with recording on and off. A ``device_trace`` file holds the spans on the
 trace's own clock, each around its own ``aten::mm``.
 """
@@ -25,6 +25,7 @@ from optimized_rag_tpu_torch.index import dense
 from optimized_rag_tpu_torch.index.dense import DenseIndex
 from optimized_rag_tpu_torch.models.encoder import (
     EmbeddingService, TransformerConfig)
+from optimized_rag_tpu_torch.ops.topk import Cover
 from optimized_rag_tpu_torch.serving import QueryServer
 from optimized_rag_tpu_torch.utils import profiling
 
@@ -41,15 +42,18 @@ WORDS = ("dense retrieval certified top-k tiles encoder batch queue host "
 
 def _certificate(monkeypatch, uncovered: int) -> None:
     """``DenseIndex``'s deferred search returns the exact top-k with a
-    certificate row that reads ``uncovered``."""
+    certificate row that reads ``uncovered``, and covers that leave every
+    (query, tile) pair open, so the whole search reruns."""
     real = dense.dispatch_topk
 
     def fake(q, corpus, k, size=None, *, tile=1024, row_scale=None, **_):
         s, i = real(q, corpus, k, size, tile=tile, row_scale=row_scale)
         row = torch.zeros((1, k), dtype=i.dtype)
         row[0, 0] = uncovered
-        return s, torch.cat([i, row])
-    monkeypatch.setattr(dense, "dispatch_topk", fake)
+        need = torch.ones((q.shape[0], corpus.shape[0] // tile),
+                          dtype=torch.bool)
+        return s, torch.cat([i, row]), Cover(need, "dense")
+    monkeypatch.setattr(dense, "dispatch_deferred", fake)
 
 
 def _texts(n: int, seed: int) -> list[str]:

@@ -10,15 +10,22 @@ in another order. The CUDA kernels themselves are held against these twins
 on the card by ``tests/test_torch_kernels_cuda.py``.
 """
 
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import profile
 
+import repair_cases as RC
 from optimized_rag_tpu.ops import topk as J
+from optimized_rag_tpu_torch.index import dense
+from optimized_rag_tpu_torch.index.dense import DenseIndex
 from optimized_rag_tpu_torch.ops import topk as T
 from optimized_rag_tpu_torch.ops import topk_kernels as K
+from optimized_rag_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -351,7 +358,7 @@ def test_dispatch_routes_certified_and_matches_jax(rng):
 
 def test_dispatch_small_corpus_goes_tiled(rng, monkeypatch):
     calls = []
-    monkeypatch.setattr(T, "topk_certified",
+    monkeypatch.setattr(T, "_certified",
                         lambda *a, **kw: calls.append("certified"))
     q, c = _unit(rng, 4, 32), _unit(rng, 128 * 20, 32)
     (qj, cj), (qt, ct) = _pair(q, c)
@@ -376,18 +383,19 @@ def test_dispatch_pads_large_batches_by_repeating_query0(monkeypatch):
             calls[name] = (tuple(q.shape), kw.get("sub_batch"),
                            bool((q[-1] == q[0]).all()))
             return (torch.zeros((q.shape[0], k)),
-                    torch.zeros((q.shape[0] + 1, k), dtype=torch.long))
+                    torch.zeros((q.shape[0] + 1, k), dtype=torch.long),
+                    T.Cover(torch.zeros((q.shape[0], 1), dtype=torch.bool),
+                            "dense"))
         return _f
 
-    monkeypatch.setattr(T, "topk_certified_multi", fake("multi"))
-    monkeypatch.setattr(T, "topk_certified", fake("single"))
+    monkeypatch.setattr(T, "_certified", fake("certified"))
     c = torch.zeros((2560, 8))
     q = torch.arange(1030 * 8, dtype=torch.float32).reshape(1030, 8)
     s, ids = T.dispatch_topk(q, c, 4, prefer_kernel=True, tile=4)
-    assert calls.pop("multi") == ((2048, 8), 1024, True)
+    assert calls.pop("certified") == ((2048, 8), 1024, True)
     assert s.shape == (1030, 4) and ids.shape == (1030, 4)
     T.dispatch_topk(q[:512], c, 4, prefer_kernel=True, tile=4)
-    assert calls.pop("single")[0] == (512, 8)
+    assert calls.pop("certified") == ((512, 8), 512, False)
 
 
 def test_dispatch_padded_batch_certifies_exact(rng):
@@ -401,3 +409,169 @@ def test_dispatch_padded_batch_certifies_exact(rng):
     s_ref, i_ref = T.exact_topk(qt, ct, k)
     np.testing.assert_array_equal(packed[:-1].numpy(), i_ref.numpy())
     np.testing.assert_allclose(s.numpy(), s_ref.numpy(), rtol=0, atol=1e-6)
+
+
+# ------------------------------------------- repair of a failed certificate
+
+REPAIR_TILE = 64
+# case -> (queries, D, tiles, k, corpus dtype, near-copies of query 0
+# beyond c1's reach, tiles a query's chunk is stored in)
+REPAIR_CASES = {"f32": (16, 32, 128, 2, torch.float32, False, 4),
+                "bf16": (16, 32, 128, 2, torch.bfloat16, False, 4),
+                "c3": (16, 32, 128, 2, torch.float32, True, 4),
+                "multi": (1030, 16, 64, 1, torch.float32, False, 2)}
+
+
+def _repair_case(rng, case):
+    b, d, tiles, k, tdt, c3, per_query = REPAIR_CASES[case]
+    q, c = RC.runs_corpus(rng, b, d, REPAIR_TILE, tiles, per_query, c3=c3)
+    jdt, atol = ((jnp.bfloat16, BF16_ATOL) if tdt == torch.bfloat16
+                 else (jnp.float32, F32_ATOL))
+    (qj, cj), (qt, ct) = _pair(q, c, jdt, tdt)
+    return qt, ct, k, (qj, cj, atol)
+
+
+def _spy_reruns(monkeypatch):
+    calls = []
+    real = T.tiled_topk
+    monkeypatch.setattr(T, "tiled_topk",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    return calls
+
+
+@pytest.mark.parametrize("case", list(REPAIR_CASES))
+def test_repair_equals_the_rerun(rng, monkeypatch, case):
+    """A failed certificate (c2 pairs; with "c3" a c3 query too; "multi"
+    1,030 queries padded to 2,048 in two sub-batches) repaired pair by pair
+    gives the tiled rerun's answer bit for bit, deferred and settled, with
+    no rerun; the certified answer alone differs from it."""
+    qt, ct, k, _ = _repair_case(rng, case)
+    s, packed, cover = T.dispatch_deferred(qt, ct, k, prefer_kernel=True,
+                                           tile=REPAIR_TILE)
+    uncovered = T.certificate_uncovered(packed)
+    s_r, i_r = T.tiled_topk(qt, ct, k, tile=REPAIR_TILE)
+    assert uncovered > 0 and not torch.equal(packed[:-1], i_r)
+    assert packed.shape == (qt.shape[0] + 1, k)
+    assert cover.need.shape == (qt.shape[0], ct.shape[0] // REPAIR_TILE)
+    reruns = _spy_reruns(monkeypatch)
+    s2, i2, pairs, rerun = T.repair_uncovered(qt, ct, k, None, REPAIR_TILE,
+                                              s, packed[:-1], cover)
+    assert not rerun and not reruns
+    assert torch.equal(i2, i_r) and torch.equal(s2, s_r)
+    # Without c3 the pairs are c2's, which the certificate counts; a c3
+    # query adds its tiles whose best unit c1 did not rescore.
+    assert pairs > uncovered if case == "c3" else pairs == uncovered
+    s3, i3 = T.dispatch_topk(qt, ct, k, prefer_kernel=True, tile=REPAIR_TILE)
+    assert not reruns
+    assert torch.equal(i3, i_r) and torch.equal(s3, s_r)
+
+
+@pytest.mark.parametrize("case", list(REPAIR_CASES))
+def test_repair_matches_jax(rng, case):
+    """dispatch_topk against the JAX package on the same cases: settled
+    (repaired here, rerun there) the same answer; deferred the same scores
+    and certificate row, the ids the same or another copy of the same row
+    (the JAX certified path orders exact ties by candidate rank)."""
+    qt, ct, k, (qj, cj, atol) = _repair_case(rng, case)
+    _same(J.dispatch_topk(qj, cj, k, prefer_pallas=True, tile=REPAIR_TILE),
+          T.dispatch_topk(qt, ct, k, prefer_kernel=True, tile=REPAIR_TILE),
+          atol)
+    sj, pj = (np.asarray(a) for a in J.dispatch_topk(
+        qj, cj, k, prefer_pallas=True, tile=REPAIR_TILE,
+        defer_certificate=True))
+    s, packed = (a.numpy() for a in T.dispatch_topk(
+        qt, ct, k, prefer_kernel=True, tile=REPAIR_TILE,
+        defer_certificate=True))
+    assert packed[-1, 0] > 0
+    np.testing.assert_array_equal(packed[-1], pj[-1])
+    np.testing.assert_allclose(s, sj, rtol=0, atol=atol)
+    rows = ct.float().numpy()
+    np.testing.assert_array_equal(rows[packed[:-1]], rows[pj[:-1]])
+
+
+@pytest.mark.parametrize("extra", [-1, 0])
+def test_repair_reruns_from_the_crossover(rng, monkeypatch, extra):
+    """Any pairs beyond the covers' leave the answer exact; from T x
+    ceil(B / 64) pairs on (K6's blocks) the tiled search reruns instead,
+    with the same answer."""
+    qt, ct, k, _ = _repair_case(rng, "f32")
+    s, packed, cover = T.dispatch_deferred(qt, ct, k, prefer_kernel=True,
+                                           tile=REPAIR_TILE)
+    need = cover.need.clone()
+    tiles = ct.shape[0] // REPAIR_TILE
+    cross = tiles * -(-qt.shape[0] // K.SELECTION_QUERY_BLOCK)
+    free = (~need).nonzero()
+    add = free[:cross + extra - int(need.sum())]
+    need[add[:, 0], add[:, 1]] = True
+    reruns = _spy_reruns(monkeypatch)
+    s2, i2, pairs, rerun = T.repair_uncovered(
+        qt, ct, k, None, REPAIR_TILE, s, packed[:-1], T.Cover(need, "dense"))
+    assert pairs == cross + extra
+    assert rerun == (extra == 0) and len(reruns) == (extra == 0)
+    s_r, i_r = T.tiled_topk(qt, ct, k, tile=REPAIR_TILE)
+    assert torch.equal(i2, i_r) and torch.equal(s2, s_r)
+
+
+def _whole_rerun(monkeypatch):
+    """Make DenseIndex's repair take the whole rerun: a cover that names
+    every pair (a superset of the pairs left, so still exact)."""
+    real = T.repair_uncovered
+
+    def every_pair(*a, **kw):
+        cover = a[7]
+        return real(*a[:7], T.Cover(torch.ones_like(cover.need), cover.mode),
+                    **kw)
+    monkeypatch.setattr(dense, "repair_uncovered", every_pair)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_index_repairs_a_failed_certificate(rng, monkeypatch, dtype):
+    """DenseIndex.search over near-duplicate runs with tombstones: route
+    "fallback", the uncovered pairs repaired (``search.fallback`` records
+    ``pairs`` and ``rerun`` false), the answer the rerun's bit for bit,
+    tombstoned rows filtered."""
+    d, k = 16, 2
+    tiles = 1280 if dtype == "bfloat16" else 320      # 64 * cc tiles
+    q, c = RC.runs_corpus(rng, 16, d, REPAIR_TILE, tiles)
+    index = DenseIndex(d, capacity_block=len(c), dtype=dtype,
+                       tile=REPAIR_TILE, device="cpu")
+    index.add(c)
+    first = index.search(q, k, prefer_kernel=True)
+    gone = [int(first.ids[0, 0]), int(first.ids[3, 1]), 5]
+    index.delete(gone)
+    reruns = _spy_reruns(monkeypatch)
+    t0 = time.perf_counter()
+    with profile():
+        got = index.search(q, k, prefer_kernel=True)
+    recs = profiling.RECORDER.records(t0, time.perf_counter())
+    (fb,) = [r for r in recs if r.name == "search.fallback"]
+    (top,) = [r for r in recs if r.name == "search"]
+    assert got.route == "fallback" and not reruns
+    assert fb.attrs["rerun"] is False and fb.attrs["pairs"] > 0
+    assert top.attrs["uncovered"] > 0
+    assert not set(gone) & set(got.ids.ravel().tolist())
+    _whole_rerun(monkeypatch)
+    with profile():
+        want = index.search(q, k, prefer_kernel=True)
+    (fb,) = [r for r in profiling.RECORDER.records(t0, time.perf_counter())
+             if r.name == "search.fallback" and r.attrs["rerun"]]
+    assert reruns and want.route == "fallback"
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_array_equal(got.scores, want.scores)
+
+
+def test_flagged_certificate_raises_before_the_repair(rng, monkeypatch):
+    """A certificate of -1 (the scan's range flag) raises ValueError where
+    it is read, with a cover at hand: nothing is repaired."""
+    index = DenseIndex(16, 256, tile=128, device="cpu")
+    index.add(RC.unit(rng, 10, 16))
+    ids = np.zeros((3, 4), np.int64)
+    ids[-1, 0] = -1
+    called = []
+    monkeypatch.setattr(dense, "repair_uncovered",
+                        lambda *a, **kw: called.append(1))
+    cover = T.Cover(torch.ones((2, 2), dtype=torch.bool), "dense")
+    with pytest.raises(ValueError, match=r"\(-2, 2\)"):
+        index._settle_certificate(torch.zeros(2, 16), torch.zeros(2, 4), ids,
+                                  4, cover)
+    assert not called

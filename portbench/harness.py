@@ -2,10 +2,11 @@
 the check, and the result line.
 
 Everything that belongs to one configuration, one traffic mix or one metric
-is found by name: ``configs/<config>.json``, ``traffic/<mix>.json`` (which
-names its generator, ``traffic/<generator>.py``), ``metrics/<metric>.py``
-(``read(run)``, returning a number or None) and ``limits/<cell>.json``
-(the check's limits).
+is found by name: ``configs/<config>.json`` (which names its kind of system,
+``systems/<kind>.py``), ``traffic/<mix>.json`` (which names its generator,
+``traffic/<generator>.py``), ``metrics/<metric>.py`` (``read(run)``,
+returning a number or None) and ``limits/<cell>.json`` (the check's
+limits).
 """
 
 from __future__ import annotations
@@ -45,11 +46,29 @@ def cell(bench: dict, name: str) -> SimpleNamespace:
     if w is None:
         raise Refused(f"no workload named {name!r} in BENCHMARK.json")
     cfg_entry = next(c for c in bench["configs"] if c["name"] == w["config"])
+    cfg = load_json(ROOT, cfg_entry["file"])
+    if "system" not in cfg:
+        raise Refused(f"{cfg_entry['file']} has no \"system\" key naming "
+                      f"its kind of system (systems/<kind>.py)")
     return SimpleNamespace(
-        name=name, chips=int(w["chips"]),
-        cfg=load_json(ROOT, cfg_entry["file"]),
+        name=name, chips=int(w["chips"]), cfg=cfg,
         mix=load_json(HERE, "traffic", w["traffic"] + ".json"),
         limits=load_json(HERE, "limits", name + ".json"))
+
+
+def kind(cfg: dict):
+    """The module of the configuration's kind of system (see
+    ``systems/__init__.py``)."""
+    return importlib.import_module(f"portbench.systems.{cfg['system']}")
+
+
+class Run(SimpleNamespace):
+    """What a metric reader is given. An attribute it lacks is the
+    system's: a kind's readers may read what its system keeps, such as the
+    size of its state."""
+
+    def __getattr__(self, name):
+        return getattr(vars(self).get("system"), name)
 
 
 def metrics_for(bench: dict, name: str, section: str) -> list[dict]:
@@ -77,7 +96,8 @@ def run_cell(c: SimpleNamespace, seed: int, seconds: float, trace: bool,
     the answers; returns the fields of the result line."""
     import torch
 
-    from portbench import check, spans as spans_mod, system as system_mod
+    from portbench import check, spans as spans_mod
+    sys_kind = kind(c.cfg)
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     if cuda:
@@ -86,7 +106,7 @@ def run_cell(c: SimpleNamespace, seed: int, seconds: float, trace: bool,
         torch.cuda.reset_peak_memory_stats(dev)
     spans = spans_mod.Spans()
     phases = {"imports": time.perf_counter() - t_start}
-    sysm = system_mod.System(c.cfg, seed, dev, spans)
+    sysm = sys_kind.System(c.cfg, seed, dev, spans)
     phases.update(sysm.phases)
     gen = importlib.import_module(f"portbench.traffic.{c.mix['generator']}")
     load = gen.Load(sysm, c.mix, seed)
@@ -97,7 +117,8 @@ def run_cell(c: SimpleNamespace, seed: int, seconds: float, trace: bool,
     marks = {}
 
     def stats():
-        return sysm.server.get_stats() if sysm.server is not None else None
+        server = getattr(sysm, "server", None)
+        return server.get_stats() if server is not None else None
 
     def on_open():
         marks["t0"], marks["stats0"] = time.perf_counter(), stats()
@@ -125,10 +146,8 @@ def run_cell(c: SimpleNamespace, seed: int, seconds: float, trace: bool,
     summary = tracer.stop(spans) if tracer is not None else None
     setup_s = marks["t0"] - t_start
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
-    run = SimpleNamespace(
-        cell=c, load=load, spans=spans, system=sysm, trace=summary,
-        t0=marks["t0"], t1=marks["t1"], marks=marks, setup_s=setup_s,
-        n_rows=sysm.n_rows)
+    run = Run(cell=c, load=load, spans=spans, system=sysm, trace=summary,
+              t0=marks["t0"], t1=marks["t1"], marks=marks, setup_s=setup_s)
     values = {}
     for m in metrics:
         v = reader(m["name"])(run)
@@ -145,10 +164,7 @@ def run_cell(c: SimpleNamespace, seed: int, seconds: float, trace: bool,
         device_info["busy_s"] = summary["busy_ns"] / 1e9
         device_info["window_s"] = summary["window_ns"] / 1e9
     sysm.close()
-    encoder = None
-    if c.cfg.get("encoder"):
-        encoder = system_mod.reference_encoder(c.cfg, dev)
-    numbers = check.compare(c.cfg, sysm.corpus, answers, seed, dev, encoder)
+    numbers = sys_kind.compare(c.cfg, sysm, answers, seed, dev)
     out = {"correct": check.verdict(numbers, c.limits),
            "attempted": attempted, "failed": failed, "metrics": values,
            "device": device_info}
@@ -169,12 +185,13 @@ def run_cell(c: SimpleNamespace, seed: int, seconds: float, trace: bool,
 
 def _window_notes(run) -> dict:
     """Host-side figures of the window for the standard error: mean span
-    ms by layer and the answers of each fifth of the window."""
-    from portbench import readers
+    ms by layer and the requests answered in each fifth of the window."""
+    from portbench import readers, spans
     notes = {f"{layer}_ms": readers.mean_ms(run, layer)
-             for layer in ("encode", "search")}
+             for layer in spans.layers(run.spans)}
     done = [r.t_done for r in getattr(run.load, "requests", [])
-            if r.ids is not None and readers.in_window(run, r.t_done)]
+            if getattr(r, "error", None) is None
+            and readers.in_window(run, r.t_done)]
     if done:
         w = readers.window_s(run) / 5
         notes["answers_by_fifth"] = [

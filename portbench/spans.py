@@ -1,5 +1,5 @@
 """Spans around the calls into the program's layers, from the benchmark's
-own wrappers.
+own wrappers, kept by layer.
 
 Each wrapped call returns numpy, so it has waited for the device, and its
 host-clock span covers the device work it caused.
@@ -24,20 +24,36 @@ def real_rows(q: np.ndarray) -> int:
     return n - pad
 
 
+def layers(spans) -> dict[str, list]:
+    """Each layer's spans by the layer's name: the lists ``spans`` holds."""
+    return {k: v for k, v in vars(spans).items() if isinstance(v, list)}
+
+
 class Spans:
+    """Host-clock spans (time.perf_counter), each starting (t0, t1, ...),
+    in one list a layer, held as the attribute of the layer's name. The
+    wrappers below record ``encode`` (t0, t1, texts, embeddings) and
+    ``search`` (t0, t1, real_b, k, route); a kind of system records its own
+    layers with ``add``."""
+
     def __init__(self):
-        # Host-clock spans (time.perf_counter).
-        self.encode: list[tuple] = []   # (t0, t1, texts, embeddings)
-        self.search: list[tuple] = []   # (t0, t1, real_b, k, route)
         self.lock = threading.Lock()
+        self.encode: list[tuple] = []
+        self.search: list[tuple] = []
+
+    def add(self, layer: str, span: tuple) -> None:
+        held = getattr(self, layer, None)
+        if held is not None and not isinstance(held, list):
+            raise ValueError(f"{layer!r} is no layer's name")
+        with self.lock:
+            vars(self).setdefault(layer, []).append(span)
 
     def wrap_encode(self, encode):
         def embed_fn(texts):
             t0 = time.perf_counter()
             out = encode(texts)
             t1 = time.perf_counter()
-            with self.lock:
-                self.encode.append((t0, t1, texts, out))
+            self.add("encode", (t0, t1, texts, out))
             return out
         return embed_fn
 
@@ -62,6 +78,5 @@ class _SpannedIndex:
         t0 = time.perf_counter()
         res = self._index.search(queries, k, **kw)
         t1 = time.perf_counter()
-        with sp.lock:
-            sp.search.append((t0, t1, b, k, res.route))
+        sp.add("search", (t0, t1, b, k, res.route))
         return res

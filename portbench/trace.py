@@ -22,6 +22,8 @@ from collections import Counter
 
 import torch
 
+from portbench.spans import layers
+
 _WINDOW = "portbench.window"
 TOPK_KERNELS = "orag::"
 
@@ -75,7 +77,7 @@ def _union(intervals) -> float:
 def reduce(events, spans, t_open: float) -> dict:
     """The window's device busy time, its device time by operation name
     and of the top-k's kernels, and its idle gaps by what the host was
-    doing (ns)."""
+    doing (ns): the layer of every span ``spans`` holds."""
     cuda = torch.autograd.DeviceType.CUDA
     dev = []
     w0 = w1 = None
@@ -95,8 +97,8 @@ def reduce(events, spans, t_open: float) -> dict:
     for s, t, n in inside:
         by_name[n] += t - s
     host = sorted((w0 + (sp[0] - t_open) * 1e9, w0 + (sp[1] - t_open) * 1e9,
-                   layer) for layer in ("encode", "search")
-                  for sp in getattr(spans, layer))
+                   layer) for layer, held in layers(spans).items()
+                  for sp in held)
     return {"window_ns": w1 - w0,
             "busy_ns": _union((s, t) for s, t, _ in inside),
             "by_name_ns": by_name,

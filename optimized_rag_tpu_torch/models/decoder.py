@@ -30,6 +30,18 @@ writes the cache at one scalar position; finished rows emit PAD. The
 reference runs a fixed ``lax.scan`` of ``max_new`` steps; the loop here
 stops once every row has finished, which gives the same tokens.
 
+``Generator`` runs any model whose configuration builds it
+(``cfg.serving_model``) and which has ``prefill`` (to the first logits and
+a cache of the model's own making) and ``decode`` (one step through that
+cache): ``DecoderLM`` here, ``models/deepseek_v2.DeepseekV2LM`` (latent
+cache, chunked prefill, the head at the last position only). Special ids
+come from the configuration. Prompts already tokenized go through
+``generate_ids``; text goes through the byte-level encoding, which only a
+byte-level configuration has. While a profiler session records
+(``utils/profiling.span``) a call records ``generate``,
+``generate.prefill`` and ``generate.decode`` with their device time (CUDA
+event pairs read after the call's final copy) and the model's routing.
+
 Sampling (``temperature > 1e-4``) draws from a ``torch.Generator`` seeded
 from ``seed``; ``jax.random``'s stream cannot be matched, so sampled text
 differs from the reference's. Each step draws one Gumbel vector that every
@@ -54,6 +66,7 @@ from torch import nn
 from optimized_rag_tpu_torch.device import resolve_device
 from optimized_rag_tpu_torch.models.encoder import (
     _LayerNorm, embed, serving_module)
+from optimized_rag_tpu_torch.utils.profiling import span
 
 PAD = 0
 BOS = 1
@@ -97,6 +110,13 @@ class DecoderConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_dim // self.num_heads
+
+    # What ``Generator`` reads of a configuration.
+    pad_id, eos_id = PAD, EOS
+    byte_level = True
+
+    def serving_model(self, params, seed: int, device) -> "DecoderLM":
+        return serving_module(lambda: DecoderLM(self), params, seed, device)
 
 
 class Dense(nn.Linear):
@@ -225,6 +245,24 @@ class DecoderLM(nn.Module):
         hidden = self.ln_f(x)
         return self.head(hidden), new_caches, hidden
 
+    def prefill(self, ids, pad_len, pad_mask, pos_ids, total: int,
+                chunk=None, probe=None):
+        """One full forward of LEFT-padded ids [B, P] -> (logits [B, V] at
+        the last position, per-layer (k, v) buffers of ``total`` slots).
+        ``chunk`` does not apply: the prompt runs whole."""
+        logits, caches, _ = self(ids, key_valid=pad_mask, pos_ids=pos_ids)
+        if probe is not None:
+            probe.chunk(ids.numel())
+        return logits[:, -1], cache_buffers(caches, total)
+
+    def decode(self, toks, slot: int, cache, storage_valid, pos_ids,
+               probe=None):
+        """One step: tokens [B] written at storage slot ``slot``, positional
+        ids ``pos_ids`` [B] -> logits [B, V]."""
+        nl, _, _ = self(toks[:, None], cache, slot, storage_valid,
+                        pos_ids[:, None])
+        return nl[:, 0]
+
 
 # ---------------------------------------------------------------------------
 # Generation
@@ -276,20 +314,21 @@ def gumbel_pick(scores: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     return torch.argmax(scores - torch.log(-torch.log(u)), dim=-1)
 
 
-def decode_loop(first, step, pick, max_new: int, check_every: int = 16):
+def decode_loop(first, step, pick, max_new: int, check_every: int = 16,
+                pad: int = PAD, eos: int = EOS):
     """The reference's scan over ``max_new`` steps: ``pick`` a token per row
-    from its scores, PAD where the row has finished, then ``step(toks, t)``
-    to the next scores. Returns [max_new, B] tokens. Once every row has
-    emitted EOS the rest would be PAD, so the loop stops there; it asks the
-    device every ``check_every`` steps, not at every step."""
+    from its scores, ``pad`` where the row has finished, then ``step(toks,
+    t)`` to the next scores. Returns [max_new, B] tokens. Once every row
+    has emitted ``eos`` the rest would be ``pad``, so the loop stops there;
+    it asks the device every ``check_every`` steps, not at every step."""
     b = first.shape[0]
-    out = torch.full((max_new, b), PAD, dtype=torch.long, device=first.device)
+    out = torch.full((max_new, b), pad, dtype=torch.long, device=first.device)
     done = torch.zeros(b, dtype=torch.bool, device=first.device)
     scores = first
     for t in range(max_new):
-        toks = torch.where(done, PAD, pick(scores))
+        toks = torch.where(done, pad, pick(scores))
         out[t] = toks
-        done = done | (toks == EOS)
+        done = done | (toks == eos)
         if t + 1 == max_new or ((t + 1) % check_every == 0
                                 and bool(done.all())):
             break
@@ -307,17 +346,90 @@ def texts_of(toks: torch.Tensor) -> list[str]:
     return out
 
 
-class Generator:
-    """Prefill + KV-cached decode text generation on ``device``.
+def left_pad_ids(prompts: Sequence[Sequence[int]], max_prompt_len: int,
+                 pad: int):
+    """Prompts already tokenized, as LEFT-padded ids [B, P] (each row's
+    last ``max_prompt_len`` ids kept) and each row's pad count [B]."""
+    ids = np.full((len(prompts), max_prompt_len), pad, np.int64)
+    pad_len = np.zeros(len(prompts), np.int64)
+    for r, prompt in enumerate(prompts):
+        row = np.asarray(prompt, np.int64)[-max_prompt_len:]
+        pad_len[r] = max_prompt_len - len(row)
+        ids[r, pad_len[r]:] = row
+    return ids, pad_len
 
-    ``params`` is a DecoderLM state dict (``models/convert.
-    decoder_flax_to_torch``); without it the weights are random from
-    ``seed``.
+
+@dataclasses.dataclass
+class Generation:
+    """A call's tokens [max_new, B] on the host and, where asked for, the
+    logits it picked from, of the rows asked for: [max_new, rows, V]
+    float32 on the device (row 0 the prefill's last position, row t the
+    decode step before token t)."""
+    tokens: torch.Tensor
+    logits: Optional[torch.Tensor] = None
+
+
+class _Probe:
+    """What one generation records while a profiler session is on: CUDA
+    events around its prefill and decode (read after the call's final
+    copy), its prefill chunks and tokens, and the model's routing counts,
+    kept on the device: tokens per expert per MoE layer in prefill, and
+    the distinct experts hit per MoE layer per decode step."""
+
+    def __init__(self, device, max_new: int):
+        self.cuda = device.type == "cuda"
+        self.max_new = max_new
+        self.events = {}
+        self.chunks = self.tokens = self.steps = 0
+        self.expert_tokens = self.experts_hit = None
+        self.spans = (None, None)       # generate.prefill, generate.decode
+
+    def mark(self, name: str) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events[name] = ev
+
+    def chunk(self, tokens: int) -> None:
+        self.chunks += 1
+        self.tokens += tokens
+
+    def route(self, layer: int, layers: int, experts: int, idx) -> None:
+        """A prefill forward's routing ``idx`` in MoE layer ``layer``."""
+        from optimized_rag_tpu_torch.models.deepseek_v2 import expert_counts
+        counts = expert_counts(idx.reshape(-1), experts)
+        if self.expert_tokens is None:
+            self.expert_tokens = counts.new_zeros(layers, experts)
+        self.expert_tokens[layer] += counts
+
+    def step_hits(self, hits) -> None:
+        """The distinct experts the current decode step hit, a layer."""
+        if self.experts_hit is None:
+            self.experts_hit = hits.new_zeros(self.max_new, hits.shape[0])
+        self.experts_hit[self.steps - 1].copy_(hits)
+
+    def device_ms(self, a: str, b: str):
+        if a in self.events and b in self.events:
+            return self.events[a].elapsed_time(self.events[b])
+        return None
+
+
+class Generator:
+    """Prefill + cached decode generation on ``device``.
+
+    ``cfg`` chooses the model (``DecoderConfig``, the byte-level
+    ``DecoderLM``; ``deepseek_v2.DeepseekV2Config``). ``params`` is the
+    model's state dict (``models/convert.decoder_flax_to_torch`` for the
+    decoder); tensors already on ``device`` in the model's dtypes are taken
+    as they are where the model allows it (DeepSeek-V2), else copied in.
+    Without it the weights are random from ``seed``. ``prefill_chunk``
+    bounds the positions a prefill runs at once, where the model runs
+    chunks.
     """
 
-    def __init__(self, cfg: DecoderConfig | None = None, params=None,
-                 seed: int = 0, max_prompt_len: int = 768,
-                 max_new_tokens: int = 256, device="cuda"):
+    def __init__(self, cfg=None, params=None, seed: int = 0,
+                 max_prompt_len: int = 768, max_new_tokens: int = 256,
+                 device="cuda", prefill_chunk: Optional[int] = None):
         self.cfg = cfg or DecoderConfig()
         if max_prompt_len + max_new_tokens > self.cfg.max_seq_len:
             raise ValueError(f"{max_prompt_len} + {max_new_tokens} > "
@@ -325,27 +437,40 @@ class Generator:
         self.device = resolve_device(device)
         self.max_prompt_len = max_prompt_len
         self.max_new_tokens = max_new_tokens
-        self.model = serving_module(lambda: DecoderLM(self.cfg), params, seed,
-                                    self.device)
+        self.prefill_chunk = prefill_chunk
+        self.model = self.cfg.serving_model(params, seed, self.device)
+        # decode_loop's defaults are the byte-level ids.
+        c = self.cfg
+        self._special = ({} if (c.pad_id, c.eos_id) == (PAD, EOS)
+                         else {"pad": c.pad_id, "eos": c.eos_id})
 
     @torch.inference_mode()
     def _generate(self, ids, pad_len, temperature: float, top_k: int,
-                  top_p: float, seed: int, max_new: int) -> torch.Tensor:
-        """LEFT-padded ids [B, P] and pad counts [B] -> [max_new, B]."""
+                  top_p: float, seed: int, max_new: int, keep=None,
+                  probe: Optional[_Probe] = None):
+        """LEFT-padded ids [B, P] and pad counts [B] -> [max_new, B], and
+        with ``keep`` (row indices) the logits those rows picked from."""
         p = ids.shape[1]
         if p + max_new > self.cfg.max_seq_len:
             raise ValueError(f"{p} + {max_new} > max_seq_len "
                              f"{self.cfg.max_seq_len}")
         pad_mask, pos_ids, storage_valid = prefill_masks(pad_len, p, max_new)
-        logits, caches, _ = self.model(ids, key_valid=pad_mask,
-                                       pos_ids=pos_ids)
-        caches = cache_buffers(caches, p + max_new)
+        with span("generate.prefill") as sp:
+            if probe is not None:
+                probe.mark("prefill0")
+            first, cache = self.model.prefill(
+                ids, pad_len, pad_mask, pos_ids, p + max_new,
+                chunk=self.prefill_chunk, probe=probe)
+            if probe is not None:
+                probe.mark("prefill1")
+        prefill_span = sp
 
         def step(toks, t):
             pos = p + t
-            nl, _, _ = self.model(toks[:, None], caches, pos, storage_valid,
-                                  (pos - pad_len)[:, None])
-            return nl[:, 0]
+            if probe is not None:
+                probe.steps += 1
+            return self.model.decode(toks, pos, cache, storage_valid,
+                                     pos - pad_len, probe=probe)
 
         if temperature <= 1e-4:
             pick = lambda lg: torch.argmax(lg, dim=-1)  # noqa: E731
@@ -367,18 +492,98 @@ class Generator:
                     keep = torch.zeros_like(cut).scatter(1, order, cut)
                     lg = torch.where(keep, lg, MASKED)
                 return gumbel_pick(lg, gen)
-        return decode_loop(logits[:, -1], step, pick, max_new)
+        kept = None
+        if keep is not None:
+            rows = torch.as_tensor(list(keep), device=first.device)
+            kept = first.new_empty(max_new, len(rows), first.shape[-1])
+            at, plain = [0], pick
+
+            def pick(lg):
+                kept[at[0]] = lg[rows]
+                at[0] += 1
+                return plain(lg)
+        with span("generate.decode") as sp:
+            if probe is not None:
+                probe.mark("decode0")
+            out = decode_loop(first, step, pick, max_new, **self._special)
+            if probe is not None:
+                probe.mark("decode1")
+        if probe is not None:
+            probe.spans = (prefill_span, sp)
+        if keep is not None:
+            kept = kept[:at[0]]
+        return out if keep is None else (out, kept)
+
+    def _call(self, ids, pad_len, max_new: int, keep=None,
+              temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+              seed: int = 0) -> Generation:
+        """One traced call of ``_generate``: tokens copied to the host (the
+        call's final copy), then the spans' device times and counts."""
+        with span("generate") as sp:
+            probe = _Probe(self.device, max_new) if sp else None
+            res = self._generate(ids, pad_len, temperature, top_k, top_p,
+                                 seed, max_new, keep, probe)
+            toks, kept = res if keep is not None else (res, None)
+            toks = toks.cpu()
+            if probe is not None:
+                b, p = ids.shape
+                real = int(b * p - int(pad_len.sum()))
+                sp.attrs.update(B=b, P=p, prompt_tokens=real,
+                                new_tokens=max_new, steps=probe.steps)
+                pre, dec = probe.spans
+                if pre:
+                    pre.attrs.update(
+                        chunks=probe.chunks, tokens=probe.tokens, real=real,
+                        device_ms=probe.device_ms("prefill0", "prefill1"))
+                    if probe.expert_tokens is not None:
+                        pre.attrs["expert_tokens"] = \
+                            probe.expert_tokens.tolist()
+                if dec:
+                    dec.attrs.update(
+                        steps=probe.steps,
+                        device_ms=probe.device_ms("decode0", "decode1"))
+                    if probe.experts_hit is not None:
+                        dec.attrs["experts_hit"] = \
+                            probe.experts_hit[:probe.steps].tolist()
+        return Generation(toks, kept)
+
+    def generate_ids(self, ids, pad_len=None,
+                     max_new_tokens: Optional[int] = None,
+                     keep_logits: Optional[Sequence[int]] = None,
+                     **kw) -> Generation:
+        """Prompts already tokenized: a list of id sequences (each starting
+        with the configuration's BOS), or LEFT-padded ids [B, P] with their
+        pad counts ``pad_len`` [B]. ``keep_logits``: rows whose logits the
+        call keeps (``Generation.logits``). ``kw``: ``temperature``,
+        ``top_k``, ``top_p``, ``seed`` as for ``generate``."""
+        if pad_len is None:
+            ids, pad_len = left_pad_ids(ids, self.max_prompt_len,
+                                        self.cfg.pad_id)
+        ids = torch.as_tensor(ids).to(self.device)
+        pad_len = torch.as_tensor(pad_len).to(self.device)
+        return self._call(ids, pad_len, max_new_tokens or self.max_new_tokens,
+                          keep_logits, **kw)
+
+    def _byte_level(self) -> None:
+        if not getattr(self.cfg, "byte_level", False):
+            raise ValueError(
+                f"{type(self.cfg).__name__}'s vocabulary needs its own "
+                f"tokenizer, which this repository does not hold: text would "
+                f"be byte-encoded into the wrong ids. Pass token ids to "
+                f"Generator.generate_ids.")
 
     def generate_batch(self, prompts: list[str],
                        max_new_tokens: Optional[int] = None,
                        temperature: float = 0.0, top_k: int = 0,
                        top_p: float = 1.0, seed: int = 0) -> list[str]:
         """Batched generation: one prefill and one decode loop."""
+        self._byte_level()
         ids, pad_len = left_pad(prompts, self.max_prompt_len)
-        return texts_of(self._generate(
+        return texts_of(self._call(
             torch.from_numpy(ids).to(self.device),
-            torch.from_numpy(pad_len).to(self.device), temperature, top_k,
-            top_p, seed, max_new_tokens or self.max_new_tokens))
+            torch.from_numpy(pad_len).to(self.device),
+            max_new_tokens or self.max_new_tokens, temperature=temperature,
+            top_k=top_k, top_p=top_p, seed=seed).tokens)
 
     def generate(self, prompt: str, max_new_tokens: Optional[int] = None,
                  temperature: float = 0.0, top_k: int = 0,
@@ -391,6 +596,7 @@ class Generator:
     @torch.inference_mode()
     def score(self, text: str) -> float:
         """Mean next-token log-prob (perplexity surrogate for tests)."""
+        self._byte_level()
         ids = torch.from_numpy(encode_bytes(text, self.cfg.max_seq_len)[None]
                                ).long().to(self.device)
         logits, _, _ = self.model(ids)

@@ -145,7 +145,10 @@ Phases, each printing one JSON line with its seconds:
                excused and counted); 4 concurrent /chat clients with
                ``concurrent_chat`` (every reply complete, the EmbedBatcher
                making fewer dispatches than requests); K6 counted on the
-               /search and /chat paths;
+               /search and /chat paths; the agent's encoder after the
+               /search and /chat load (``hold_encoder_graphs``): its
+               forwards through CUDA graphs, each captured shape replayed
+               bit for bit equal to the eager forward on fresh tokens;
 11. ``slice_ivf`` IVF on the card: (a) the reference's IVF benchmark shape
                (benchmarks/bench_sharded.py:23-73): 10,485,760 x 128 bf16
                rows around 4,096 seeded centres, IVFIndex(4096 clusters,
@@ -3733,6 +3736,38 @@ def load_stats(lat, wall):
             "wall_s": wall}
 
 
+def hold_encoder_graphs(svc, what, seed=SEED):
+    """``svc`` (an ``EmbeddingService`` that served) after its load: it
+    captured some shapes and replayed them, and every captured shape,
+    called once on each slot, gives bit for bit the eager forward's
+    vectors of fresh tokens (a real length drawn for each row, the rest
+    padding). Returns its ``graph_stats()`` and the shapes held (none on
+    the CPU, which runs every forward eagerly)."""
+    stats = svc.graph_stats()
+    if svc.device.type != "cuda":
+        return {"graph_stats": stats, "shapes": []}
+    if not stats["captures"] or stats["replays"] < stats["captures"] // 2:
+        raise AssertionError(f"{what} encoder graphs: {stats}")
+    gen = torch.Generator().manual_seed(seed)
+    faults = {}
+    for b, n in sorted(svc._graphs):
+        for _ in range(svc.GRAPH_SLOTS):
+            real = torch.randint(1, n + 1, (b,), generator=gen)
+            mask = (torch.arange(n)[None, :] < real[:, None]).to(torch.int32)
+            ids = torch.randint(5, svc.cfg.vocab_size, (b, n), generator=gen,
+                                dtype=torch.int32) * mask
+            tok = torch.stack((ids, mask)).to(svc.device)
+            with torch.inference_mode():
+                eager = svc.model(*tok).cpu().numpy()
+            graph = svc._forward(ids.numpy(), mask.numpy())
+            if not np.array_equal(graph, eager):
+                faults[f"{b}x{n}"] = float(np.abs(graph - eager).max())
+    if faults:
+        raise AssertionError(f"{what} encoder graphs differ from the eager "
+                             f"forward (max abs by shape): {faults}")
+    return {"graph_stats": stats, "shapes": sorted(svc._graphs)}
+
+
 def serving_agent(data_dir, dev, concurrent=False):
     """``cli.build_agent`` over ``data_dir`` (the snapshot there) on
     ``dev``, as ``serve`` builds it."""
@@ -3920,6 +3955,8 @@ def phase_slice_serve(K_, T_, dev, chunks, queries, work, smi):
                 body["_ms"] = (time.perf_counter() - t1) * 1e3
             paths["serve_chat"] = K_.launch_counts()
         rep["chat"] = route_stats([b.pop("_ms") for b in card])
+        rep["encoder_graphs"] = hold_encoder_graphs(agent.embedder,
+                                                    "slice_serve")
         for name in SERVE_KERNEL_PATHS:
             seen_calls = {m: sum(c == m for c, _ in log[name])
                           for m in K_.KERNELS}

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import queue
 import threading
 
 import numpy as np
@@ -140,7 +141,9 @@ class _Attention(nn.Module):
             return t.view(b, length, self.heads, hd).transpose(1, 2)
 
         q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
-        q = q / torch.tensor(math.sqrt(hd), dtype=x.dtype, device=x.device)
+        # A fill, not a host copy: the copy would wait for the stream and
+        # cannot be captured in a CUDA graph (``EmbeddingService``).
+        q = q / torch.full((), math.sqrt(hd), dtype=x.dtype, device=x.device)
         w = q @ k.transpose(-1, -2)                     # [B, heads, L, L]
         w = torch.where(mask[:, None, None, :].bool(), w,
                         torch.finfo(w.dtype).min)
@@ -275,6 +278,38 @@ def _pad_rows(arrays, rows: int):
     return [np.pad(a, ((0, rows - a.shape[0]), (0, 0))) for a in arrays]
 
 
+class _ForwardGraph:
+    """``model``'s forward at one padded shape, captured as a CUDA graph on
+    a static token buffer ``tok`` ([2, B, L]: the ids, then the mask; a
+    copy of the first call's) into a static output ``out``: one eager run
+    on a side stream first (cuBLAS sets up its workspace for the stream
+    there), then the capture on that stream. ``like``, an earlier graph of
+    the same slot, lends its side stream and memory pool. The capture errs
+    only on this thread's unsafe calls, so another thread may issue work
+    meanwhile. A replay runs on the current stream: the same kernels at
+    the same shapes as the eager forward."""
+
+    def __init__(self, model, tok, like: "_ForwardGraph | None" = None):
+        self.tok = tok.clone()
+        self.out = self._capture(model, like)
+
+    def _capture(self, model, like):
+        dev = self.tok.device
+        self.stream = like.stream if like else torch.cuda.Stream(dev)
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self.stream):
+            model(*self.tok)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph,
+                              pool=like.graph.pool() if like else None,
+                              stream=self.stream,
+                              capture_error_mode="thread_local"):
+            return model(*self.tok)
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
 class EmbeddingService:
     """Batched on-device embedding with an LRU cache.
 
@@ -282,9 +317,26 @@ class EmbeddingService:
     without it the weights are random from ``seed``. Batches are padded to
     the same buckets as the JAX service, and the cache is shared by
     concurrent callers under a lock.
+
+    On a CUDA device each padded shape of a batch bucket by a length of the
+    tokenizer's ladder (``graphable``: 20 shapes at ``max_len`` 128) is
+    captured as CUDA graphs at its first use and replayed after
+    (``_ForwardGraph``); larger batches, and every forward on the CPU, run
+    eagerly. A shape has a graph in each of ``GRAPH_SLOTS`` slots, and a
+    caller holds a slot from its upload to its fetch: the tokens go
+    straight into the slot's static buffer, the replay follows, and the
+    fetch copies the slot's static output back and waits for it; only
+    then is the slot free again. So a call issues three operations, and
+    two callers (``QueryServer``'s workers) replay side by side without a
+    lock; a third waits for a slot. The graphs of a slot share one memory
+    pool (only the slot's holder replays them, one at a time, and its
+    fetch has waited for the replay before the next one), so the service
+    holds one pool a slot. Since the fetch waits for the slot's work,
+    this holds on any streams the callers issue on.
     """
 
     BATCH_BUCKETS = (8, 32, 64, 128)
+    GRAPH_SLOTS = 2          # callers replaying at once: QueryServer's workers
 
     def __init__(self, cfg: TransformerConfig | None = None, params=None,
                  seed: int = 0, cache_size: int = 4096, max_len: int = 128,
@@ -302,6 +354,19 @@ class EmbeddingService:
         self._cache_size = cache_size
         self._cache_lock = threading.Lock()
         self.stats = {"hits": 0, "misses": 0}
+        # The padded lengths the tokenizer gives (``_bucket_len``'s ladder).
+        self._lengths = frozenset(HashTokenizer._bucket_len(n, max_len)
+                                  for n in range(1, max_len + 1))
+        # The graph type: None where the device has no CUDA graphs.
+        self._graph_type = (_ForwardGraph if self.device.type == "cuda"
+                            else None)
+        self._graphs: dict[tuple[int, int], list[_ForwardGraph]] = {}
+        self._slots = queue.SimpleQueue()
+        for slot in range(self.GRAPH_SLOTS):
+            self._slots.put(slot)
+        self._replays = [0] * self.GRAPH_SLOTS   # counted by the slot's holder
+        self._graph_lock = threading.Lock()      # captures, eager count
+        self._graph_counts = {"captures": 0, "eager": 0}
 
     @property
     def dim(self) -> int:
@@ -313,13 +378,73 @@ class EmbeddingService:
                 return b
         return -(-n // self.BATCH_BUCKETS[-1]) * self.BATCH_BUCKETS[-1]
 
+    def graphable(self, batch: int, length: int) -> bool:
+        """Whether a forward of ``batch`` x ``length`` padded tokens runs
+        as a CUDA graph on a CUDA device: a batch bucket by a length of
+        the tokenizer's ladder up to ``max_len``."""
+        return batch in self.BATCH_BUCKETS and length in self._lengths
+
+    def graph_stats(self) -> dict:
+        """Forwards so far: ``captures`` (graphs captured: ``GRAPH_SLOTS``
+        a shape), ``replays`` (graph forwards, a shape's first included)
+        and ``eager``."""
+        with self._graph_lock:
+            return {**self._graph_counts, "replays": sum(self._replays)}
+
+    def _capture(self, tok: torch.Tensor) -> list[_ForwardGraph]:
+        """The graphs of ``tok``'s shape ([2, B, L] on the device), one a
+        slot, captured if no caller has yet; the slots' pools are those of
+        their earlier graphs."""
+        key = tuple(tok.shape[1:])
+        with self._graph_lock:
+            graphs = self._graphs.get(key)
+            if graphs is None:
+                first = next(iter(self._graphs.values()),
+                             [None] * self.GRAPH_SLOTS)
+                graphs = [self._graph_type(self.model, tok, like)
+                          for like in first]
+                self._graphs[key] = graphs
+                self._graph_counts["captures"] += len(graphs)
+        return graphs
+
+    def _forward_graph(self, ids: np.ndarray, mask: np.ndarray):
+        """The forward by a slot's graph of its shape (see the class's
+        docstring), captured first if new."""
+        slot = self._slots.get()
+        try:
+            with torch.inference_mode():
+                with span("encode.upload"):     # ids and mask in one copy
+                    tok = torch.from_numpy(np.stack((ids, mask)))
+                    graphs = self._graphs.get(ids.shape)
+                    if graphs is None:
+                        tok = tok.to(self.device)
+                    else:
+                        graphs[slot].tok.copy_(tok)
+                with span("encode.forward") as sp:
+                    if sp:
+                        sp.attrs["graph"] = 1
+                    if graphs is None:
+                        graphs = self._capture(tok)
+                        graphs[slot].tok.copy_(tok)
+                    graphs[slot].replay()
+                    self._replays[slot] += 1
+                with span("encode.fetch"):
+                    return graphs[slot].out.to("cpu", copy=True).numpy()
+        finally:
+            self._slots.put(slot)
+
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        if self._graph_type is not None and self.graphable(*ids.shape):
+            return self._forward_graph(ids, mask)
         with torch.inference_mode():
-            with span("encode.upload"):
-                ids_t = torch.from_numpy(ids).long().to(self.device)
-                mask_t = torch.from_numpy(mask).to(self.device)
-            with span("encode.forward"):
-                out = self.model(ids_t, mask_t)
+            with span("encode.upload"):     # ids and mask in one copy
+                tok = torch.from_numpy(np.stack((ids, mask))).to(self.device)
+            with span("encode.forward") as sp:
+                if sp:
+                    sp.attrs["graph"] = 0
+                out = self.model(*tok)
+                with self._graph_lock:
+                    self._graph_counts["eager"] += 1
             with span("encode.fetch"):
                 return out.float().cpu().numpy()
 
@@ -329,9 +454,11 @@ class EmbeddingService:
         While a profiler session is active it records ``encode`` (texts,
         misses, bucket) and, under it, ``encode.cache`` (the lookup under
         the lock), ``encode.tokenize`` (tokenizer and padding),
-        ``encode.upload`` (the tokens' copy to the device, which waits for
-        the work queued on its stream), ``encode.forward`` (the module call:
-        the forward issued), ``encode.fetch`` (the wait for the device and
+        ``encode.upload`` (the tokens' copy to the device, into a graph's
+        buffer where the shape has one, which waits for the work queued on
+        its stream), ``encode.forward`` (the forward issued: a graph's
+        replay, its capture first if new, with ``graph`` 1; the module call
+        with ``graph`` 0), ``encode.fetch`` (the wait for the device and
         the copy back) and ``encode.store`` (the Matryoshka cut and the
         cache insert)."""
         with span("encode") as sp:

@@ -964,3 +964,97 @@ def test_scaled_tensor_core_sums_within_rounding_bound(cuda_device, d, mode):
     sums = K.scan_sums(q, c, 1024, split=mode == "split")
     assert R.rounding_ratio(q, c, sums, mode) <= 1.0
     assert R.rounding_ratio(q, c, sums, mode, row_scale=cs) <= 1.0
+
+
+# ---------------------------------------------------------- encoder graphs
+
+def _biencoder(dev):
+    """The pretrained bi-encoder on ``dev``, its cache off."""
+    import os
+    from optimized_rag_tpu_torch.models.convert import load_biencoder
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return load_biencoder(os.path.join(root, "checkpoints", "pretrained"),
+                          device=dev, cache_size=0)
+
+
+def _tokens(gen, b, n, vocab):
+    """[b, n] int32 ids and mask as the tokenizer gives them, a real length
+    drawn for each row."""
+    real = torch.randint(1, n + 1, (b,), generator=gen)
+    mask = (torch.arange(n)[None, :] < real[:, None]).to(torch.int32)
+    ids = torch.randint(5, vocab, (b, n), generator=gen, dtype=torch.int32)
+    return (ids * mask).numpy(), mask.numpy()
+
+
+def test_encoder_graphs_are_bit_equal_to_the_eager_forward(cuda_device):
+    """Every graphable shape (4 buckets by the ladder 8..128), at its
+    capture and at a replay on fresh tokens (one call on each slot), gives
+    the eager forward's vectors bit for bit."""
+    svc = _biencoder(cuda_device)
+    lengths = sorted(svc._lengths)
+    assert lengths == [8, 16, 32, 64, 128]
+    gen = torch.Generator().manual_seed(23)
+    faults = {}
+    for b in svc.BATCH_BUCKETS:
+        for n in lengths:
+            for call in range(2):
+                ids, mask = _tokens(gen, b, n, svc.cfg.vocab_size)
+                tok = torch.from_numpy(np.stack((ids, mask))).to(cuda_device)
+                with torch.inference_mode():
+                    eager = svc.model(*tok).cpu().numpy()
+                graph = svc._forward(ids, mask)
+                if not np.array_equal(graph, eager):
+                    faults[(b, n, call)] = float(np.abs(graph - eager).max())
+    assert not faults, faults
+    assert svc.graph_stats() == {"captures": 40, "replays": 40, "eager": 0}
+    assert svc._replays == [20, 20]
+
+
+def test_encoder_graphs_from_two_threads_equal_a_serial_eager_run(
+        cuda_device):
+    """Two threads encoding their own texts through the graphs, at shapes
+    both use, each get the vectors a serial eager service gives; the
+    counts add up; a batch over 128 runs eagerly on the card too."""
+    import threading
+    svc = _biencoder(cuda_device)
+    ref = _biencoder(cuda_device)
+    ref._graph_type = None
+    words = ("dense retrieval certified tiles encoder batch queue host "
+             "device stream kernel rescore").split()
+    rng = np.random.default_rng(5)
+
+    def texts(tag, n, w):
+        return [" ".join([f"{tag}{i}"] + list(rng.choice(words, w - 1)))
+                for i in range(n)]
+    work = {t: [texts(t, n, w) for n, w in ((3, 4), (20, 12), (64, 20),
+                                            (50, 30), (6, 12), (128, 60))]
+            for t in ("left", "right")}
+    want = {t: [ref.encode(b) for b in bs] for t, bs in work.items()}
+    rounds, got, errors = 8, {t: [] for t in work}, []
+
+    def run(tag):
+        try:
+            for _ in range(rounds):
+                got[tag].append([svc.encode(b) for b in work[tag]])
+        except Exception as exc:   # reported below, with the thread's tag
+            errors.append((tag, exc))
+    threads = [threading.Thread(target=run, args=(t,)) for t in work]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    for tag in work:
+        assert len(got[tag]) == rounds
+        for vecs in got[tag]:
+            for a, b in zip(vecs, want[tag]):
+                np.testing.assert_array_equal(a, b)
+    shapes = {(svc._bucket_batch(len(b)),
+               svc.tokenizer.encode_batch(b, svc.max_len)[0].shape[1])
+              for bs in work.values() for b in bs}
+    assert svc.graph_stats() == {"captures": 2 * len(shapes),
+                                 "replays": 2 * rounds * 6, "eager": 0}
+    assert ref.graph_stats() == {"captures": 0, "replays": 0, "eager": 12}
+    big = texts("big", 200, 6)
+    np.testing.assert_array_equal(svc.encode(big), ref.encode(big))
+    assert svc.graph_stats()["eager"] == 1

@@ -102,9 +102,8 @@ def main():
     dtype = cell.cfg["index"]["dtype"]
     cc = 4 * k if dtype == "bfloat16" and index.size > 4 * k else k
     emb, size, tile = index.embeddings(), index.size, index.tile
-    s, packed, cover = T.dispatch_deferred(q, emb, cc, size=size, tile=tile)
-    uncovered = T.certificate_uncovered(packed)
-    ids = packed[:-1]
+    s, ids, cover = T.dispatch_deferred(q, emb, cc, size=size, tile=tile)
+    uncovered = T.read_count(cover.count)
     need = cover.need
     pairs = need.T.nonzero()
     pt, pq = pairs[:, 0], pairs[:, 1]

@@ -1228,22 +1228,24 @@ def phase_slice_f32(K_, T_, dev, chunks, queries):
         T_, q[:64], emb, index.size, kk, torch.float32))
 
     # Forced fallback: one union slot cannot cover the batch, so the
-    # deferred certificate reads nonzero and DenseIndex's settle step
-    # repairs the pairs the covers left (K4p); with a cover that names every
-    # pair it reruns the exact tiled search (K6) instead.
-    s_c, packed, _, cover = T_._packed_search(
+    # deferred certificate's count reads nonzero and the settle sequence
+    # (the count read, then ``repair_uncovered``) repairs the pairs the
+    # covers left (K4p); with a cover that names every pair it reruns the
+    # exact tiled search (K6) instead.
+    s_c, i_c, _, cover = T_._packed_search(
         qb, emb, kk, index.size, TILE, GROUPS, 1, None, None, True,
         covers=True)
-    every = T_.Cover(torch.ones_like(cover.need), cover.mode)
+    every = T_.Cover(cover.count, torch.ones_like(cover.need), cover.mode)
     of_s, of_i = oracle_topk(qb, emb, index.size, kk)
+    uncovered = T_.read_count(cover.count)
+    if uncovered == 0:
+        raise AssertionError("union_tiles=1 certified every query: the "
+                             "forced fallback did not trigger")
     for name, cov, k6 in (("forced_fallback", every, 1),
                           ("forced_repair", cover, 0)):
-        f_s, f_i, route, uncovered = counted(
-            K_, paths, name, lambda: index._settle_certificate(
-                qb, s_c, packed, kk, cov))
-        if uncovered == 0 or route != "fallback":
-            raise AssertionError("union_tiles=1 certified every query: the "
-                                 "forced fallback did not trigger")
+        f_s, f_i, _, _ = counted(K_, paths, name, lambda: T_.repair_uncovered(
+            qb, emb, kk, index.size, TILE, s_c, i_c, cov,
+            row_scale=index.row_scale))
         launched = (paths[name]["tile_topk"], paths[name]["extract_pairs"])
         if launched != (k6, 1 - k6):
             raise AssertionError(f"{name}: {launched} K6 and K4p launches")

@@ -30,7 +30,7 @@ from optimized_rag_tpu_torch.ops.quantize import (
     dequantize_int8, quantize_int8)
 from optimized_rag_tpu_torch.ops.similarity import normalize
 from optimized_rag_tpu_torch.ops.topk import (
-    certificate_uncovered, chunked_topk, dispatch_deferred, dispatch_topk,
+    chunked_topk, dispatch_deferred, dispatch_topk, read_count,
     repair_uncovered, rescore_topk)
 from optimized_rag_tpu_torch.utils.profiling import span
 
@@ -46,6 +46,21 @@ def _wait_for(t: torch.Tensor) -> None:
     """Wait until the card has made ``t`` (its current stream drained)."""
     if t.is_cuda:
         torch.cuda.current_stream(t.device).synchronize()
+
+
+def _first_kept(scores: np.ndarray, ids: np.ndarray, keep: np.ndarray,
+                k: int):
+    """Each row's first ``k`` entries where ``keep`` holds, in their order,
+    padded with -inf and -1 to [B, k]."""
+    out_s = np.full((ids.shape[0], k), -np.inf, np.float32)
+    out_i = np.full((ids.shape[0], k), -1, np.int64)
+    cols = np.argsort(~keep, axis=1, kind="stable")[:, :k]
+    kept = np.take_along_axis(keep, cols, 1)
+    m = cols.shape[1]
+    out_s[:, :m] = np.where(kept, np.take_along_axis(scores, cols, 1),
+                            -np.inf)
+    out_i[:, :m] = np.where(kept, np.take_along_axis(ids, cols, 1), -1)
+    return out_s, out_i
 
 
 def host_rows(arr, dtype: torch.dtype) -> torch.Tensor:
@@ -192,35 +207,13 @@ class DenseIndex:
             return dequantize_int8(self._emb[rows], self._scale[rows])
         return self._emb[rows]
 
-    def _settle_certificate(self, q, scores, ids, kk, cover=None):
-        """Resolve a deferred certificate: ``ids`` (numpy or a tensor).
-
-        The certified path appends an uncovered-count row (ids [B+1, kk]);
-        a nonzero count is settled by ``repair_uncovered`` with the covers'
-        ``cover``: the pairs they left are repaired, or where those would
-        cost more, the whole search reruns. A count of -1 (a score outside
-        (-2, 2)) raises ``ValueError``. Returns (scores, ids, route, the
-        count or None), the answer on the index's device; the repair is
-        issued, not waited for.
-        """
-        b = q.shape[0]
-        ids = torch.as_tensor(ids, device=self.device)
-        if ids.shape[0] == b:                 # one-pass path
-            return scores, ids, "direct", None
-        uncovered = certificate_uncovered(ids)
-        if uncovered == 0:                    # certified exact
-            return scores, ids[:-1], "certified", 0
-        with span("search.fallback") as sp:
-            s2, i2, pairs, rerun = repair_uncovered(
-                q, self._emb, kk, self.size, self.tile, scores, ids[:-1],
-                cover, row_scale=self._scale)
-            if sp:
-                sp.attrs.update(pairs=pairs, rerun=rerun)
-        return s2, i2, "fallback", uncovered
-
-    def search(self, queries, k: int, *, prefer_kernel=None,
-               approx_tile_k: int | None = None) -> DenseSearchResult:
+    def search(self, queries, k: int, *, prefer_kernel=None
+               ) -> DenseSearchResult:
         """Top-k over live rows. queries [B, dim] (any scale).
+
+        Makes ``dispatch_topk``'s calls between spans (``dispatch_deferred``,
+        ``read_count``, ``repair_uncovered``); the route is "direct"
+        without a ``Cover``, "certified" at a count of 0, else "fallback".
 
         While a profiler session is active it records ``search`` (B, k,
         cc, route, and the certificate's uncovered count where there is
@@ -255,14 +248,22 @@ class DenseIndex:
             else:
                 cc = kk
             with span("search.scan"):
-                c_s, cand, cover = dispatch_deferred(
+                scores, ids, cover = dispatch_deferred(
                     q, self._emb, cc, size=self.size,
                     prefer_kernel=prefer_kernel, tile=self.tile,
-                    approx_tile_k=approx_tile_k, row_scale=self._scale)
+                    row_scale=self._scale)
             with span("search.wait"):
-                _wait_for(cand)
-            scores, ids, route, uncovered = self._settle_certificate(
-                q, c_s, cand, cc, cover)
+                _wait_for(ids)
+            uncovered = None if cover is None else read_count(cover.count)
+            route = ("direct" if cover is None else
+                     "certified" if uncovered == 0 else "fallback")
+            if uncovered:
+                with span("search.fallback") as fb:
+                    scores, ids, pairs, rerun = repair_uncovered(
+                        q, self._emb, cc, self.size, self.tile, scores, ids,
+                        cover, row_scale=self._scale)
+                    if fb:
+                        fb.attrs.update(pairs=pairs, rerun=rerun)
             if sp:
                 sp.attrs.update(B=b, k=k, cc=cc, route=route)
                 if uncovered is not None:
@@ -275,15 +276,11 @@ class DenseIndex:
             ids = ids.astype(np.int64)
             if self._tombstones or kk > k:
                 with span("search.filter"):
-                    out_s = np.full((b, k), -np.inf, np.float32)
-                    out_i = np.full((b, k), -1, np.int64)
-                    for r in range(b):
-                        cols = [c for c in range(kk)
-                                if ids[r, c] >= 0 and
-                                int(ids[r, c]) not in self._tombstones][:k]
-                        out_s[r, :len(cols)] = scores[r, cols]
-                        out_i[r, :len(cols)] = ids[r, cols]
-                    return DenseSearchResult(out_s, out_i, route)
+                    gone = np.fromiter(self._tombstones, np.int64,
+                                       len(self._tombstones))
+                    keep = (ids >= 0) & ~np.isin(ids, gone)
+                    return DenseSearchResult(
+                        *_first_kept(scores, ids, keep, k), route)
             return DenseSearchResult(scores, ids, route)
 
     def search_tail(self, queries, k: int, from_row: int
@@ -312,13 +309,7 @@ class DenseIndex:
         scores = scores.cpu().numpy()
         ids = ids.cpu().numpy().astype(np.int64) + start
         valid = (ids >= from_row) & (ids < self.size) & np.isfinite(scores)
-        out_s = np.full((b, k), -np.inf, np.float32)
-        out_i = np.full((b, k), -1, np.int64)
-        for r in range(b):
-            cols = np.flatnonzero(valid[r])[:k]
-            out_s[r, :len(cols)] = scores[r, cols]
-            out_i[r, :len(cols)] = ids[r, cols]
-        return DenseSearchResult(out_s, out_i)
+        return DenseSearchResult(*_first_kept(scores, ids, valid, k))
 
     # ------------------------------------------------------------- snapshot
 

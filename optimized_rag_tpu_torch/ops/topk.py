@@ -3,14 +3,14 @@ verified searches, and the certified packed search with its ANN variant.
 
 Held against ``optimized_rag_tpu/ops/topk.py`` (:38-135, :198-475,
 :697-989, :1144-1340). Every function returns ``(scores [B, k] f32,
-ids [B, k])``; the certified ones and ``topk_verified_batch`` append the
-certificate row to ids. Ties go to the lower index everywhere, as
-``lax.top_k`` and ``jnp.argmax`` give them: ``torch.topk`` promises no tie
-order, so every selection here is a stable descending sort over candidates
-in row order (``_topk_rows`` puts them in row order where they come in
-another). The JAX certified, verified and ANN paths and ``rescore_topk``
-order exact ties by candidate rank instead; here they take the lower row,
-as every other path does.
+ids [B, k])``; the public certified ones and ``topk_verified_batch``
+append the certificate row to ids. Ties go to the lower index everywhere,
+as ``lax.top_k`` and ``jnp.argmax`` give them: ``torch.topk`` promises no
+tie order, so every selection here is a stable descending sort over
+candidates in row order (``_topk_rows`` puts them in row order where they
+come in another). The JAX certified, verified and ANN paths and
+``rescore_topk`` order exact ties by candidate rank instead; here they take
+the lower row, as every other path does.
 
 All float32 products run in full float32 (``device.configure_numerics``
 turns TF32 off): the certificate's two-step cushion (``_unpack_ub``) allows
@@ -28,19 +28,20 @@ times the row scale, which c1 rescores.
 
 The certified path needs every score in (-2, 2). On the CPU the kernels'
 twins raise ``ValueError``; on the card K1/K2/K3 set a flag that turns the
-certificate to -1, and ``certificate_uncovered`` (where every caller reads
+certificate's count to -1, and ``read_count`` (where every caller reads
 the certificate) raises the same error. ``topk_ann`` has no certificate: it
 reads the flag itself, one device-to-host copy a call.
 
-A nonzero certificate is settled by ``repair_uncovered``: the covers'
-state (``Cover``) names every (query, tile) pair they left unproven, K4p
-takes each such tile's exact top-k for its query, and the merge is the
-exact answer for the certified path's scoring; the reference reruns the
-tiled search instead, as ``repair_uncovered`` still does where the pairs
-would cost more than the rerun.
+``dispatch_topk`` and ``DenseIndex.search`` settle a certified search
+alike: ``dispatch_deferred``, ``read_count`` of its ``Cover``, and on a
+nonzero count ``repair_uncovered``: K4p takes, for each (query, tile) pair
+the ``Cover`` names, the tile's exact top-k for the query, and the merge is
+the exact answer for the certified path's scoring; the reference reruns
+the tiled search instead, as ``repair_uncovered`` still does for the dense
+and scaled scorings where the pairs would cost more than the rerun.
 
-Not ported: ``tile_k``-approximate extraction beyond ``dispatch_topk``'s
-``approx_tile_k`` opt-in.
+Not ported: the reference ``dispatch_topk``'s ``tile_k``-approximate
+extraction.
 """
 
 from __future__ import annotations
@@ -190,14 +191,6 @@ def _unpack_ub(vals: torch.Tensor, tile: int) -> torch.Tensor:
     return ((vals & -tile) + 2 * tile).view(torch.float32) - 2.0
 
 
-def _certificate_row(uncovered, flag: torch.Tensor, k: int) -> torch.Tensor:
-    """The certificate row [1, k]: ``uncovered`` in its first slot, or -1
-    when the range flag is set (a live score outside (-2, 2))."""
-    row = torch.zeros((1, k), dtype=torch.long, device=flag.device)
-    row[0, 0] = torch.where(flag[0] > 0, -1, uncovered)
-    return row
-
-
 def _duplicates(rows: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
     """[B, M] bool: ok entries whose row already appears at an earlier ok
     entry of the same query (every copy scores alike: one is kept)."""
@@ -211,23 +204,44 @@ def _duplicates(rows: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class Cover:
-    """What the certified covers leave to repair. ``need`` [B, T] bool: the
+    """The certified search's deferred certificate. ``count`` (0-d int64 on
+    the corpus's device, read by ``read_count``): the uncovered pairs, 0
+    for exact, -1 where the range flag is set. ``need`` [B, T] bool: the
     (query, tile) pairs outside the union whose rows the covers did not
     prove below tau: c2's (the tile's second unit may beat tau) and, for a
     c3 query (its best excluded candidate may beat tau), every tile whose
     best unit may beat tau and was not rescored by c1. ``mode`` is the
     scoring: "dense" (K4's), "scaled" (K5a's) or "native" (K5b's)."""
+    count: torch.Tensor
     need: torch.Tensor
     mode: str
+
+
+def read_count(count) -> int:
+    """The certificate's count on the host (one device-to-host copy; 0 =
+    exact). Raises ``ValueError`` at -1, where the scan flagged a live
+    score outside (-2, 2)."""
+    uncovered = int(count)
+    if uncovered < 0:
+        raise ValueError(RANGE_ERROR)
+    return uncovered
+
+
+def _with_certificate(ids: torch.Tensor, count) -> torch.Tensor:
+    """The reference's ids [B+1, k]: ``ids`` [B, k] and the certificate
+    row, ``count`` in its first slot."""
+    row = torch.zeros((1, ids.shape[1]), dtype=torch.long, device=ids.device)
+    row[0, 0] = count
+    return torch.cat([ids, row])
 
 
 def _packed_search(queries, corpus, k, size, tile, groups, union_tiles,
                    pad_r, row_scale, int8_native, covers):
     """``pallas_topk_certified`` with its ``covers`` switch: the packed
     scan, c1's unit-expanded exact rescore and, with ``covers``, the c2/c3
-    covers and the certificate row; without, the ANN answer (c1 alone,
-    with +-4 column windows). Returns (scores, ids, range flag, the covers'
-    ``Cover`` or None)."""
+    covers and their ``Cover``; without, the ANN answer (c1 alone, with
+    +-4 column windows). Returns (scores [B, k], ids [B, k], range flag,
+    the ``Cover`` or None)."""
     n, d = corpus.shape
     b = queries.shape[0]
     dev = corpus.device
@@ -310,6 +324,7 @@ def _packed_search(queries, corpus, k, size, tile, groups, union_tiles,
     selected = torch.zeros(num_tiles, dtype=torch.bool, device=dev)
     selected[sel_tiles] = sel_valid
     uncovered = (sus & ~selected[None, :]).sum() + c3_viol.sum()
+    count = torch.where(flag[0] > 0, -1, uncovered)
     # The pairs a repair must read (Cover). A tile outside the union and
     # not c2's holds rows above its second unit's bound only in its best
     # unit, which c1 rescored whole where that word was among its top R.
@@ -338,8 +353,7 @@ def _packed_search(queries, corpus, k, size, tile, groups, union_tiles,
     m_s = torch.cat([torch.where(in_sel, NEG_INF, top_s), r_s], dim=1)
     m_i = torch.cat([top_i, r_i], dim=1)
     out_s, out_i = _topk_rows(m_s, m_i, k)
-    return (out_s, torch.cat([out_i, _certificate_row(uncovered, flag, k)]),
-            flag, Cover(need, mode))
+    return out_s, out_i, flag, Cover(count, need, mode)
 
 
 def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
@@ -375,17 +389,18 @@ def topk_certified(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     scores bf16(q) x bf16(row) in f32 times the row scale, K2 scanning and
     K5a covering. The certificate means exact for that scoring.
     """
-    s, ids, _, _ = _packed_search(queries, corpus, k, size, tile, groups,
-                                  union_tiles, pad_r, row_scale, int8_native,
-                                  covers=True)
-    return s, ids
+    s, ids, _, cover = _packed_search(queries, corpus, k, size, tile,
+                                      groups, union_tiles, pad_r, row_scale,
+                                      int8_native, covers=True)
+    return s, _with_certificate(ids, cover.count)
 
 
 def _certified(queries, corpus, k, size=None, sub_batch=1024, tile=4096,
                groups=8, union_tiles=32, pad_r=None, row_scale=None,
                int8_native=True):
-    """``topk_certified_multi`` with the covers' state: (scores, ids with
-    the certificate row, the whole batch's ``Cover``)."""
+    """``topk_certified_multi`` with the certificate deferred: (scores,
+    ids [B, k], the whole batch's ``Cover``, whose count sums the blocks'
+    counts, -1 if any block's range flag is set)."""
     mb = queries.shape[0]
     assert mb % sub_batch == 0, (mb, sub_batch)
     blocks = [_packed_search(queries[s0:s0 + sub_batch], corpus, k, size,
@@ -395,13 +410,12 @@ def _certified(queries, corpus, k, size=None, sub_batch=1024, tile=4096,
     if len(blocks) == 1:
         s, ids, _, cover = blocks[0]
         return s, ids, cover
-    counts = torch.stack([i[-1, 0] for _, i, _, _ in blocks])
-    count_row = torch.zeros((1, k), dtype=torch.long, device=corpus.device)
-    count_row[0, 0] = torch.where((counts < 0).any(), -1, counts.sum())
+    covers = [c for _, _, _, c in blocks]
+    counts = torch.stack([c.count for c in covers])
     return (torch.cat([s for s, _, _, _ in blocks]),
-            torch.cat([i[:-1] for _, i, _, _ in blocks] + [count_row]),
-            Cover(torch.cat([c.need for _, _, _, c in blocks]),
-                  blocks[0][3].mode))
+            torch.cat([i for _, i, _, _ in blocks]),
+            Cover(torch.where((counts < 0).any(), -1, counts.sum()),
+                  torch.cat([c.need for c in covers]), covers[0].mode))
 
 
 def topk_certified_multi(queries: torch.Tensor, corpus: torch.Tensor, k: int,
@@ -412,9 +426,10 @@ def topk_certified_multi(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     """``topk_certified`` over M sub-batches; the certificate row sums the
     blocks' uncovered counts (-1 if any block's range flag is set). Ports
     ``pallas_topk_certified_multi``."""
-    s, ids, _ = _certified(queries, corpus, k, size, sub_batch, tile, groups,
-                           union_tiles, pad_r, row_scale, int8_native)
-    return s, ids
+    s, ids, cover = _certified(queries, corpus, k, size, sub_batch, tile,
+                               groups, union_tiles, pad_r, row_scale,
+                               int8_native)
+    return s, _with_certificate(ids, cover.count)
 
 
 def _check_flag(flag: torch.Tensor) -> None:
@@ -566,9 +581,7 @@ def topk_verified_batch(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     m_s = torch.cat([torch.where(in_sel, NEG_INF, top_s), r_s], dim=1)
     m_i = torch.cat([top_i, r_i], dim=1)
     out_s, out_i = _topk_rows(m_s, m_i, k)
-    count_row = torch.zeros((1, k), dtype=torch.long, device=dev)
-    count_row[0, 0] = uncovered
-    return out_s, torch.cat([out_i, count_row], dim=0)
+    return out_s, _with_certificate(out_i, uncovered)
 
 
 def rescore_topk(queries: torch.Tensor, corpus: torch.Tensor,
@@ -586,12 +599,10 @@ def rescore_topk(queries: torch.Tensor, corpus: torch.Tensor,
 
 
 def certificate_uncovered(ids) -> int:
-    """Uncovered count from a [B+1, k] ids array (0 = exact). Raises
-    ``ValueError`` where the scan flagged a live score outside (-2, 2)."""
-    uncovered = int(ids[-1, 0])
-    if uncovered < 0:
-        raise ValueError(RANGE_ERROR)
-    return uncovered
+    """Uncovered count from a [B+1, k] ids array (0 = exact), by
+    ``read_count``: raises ``ValueError`` where the scan flagged a live
+    score outside (-2, 2)."""
+    return read_count(ids[-1, 0])
 
 
 def repair_uncovered(queries: torch.Tensor, corpus: torch.Tensor, k: int,
@@ -600,38 +611,35 @@ def repair_uncovered(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     """The exact top-k after a nonzero certificate: (scores [B, k], ids
     [B, k], the pairs' count, whether the whole search reran).
 
-    ``scores``, ``ids``: the certified answer (ids without the certificate
-    row); ``cover``: its covers' ``Cover``. K4p takes, for every (query,
-    tile) pair of ``cover.need``, the tile's exact top-k for the query; the
-    answer's rows in those pairs are masked and the rest merged with the
-    pairs' lists. A row never examined scores below its bound, which is at
-    most tau, at most the k-th answer: the answer is exact for the
-    certified path's scoring. Dense and scaled, that is ``tiled_topk``'s
-    function: on the CPU its answer bit for bit; on the card the c1
-    rescore's sums (cuBLAS) may differ from K6's FMA chain in the last bit,
-    as for a certificate of 0. The pairs' count costs one device-to-host
-    wait.
+    ``scores``, ``ids``: the certified answer [B, k]; ``cover``: its
+    ``Cover``. K4p takes, for every (query, tile) pair of ``cover.need``,
+    the tile's exact top-k for the query; the answer's rows in those pairs
+    are masked and the rest merged with the pairs' lists. A row never
+    examined scores below its bound, which is at most tau, at most the k-th
+    answer: the answer is exact for the certified path's scoring. Dense and
+    scaled, that is ``tiled_topk``'s function: on the CPU its answer bit
+    for bit; on the card the c1 rescore's sums (cuBLAS) may differ from
+    K6's FMA chain in the last bit, as for a certificate of 0. The pairs'
+    count costs one device-to-host wait.
 
     A pair costs K4p at most one K6 block (one tile against up to
     SELECTION_QUERY_BLOCK queries), and K6 runs T x ceil(B / that) blocks,
-    each a tile against as many queries; so from that many pairs on the
-    whole search reruns instead: ``tiled_topk``, or for the int8-native
-    scoring, which no tiled kernel scores (K7 scores the scaled one), K4p
-    over every pair.
+    each a tile against as many queries; so for the dense and scaled
+    scorings, from that many pairs on, the whole search reruns instead
+    (``tiled_topk``), which also bounds the repair's memory. The
+    int8-native scoring, which no tiled kernel scores (K7 scores the scaled
+    one), repairs the named pairs at any count.
     """
     b = queries.shape[0]
     num_tiles = corpus.shape[0] // tile
     need = cover.need
     pairs = need.T.nonzero()                # (tile, query), sorted by tile
     n_pairs = pairs.shape[0]
-    rerun = n_pairs >= num_tiles * -(-b // SELECTION_QUERY_BLOCK)
-    if rerun and cover.mode != "native":
+    if (cover.mode != "native"
+            and n_pairs >= num_tiles * -(-b // SELECTION_QUERY_BLOCK)):
         s, i = tiled_topk(queries, corpus, k, size, tile=tile,
                           row_scale=row_scale)
         return s, i, n_pairs, True
-    if rerun:
-        need = torch.ones_like(need)
-        pairs = need.T.nonzero()
     pt, pq = pairs[:, 0], pairs[:, 1]
     if cover.mode == "native":
         q8, q_scale = quantize_int8(queries)
@@ -656,25 +664,19 @@ def repair_uncovered(queries: torch.Tensor, corpus: torch.Tensor, k: int,
         0, pq, torch.full_like(pq, k))     # bincount would wait for the card
     first = torch.cumsum(per_q, 0) - per_q
     top = order[first[:, None] + torch.arange(k, device=dev)]
-    return cand_s[top], cand_r[top], n_pairs, rerun
+    return cand_s[top], cand_r[top], n_pairs, False
 
 
 def dispatch_deferred(queries, corpus, k, size=None, *, prefer_kernel=None,
-                      tile=1024, chunk=65536, approx_tile_k=None,
-                      row_scale=None):
-    """``dispatch_topk(..., defer_certificate=True)`` with the covers'
-    state: (scores, ids, ``Cover``), the ``Cover`` None where the route has
-    no certificate. A nonzero certificate is the caller's to settle with
-    ``repair_uncovered`` and that ``Cover``."""
+                      tile=1024, chunk=65536, row_scale=None):
+    """``dispatch_topk`` with the certificate deferred: (scores [B, k],
+    ids [B, k], ``Cover``), the ``Cover`` None where the route has no
+    certificate. Its count covers the padded batch's pairs. A nonzero
+    count is the caller's to settle with ``repair_uncovered``."""
     n = corpus.shape[0]
     if prefer_kernel is None:
         prefer_kernel = corpus.is_cuda and n % tile == 0 and k <= 128
     if prefer_kernel:
-        if approx_tile_k is not None:
-            eff_tile_k = max(approx_tile_k, -(-k // max(n // tile, 1)))
-            return (*tiled_topk(queries, corpus, k, size, tile=tile,
-                                tile_k=eff_tile_k, row_scale=row_scale),
-                    None)
         if n // tile >= 64 * k:
             b = queries.shape[0]
             # Batches past 1024 run in sub-batches of 1024; pad rows repeat
@@ -683,14 +685,13 @@ def dispatch_deferred(queries, corpus, k, size=None, *, prefer_kernel=None,
             pad = (-b) % 1024 if b > 1024 else 0
             q_run = (torch.cat([queries, queries[:1].expand(pad, -1)])
                      if pad else queries)
-            scores, packed, cover = _certified(
+            scores, ids, cover = _certified(
                 q_run, corpus, k, size, sub_batch=min(b, 1024), tile=tile,
                 row_scale=row_scale)
             if pad:
-                scores = scores[:b]
-                packed = torch.cat([packed[:b], packed[-1:]])
-                cover = Cover(cover.need[:b], cover.mode)
-            return scores, packed, cover
+                cover = Cover(cover.count, cover.need[:b], cover.mode)
+                return scores[:b], ids[:b], cover
+            return scores, ids, cover
         return (*tiled_topk(queries, corpus, k, size, tile=tile,
                             row_scale=row_scale), None)
     if n > chunk:
@@ -700,8 +701,8 @@ def dispatch_deferred(queries, corpus, k, size=None, *, prefer_kernel=None,
 
 
 def dispatch_topk(queries, corpus, k, size=None, *, prefer_kernel=None,
-                  tile=1024, chunk=65536, approx_tile_k=None,
-                  defer_certificate=False, row_scale=None):
+                  tile=1024, chunk=65536, defer_certificate=False,
+                  row_scale=None):
     """Pick the top-k implementation for the device and problem size.
 
     Exact at every scale. With the kernels (by default: a CUDA corpus,
@@ -711,26 +712,26 @@ def dispatch_topk(queries, corpus, k, size=None, *, prefer_kernel=None,
     normalised inputs, every score in (-2, 2).
 
     ``defer_certificate=True`` returns the certified path's ids with the
-    certificate row still attached ([B+1, k]); the caller reruns
-    ``tiled_topk`` when ``certificate_uncovered(ids)`` is nonzero (or
-    repairs the uncovered pairs with ``dispatch_deferred``'s ``Cover``).
-    Without deferring, a nonzero certificate is settled here by
-    ``repair_uncovered``: the same answer as the rerun where the scoring is
-    ``tiled_topk``'s; for the int8-native scoring the exact answer of that
-    scoring, as a certificate of 0 gives (the reference reruns K7, which
-    scores the scaled function).
-    ``approx_tile_k`` opts into unverified approximate extraction.
+    certificate row attached ([B+1, k]), as the reference does; the caller
+    reruns ``tiled_topk`` when ``certificate_uncovered(ids)`` is nonzero.
+    Without deferring, a nonzero certificate is settled here: the
+    ``Cover``'s count read, then ``repair_uncovered``, the same answer as
+    the rerun where the scoring is ``tiled_topk``'s; for the int8-native
+    scoring the exact answer of that scoring, as a count of 0 gives (the
+    reference reruns K7, which scores the scaled function).
     ``row_scale`` [N] goes to every route: K7 for the tiled search, the
     int8-native K3/K5b (int8 corpus) or the scaled K2/K5a (float corpus)
     for the certified one.
     """
     scores, ids, cover = dispatch_deferred(
         queries, corpus, k, size, prefer_kernel=prefer_kernel, tile=tile,
-        chunk=chunk, approx_tile_k=approx_tile_k, row_scale=row_scale)
-    if cover is None or defer_certificate:
+        chunk=chunk, row_scale=row_scale)
+    if cover is None:
         return scores, ids
-    if certificate_uncovered(ids) == 0:
-        return scores, ids[:-1]
+    if defer_certificate:
+        return scores, _with_certificate(ids, cover.count)
+    if read_count(cover.count) == 0:
+        return scores, ids
     s, i, _, _ = repair_uncovered(queries, corpus, k, size, tile, scores,
-                                  ids[:-1], cover, row_scale=row_scale)
+                                  ids, cover, row_scale=row_scale)
     return s, i

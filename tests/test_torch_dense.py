@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from optimized_rag_tpu.index.dense import DenseIndex as JaxDense
-from optimized_rag_tpu_torch.index.dense import DenseIndex
+from optimized_rag_tpu_torch.index.dense import DenseIndex, _first_kept
 
 torch.set_num_threads(2)
 
@@ -113,6 +113,27 @@ def test_state_dict_round_trip_both_ways(rng, dtype):
         assert (got["tombstones"] == [3]).all()
     _same(jx.search(q, 5), from_jax.search(q, 5))
     _same(pt.search(q, 5), from_port.search(q, 5))
+
+
+@pytest.mark.parametrize("k", [1, 4, 9])
+def test_first_kept_equals_the_row_loop(rng, k):
+    """The filter of ``search`` and ``search_tail`` (each row's first k
+    kept entries, padded with -inf and -1) against a loop over rows; the
+    candidate lists run shorter and longer than k."""
+    scores = rng.standard_normal((6, 7)).astype(np.float32)
+    ids = rng.integers(-1, 12, (6, 7)).astype(np.int64)
+    keep = (ids >= 0) & ~np.isin(ids, [2, 5, 11])
+    keep[0] = False
+    want_s = np.full((6, k), -np.inf, np.float32)
+    want_i = np.full((6, k), -1, np.int64)
+    for r in range(6):
+        cols = np.flatnonzero(keep[r])[:k]
+        want_s[r, :len(cols)] = scores[r, cols]
+        want_i[r, :len(cols)] = ids[r, cols]
+    got_s, got_i = _first_kept(scores, ids, keep, k)
+    assert got_s.dtype == np.float32 and got_i.dtype == np.int64
+    np.testing.assert_array_equal(got_s, want_s)
+    np.testing.assert_array_equal(got_i, want_i)
 
 
 def test_search_tail(rng):

@@ -20,6 +20,8 @@ Tolerances:
   bit for bit.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -342,8 +344,8 @@ def test_int8_native_repair_is_the_native_answer(rng, monkeypatch, path):
     scoring as K5b) is the exact top-k of the int8-native score, bit for
     bit, with no K7 rerun (K7 scores another function, the one the JAX
     package reruns): below the crossover, and past it ("crossover", every
-    pair named), where the whole search reruns as K4p over every pair;
-    through DenseIndex, that candidate set rescored in float32."""
+    pair named), where K4p still repairs just the named pairs; through
+    DenseIndex, that candidate set rescored in float32."""
     tile, k = 64, 1
     q, c = RC.runs_corpus(rng, 16, 32, tile, 256)
     qt = normalize(torch.from_numpy(q))   # as DenseIndex.search has them
@@ -369,15 +371,18 @@ def test_int8_native_repair_is_the_native_answer(rng, monkeypatch, path):
                                row_scale=cs)
         assert torch.equal(i, o_i) and torch.equal(s, o_s)
     else:
-        s, packed, cover = T.dispatch_deferred(qt, c8, cc, prefer_kernel=True,
-                                               tile=tile, row_scale=cs)
-        assert T.certificate_uncovered(packed) > 0
+        s, ids, cover = T.dispatch_deferred(qt, c8, cc, prefer_kernel=True,
+                                            tile=tile, row_scale=cs)
+        assert T.read_count(cover.count) > 0
         assert cover.mode == "native"
-        assert not torch.equal(packed[:-1], o_i)
+        assert not torch.equal(ids, o_i)
         if path == "crossover":
-            cover = T.Cover(torch.ones_like(cover.need), "native")
+            cover = dataclasses.replace(cover,
+                                        need=torch.ones_like(cover.need))
         s2, i2, pairs, rerun = T.repair_uncovered(
-            qt, c8, cc, None, tile, s, packed[:-1], cover, row_scale=cs)
-        assert rerun == (path == "crossover") and pairs > 0
+            qt, c8, cc, None, tile, s, ids, cover, row_scale=cs)
+        assert not rerun and pairs == int(cover.need.sum()) > 0
+        if path == "crossover":
+            assert pairs >= 256 * -(-qt.shape[0] // K.SELECTION_QUERY_BLOCK)
         assert torch.equal(i2, o_i) and torch.equal(s2, o_s)
     assert not reruns

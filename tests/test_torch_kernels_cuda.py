@@ -629,10 +629,10 @@ def test_repaired_search_at_the_bench_shape_equals_the_rerun(cuda_device):
         rows = ((qi + 37 * j) % (n // tile)) * tile + qi * 4 + j % 4
         c[rows] = q + 0.02 * torch.randn(b, d, generator=g, device=dev)
     cb = torch.nn.functional.normalize(c, dim=1).to(torch.bfloat16)
-    s, packed, cover = T._certified(q, cb, k, sub_batch=b, tile=tile)
-    assert T.certificate_uncovered(packed) > 0
-    s2, i2, pairs, rerun = T.repair_uncovered(q, cb, k, None, tile, s,
-                                              packed[:-1], cover)
+    s, ids, cover = T._certified(q, cb, k, sub_batch=b, tile=tile)
+    assert T.read_count(cover.count) > 0
+    s2, i2, pairs, rerun = T.repair_uncovered(q, cb, k, None, tile, s, ids,
+                                              cover)
     assert not rerun and pairs > 0
     s_r, i_r = T.tiled_topk(q, cb, k, tile=tile)
     _agree(K._scan_queries(q, cb), cb, i2.T, s2.T, i_r.T, s_r.T, tol=1e-6)

@@ -427,31 +427,40 @@ def test_row_scale_routes_keep_the_score_precondition(rng, route):
 
 
 def test_flagged_certificate_raises_where_it_is_read(rng, monkeypatch):
-    """On the card the scan's range flag turns the certificate to -1: its
-    readers raise the twins' ValueError, and a multi-block certificate
-    keeps the -1."""
-    flag = K.new_flag("cpu")
-    assert int(T._certificate_row(torch.tensor(3), flag, 4)[0, 0]) == 3
-    flag[0] = 1
-    row = T._certificate_row(torch.tensor(3), flag, 4)
-    assert row.tolist() == [[-1, 0, 0, 0]]
-    ids = torch.cat([torch.zeros((2, 4), dtype=torch.long), row])
+    """On the card the scan's range flag turns the certificate's count to
+    -1: its readers raise the twins' ValueError (the public row, the
+    ``Cover``, DenseIndex.search), and a multi-block certificate keeps the
+    -1."""
+    tile, k = 128, 4
+    q, c = _unit(rng, 2, 16), _unit(rng, 64 * k * tile, 16)
+    qt, ct = _t(q, c)
+    _, ids, cover = T._certified(qt, ct, k, sub_batch=2, tile=tile)
+    assert int(cover.count) == T.certificate_uncovered(
+        T.topk_certified(qt, ct, k, tile=tile)[1]) >= 0
+    # The flag as a scan on the card leaves it (the twins raise instead).
+    monkeypatch.setattr(T, "new_flag",
+                        lambda dev: torch.ones(1, dtype=torch.int32))
+    _, ids, cover = T._certified(qt, ct, k, sub_batch=2, tile=tile)
+    assert cover.count.dtype == torch.long and int(cover.count) == -1
+    _, packed = T.topk_certified(qt, ct, k, tile=tile)
+    assert packed[-1].tolist() == [-1, 0, 0, 0]
+    for read in (lambda: T.read_count(cover.count),
+                 lambda: T.certificate_uncovered(packed)):
+        with pytest.raises(ValueError, match=r"\(-2, 2\)"):
+            read()
+    index = DenseIndex(16, len(c), tile=tile, device="cpu")
+    index.add(c)
     with pytest.raises(ValueError, match=r"\(-2, 2\)"):
-        T.certificate_uncovered(ids)
-    index = DenseIndex(16, 256, tile=128, device="cpu")
-    index.add(_unit(rng, 10, 16))
-    with pytest.raises(ValueError, match=r"\(-2, 2\)"):
-        index._settle_certificate(torch.zeros(2, 16), torch.zeros(2, 4),
-                                  ids.numpy(), 4)
-    blocks = iter([(torch.zeros(2, 4), torch.cat([torch.zeros(
-        (2, 4), dtype=torch.long), r]), flag,
-        T.Cover(torch.zeros((2, 2), dtype=torch.bool), "dense")) for r in (
-            torch.tensor([[5, 0, 0, 0]]), row)])
+        index.search(q, k, prefer_kernel=True)
+    blocks = iter([(torch.zeros(2, 4), torch.zeros((2, 4), dtype=torch.long),
+                    None, T.Cover(torch.tensor(n),
+                                  torch.zeros((2, 2), dtype=torch.bool),
+                                  "dense")) for n in (5, -1)])
     monkeypatch.setattr(T, "_packed_search", lambda *a, **kw: next(blocks))
     _, ids_m = T.topk_certified_multi(torch.zeros(4, 16),
                                       torch.zeros(256, 16), 4, sub_batch=2,
                                       tile=128)
-    assert int(ids_m[-1, 0]) == -1
+    assert ids_m.shape == (5, 4) and int(ids_m[-1, 0]) == -1
 
 
 # ------------------------------------------- repair of a failed certificate
@@ -469,18 +478,17 @@ def test_scaled_repair_equals_the_rerun(rng, monkeypatch, rows):
     c, cs = (_scaled_corpus(rng, c, rows) if rows == "int8"
              else (c, 0.75 + 0.2 * c[:, 0]))
     qt, ct, cst = _t(q, c, cs)
-    s, packed, cover = T._certified(qt, ct, k, sub_batch=16, tile=tile,
-                                    row_scale=cst, int8_native=False)
-    assert T.certificate_uncovered(packed) > 0 and cover.mode == "scaled"
+    s, ids, cover = T._certified(qt, ct, k, sub_batch=16, tile=tile,
+                                 row_scale=cst, int8_native=False)
+    assert T.read_count(cover.count) > 0 and cover.mode == "scaled"
     s_r, i_r = T.tiled_topk(qt, ct, k, tile=tile, row_scale=cst)
-    assert not torch.equal(packed[:-1], i_r)
+    assert not torch.equal(ids, i_r)
     reruns = []
     real = T.tiled_topk
     monkeypatch.setattr(T, "tiled_topk",
                         lambda *a, **kw: reruns.append(1) or real(*a, **kw))
     s2, i2, pairs, rerun = T.repair_uncovered(qt, ct, k, None, tile, s,
-                                              packed[:-1], cover,
-                                              row_scale=cst)
+                                              ids, cover, row_scale=cst)
     assert not rerun and not reruns and pairs > 0
     assert torch.equal(i2, i_r) and torch.equal(s2, s_r)
     qj, cj, csj = (jnp.asarray(np.array(a)) for a in (q, c, cs))
@@ -500,6 +508,9 @@ def test_scaled_repair_equals_the_rerun(rng, monkeypatch, rows):
                                          interpret=True, row_scale=csj,
                                          int8_native=False)
     sj, pj = np.asarray(sj), np.asarray(pj)
+    s, packed = T.topk_certified_multi(qt, ct, k, sub_batch=16, tile=tile,
+                                       row_scale=cst, int8_native=False)
+    assert torch.equal(packed[:-1], ids)
     np.testing.assert_array_equal(packed[-1].numpy(), pj[-1])
     np.testing.assert_allclose(s.numpy(), sj, rtol=0, atol=ATOL)
     rows_t = ct.float().numpy()

@@ -42,17 +42,15 @@ WORDS = ("dense retrieval certified top-k tiles encoder batch queue host "
 
 def _certificate(monkeypatch, uncovered: int) -> None:
     """``DenseIndex``'s deferred search returns the exact top-k with a
-    certificate row that reads ``uncovered``, and covers that leave every
+    ``Cover`` whose count reads ``uncovered`` and which leaves every
     (query, tile) pair open, so the whole search reruns."""
     real = dense.dispatch_topk
 
     def fake(q, corpus, k, size=None, *, tile=1024, row_scale=None, **_):
         s, i = real(q, corpus, k, size, tile=tile, row_scale=row_scale)
-        row = torch.zeros((1, k), dtype=i.dtype)
-        row[0, 0] = uncovered
         need = torch.ones((q.shape[0], corpus.shape[0] // tile),
                           dtype=torch.bool)
-        return s, torch.cat([i, row]), Cover(need, "dense")
+        return s, i, Cover(torch.tensor(uncovered), need, "dense")
     monkeypatch.setattr(dense, "dispatch_deferred", fake)
 
 

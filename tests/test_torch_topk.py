@@ -10,6 +10,7 @@ in another order. The CUDA kernels themselves are held against these twins
 on the card by ``tests/test_torch_kernels_cuda.py``.
 """
 
+import dataclasses
 import time
 
 import jax
@@ -383,8 +384,9 @@ def test_dispatch_pads_large_batches_by_repeating_query0(monkeypatch):
             calls[name] = (tuple(q.shape), kw.get("sub_batch"),
                            bool((q[-1] == q[0]).all()))
             return (torch.zeros((q.shape[0], k)),
-                    torch.zeros((q.shape[0] + 1, k), dtype=torch.long),
-                    T.Cover(torch.zeros((q.shape[0], 1), dtype=torch.bool),
+                    torch.zeros((q.shape[0], k), dtype=torch.long),
+                    T.Cover(torch.tensor(0),
+                            torch.zeros((q.shape[0], 1), dtype=torch.bool),
                             "dense"))
         return _f
 
@@ -446,16 +448,16 @@ def test_repair_equals_the_rerun(rng, monkeypatch, case):
     gives the tiled rerun's answer bit for bit, deferred and settled, with
     no rerun; the certified answer alone differs from it."""
     qt, ct, k, _ = _repair_case(rng, case)
-    s, packed, cover = T.dispatch_deferred(qt, ct, k, prefer_kernel=True,
-                                           tile=REPAIR_TILE)
-    uncovered = T.certificate_uncovered(packed)
+    s, ids, cover = T.dispatch_deferred(qt, ct, k, prefer_kernel=True,
+                                        tile=REPAIR_TILE)
+    uncovered = T.read_count(cover.count)
     s_r, i_r = T.tiled_topk(qt, ct, k, tile=REPAIR_TILE)
-    assert uncovered > 0 and not torch.equal(packed[:-1], i_r)
-    assert packed.shape == (qt.shape[0] + 1, k)
+    assert uncovered > 0 and not torch.equal(ids, i_r)
+    assert ids.shape == (qt.shape[0], k) and cover.count.shape == ()
     assert cover.need.shape == (qt.shape[0], ct.shape[0] // REPAIR_TILE)
     reruns = _spy_reruns(monkeypatch)
     s2, i2, pairs, rerun = T.repair_uncovered(qt, ct, k, None, REPAIR_TILE,
-                                              s, packed[:-1], cover)
+                                              s, ids, cover)
     assert not rerun and not reruns
     assert torch.equal(i2, i_r) and torch.equal(s2, s_r)
     # Without c3 the pairs are c2's, which the certificate counts; a c3
@@ -495,8 +497,8 @@ def test_repair_reruns_from_the_crossover(rng, monkeypatch, extra):
     ceil(B / 64) pairs on (K6's blocks) the tiled search reruns instead,
     with the same answer."""
     qt, ct, k, _ = _repair_case(rng, "f32")
-    s, packed, cover = T.dispatch_deferred(qt, ct, k, prefer_kernel=True,
-                                           tile=REPAIR_TILE)
+    s, ids, cover = T.dispatch_deferred(qt, ct, k, prefer_kernel=True,
+                                        tile=REPAIR_TILE)
     need = cover.need.clone()
     tiles = ct.shape[0] // REPAIR_TILE
     cross = tiles * -(-qt.shape[0] // K.SELECTION_QUERY_BLOCK)
@@ -505,7 +507,8 @@ def test_repair_reruns_from_the_crossover(rng, monkeypatch, extra):
     need[add[:, 0], add[:, 1]] = True
     reruns = _spy_reruns(monkeypatch)
     s2, i2, pairs, rerun = T.repair_uncovered(
-        qt, ct, k, None, REPAIR_TILE, s, packed[:-1], T.Cover(need, "dense"))
+        qt, ct, k, None, REPAIR_TILE, s, ids,
+        dataclasses.replace(cover, need=need))
     assert pairs == cross + extra
     assert rerun == (extra == 0) and len(reruns) == (extra == 0)
     s_r, i_r = T.tiled_topk(qt, ct, k, tile=REPAIR_TILE)
@@ -519,8 +522,8 @@ def _whole_rerun(monkeypatch):
 
     def every_pair(*a, **kw):
         cover = a[7]
-        return real(*a[:7], T.Cover(torch.ones_like(cover.need), cover.mode),
-                    **kw)
+        return real(*a[:7], dataclasses.replace(
+            cover, need=torch.ones_like(cover.need)), **kw)
     monkeypatch.setattr(dense, "repair_uncovered", every_pair)
 
 
@@ -561,17 +564,21 @@ def test_dense_index_repairs_a_failed_certificate(rng, monkeypatch, dtype):
 
 
 def test_flagged_certificate_raises_before_the_repair(rng, monkeypatch):
-    """A certificate of -1 (the scan's range flag) raises ValueError where
-    it is read, with a cover at hand: nothing is repaired."""
+    """A certificate whose count reads -1 (the scan's range flag) raises
+    ValueError in DenseIndex.search where it is read, with every pair
+    named: nothing is repaired."""
     index = DenseIndex(16, 256, tile=128, device="cpu")
     index.add(RC.unit(rng, 10, 16))
-    ids = np.zeros((3, 4), np.int64)
-    ids[-1, 0] = -1
     called = []
+
+    def flagged(q, corpus, k, size=None, **_):
+        b = q.shape[0]
+        return (torch.zeros((b, k)), torch.zeros((b, k), dtype=torch.long),
+                T.Cover(torch.tensor(-1), torch.ones((b, 2), dtype=torch.bool),
+                        "dense"))
+    monkeypatch.setattr(dense, "dispatch_deferred", flagged)
     monkeypatch.setattr(dense, "repair_uncovered",
                         lambda *a, **kw: called.append(1))
-    cover = T.Cover(torch.ones((2, 2), dtype=torch.bool), "dense")
     with pytest.raises(ValueError, match=r"\(-2, 2\)"):
-        index._settle_certificate(torch.zeros(2, 16), torch.zeros(2, 4), ids,
-                                  4, cover)
+        index.search(RC.unit(rng, 2, 16), 4)
     assert not called

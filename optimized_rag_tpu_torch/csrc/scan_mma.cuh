@@ -35,11 +35,11 @@
 // N=10,485,760, D=128, tile 4096): 2.75 T products at 989 TFLOP/s (bf16:
 // K1, F, K2) or 1,979 TOP/s (int8: K3), 2.78 or 1.39 ms, against 2.68 GB of
 // bf16 rows (0.80 ms) or 1.38 GB of codes and scales (0.41 ms): the tensor
-// cores bind, and the packing (about 10 CUDA-core operations a score, 10.7
-// G scores) runs beside them. At the served shapes (B=64, D=384, tile 1024:
-// 4,194,304 bf16 rows for K1, 3.2 GB, 0.96 ms; 16,777,216 int8 codes for
-// K3, 6.51 GB with the scales, 1.95 ms) bytes bind, so the ring has to keep
-// device memory busy.
+// cores bind, and the packing (3.5 CUDA-core instructions a score for K1,
+// 10.7 G scores) runs beside them. At the served shapes (B=64, D=384, tile
+// 1024: 4,194,304 bf16 rows for K1, 3.2 GB, 0.96 ms; 16,777,216 int8 codes
+// for K3, 6.51 GB with the scales, 1.95 ms) bytes bind, so the ring has to
+// keep device memory busy.
 //
 // Design.
 // * Corpus rows are wgmma's M side (64 rows a chunk), queries its N side
@@ -100,10 +100,20 @@
 // (the sum; K2: x cs[row], each thread loading its two rows' scales a
 // chunk; K3: (float(sum) x cs[row]) x qs[b], the block's query scales
 // staged once in shared memory: held in registers, a thread's 16 spilled
-// under the 96 registers ptxas gives two blocks an SM), shifted to max(s +
-// 2, 0), rows at or after `size` to 0, the f32 bits with the low log2(tile)
-// bits replaced by the tile-local row, the max over each strided unit {u,
-// u + tile/G, ...}, the top two unit winners, and the range flag. Where a
+// under the 96 registers ptxas gives two blocks an SM), shifted to s + 2,
+// rows at or after `size` to 0, the f32 bits with the low log2(tile) bits
+// replaced by the tile-local row, the max over each strided unit {u, u +
+// tile/G, ...}, the top two unit winners, and the range flag. That is the
+// reference's function, which shifts to max(s + 2, 0), wherever the flag
+// stays clear: a live s in (-2, 2) gives an f32 s + 2 of at least 2^-23,
+// so the max with 0 changes nothing (and a flagged call's words are never
+// read). The flag is bit 30 of the OR of the live scores' bits, tested
+// once at the tile's end: for a finite s that bit, the exponent's top one,
+// is set exactly when |s| >= 2; NaNs set it too. The padding test runs
+// only in a chunk that reaches past `size` (a branch the whole block takes
+// alike), so a score costs an FADD (s + 2), a LOP3 (low bits cleared, the
+// row or-ed in), an integer max and half a LOP3 (the OR, two scores an
+// instruction) after its multiplies (PERF.md has the SASS counts). Where a
 // unit spans whole chunks (tile/G >= 64), the chunks are walked with the
 // group innermost: chunk g*(tile/G) + 64j for g < G, then j + 1, so a
 // unit's rows fall on the same accumulator register across the G chunks
@@ -632,7 +642,7 @@ __global__ void __launch_bounds__(2 * 128 + 32, 2)
   }
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) um[i] = 0;
-  bool bad = false;
+  int seen = 0;  // packing: the OR of the live scores' bits
   int stage = 0;
   uint32_t phase = 0;
   const auto advance = [&]() {
@@ -798,24 +808,37 @@ __global__ void __launch_bounds__(2 * 128 + 32, 2)
         fm[q] = fmaxf(fm[q], acc[i]);
       }
     } else {
+      // The word of a live score v: bits(v + 2), low bits the row; its
+      // bits OR into `seen`, whose bit 30 is the range flag (see the
+      // header). Padding rows give the row alone and nothing to `seen`.
+      const auto pack = [&](auto ragged) {
 #pragma unroll
-      for (int i = 0; i < kAcc; ++i) {
-        const int col = row0 + r0 + 8 * ((i / 2) % 2);
-        const float rs = (i / 2) % 2 ? rs1 : rs0;
-        float v;
-        if constexpr (Sc == kNone) {
-          v = acc[i];
-        } else if constexpr (Sc == kRow) {
-          v = __fmul_rn(acc[i], rs);
-        } else {
-          v = __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), rs),
-                        wg_qscale[8 * (i / 4) + 2 * (lane % 4) + i % 2]);
+        for (int i = 0; i < kAcc; ++i) {
+          const int col = row0 + r0 + 8 * ((i / 2) % 2);
+          const float rs = (i / 2) % 2 ? rs1 : rs0;
+          float v;
+          if constexpr (Sc == kNone) {
+            v = acc[i];
+          } else if constexpr (Sc == kRow) {
+            v = __fmul_rn(acc[i], rs);
+          } else {
+            v = __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), rs),
+                          wg_qscale[8 * (i / 4) + 2 * (lane % 4) + i % 2]);
+          }
+          int bits = __float_as_int(v), word = __float_as_int(v + 2.0f);
+          if constexpr (decltype(ragged)::value) {
+            bits = col < lim ? bits : 0;
+            word = col < lim ? word : 0;
+          }
+          seen |= bits;
+          um[i] = max(um[i], (word & mask) | col);
         }
-        const bool live = col < lim;
-        bad |= live && fabsf(v) >= 2.0f;
-        const int bits = __float_as_int(fmaxf(v + 2.0f, 0.0f)) & mask;
-        um[i] = max(um[i], (live ? bits : 0) | col);
-      }
+      };
+      // Only a chunk that reaches past `lim` tests its rows one by one.
+      if (row0 + kM <= lim)
+        pack(std::false_type());
+      else
+        pack(std::true_type());
       if (strided && c % p.groups == p.groups - 1) {  // units complete
 #pragma unroll
         for (int q = 0; q < kQT; ++q) {  // rows r0 and r0 + 8 of query q
@@ -856,7 +879,7 @@ __global__ void __launch_bounds__(2 * 128 + 32, 2)
     }
     return;
   } else {
-    if (bad) *p.flag = 1;
+    if (seen & 0x40000000) *p.flag = 1;  // some live |v| >= 2, or a NaN
     int* out = static_cast<int*>(p.out);
     if (!strided) {
       // tile/G < 64: register i holds the max over rows = its row mod 64;

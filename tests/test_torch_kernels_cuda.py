@@ -966,6 +966,74 @@ def test_scaled_tensor_core_sums_within_rounding_bound(cuda_device, d, mode):
     assert R.rounding_ratio(q, c, sums, mode, row_scale=cs) <= 1.0
 
 
+def _pack_scores(s, size, tile, groups):
+    """The reference's packing of f32 scores [N, B]: live rows
+    (bits(max(s + 2, 0)) & -tile) | row, padding the row alone, the max
+    over each strided unit, then each tile's top two: int32 [T, 2, B]."""
+    n, b = s.shape
+    rows = torch.arange(n, device=s.device)
+    live = (rows < size)[:, None]
+    assert float(torch.where(live, s.abs(), 0.0).max()) < 2.0
+    word = torch.clamp_min(s + 2.0, 0.0).view(torch.int32) & -tile
+    word = torch.where(live, word, 0) | (rows % tile).to(torch.int32)[:, None]
+    units = word.view(n // tile, groups, tile // groups, b).amax(dim=1)
+    w0 = units.amax(dim=1)
+    w1 = torch.where(units == w0[:, None], 0, units).amax(dim=1)
+    return torch.stack([w0, w1], dim=1)
+
+
+@pytest.mark.parametrize("rows", ["bf16", "f16", "scaled-bf16",
+                                  "scaled-int8"])
+@pytest.mark.parametrize("tile,groups,b,d", [(4096, 8, 1024, 128),
+                                             (1024, 512, 64, 128)])
+def test_packed_words_are_the_packing_of_the_raw_sums(cuda_device, rows,
+                                                      tile, groups, b, d):
+    """K1 over bf16/f16 rows and K2 over bf16 rows and int8 codes, bit for
+    bit the reference's packing of the same main loop's raw sums
+    (``scan_sums`` in the call's accumulation; times the row scale for
+    K2): the packing epilogue computes ``_pack_tile_scores`` exactly,
+    whatever the summation order. Units of whole chunks (tile 4096, the
+    benchmark's shape) and the shared-memory fold (tile/G = 2); a ragged
+    tile, a dead tile, equal rows in one unit and across a chunk
+    border."""
+    q, c, _, size = _packed_case_data(tile, groups, b, d)
+    qt = torch.from_numpy(q).to(cuda_device)
+    c32 = torch.from_numpy(c).to(cuda_device)
+    flag = K.new_flag(cuda_device)
+    if rows in ("bf16", "f16"):
+        ct = c32.to(torch.bfloat16 if rows == "bf16" else torch.float16)
+        split = K.scan_accumulation(tile, d) == "split"
+        w = K.packed_extract(qt, ct, size, tile, groups, flag)
+        s = K.scan_sums(qt, ct, tile, split=split)
+    else:
+        if rows == "scaled-int8":
+            ct, cs = quantize_int8(c32)
+        else:
+            cs = torch.rand(c.shape[0], device=cuda_device) * 0.5 + 0.5
+            ct = (c32 / cs[:, None]).to(torch.bfloat16)
+        route = "codes" if ct.dtype == torch.int8 else "scaled"
+        split = K.scan_accumulation(tile, d, route) == "split"
+        w = K.packed_extract_scaled(qt, ct, cs, size, tile, groups, flag)
+        s = K.scan_sums(qt, ct, tile, split=split) * cs[:, None]
+    assert int(flag[0]) == 0
+    assert torch.equal(w, _pack_scores(s, size, tile, groups))
+
+
+def test_tensor_core_scan_flags_a_nan_score(cuda_device):
+    """A live row of NaNs sets K1's range flag (its scores' exponent bits
+    are all set); the same row as padding does not."""
+    q = torch.nn.functional.normalize(torch.randn(2, 64, device=cuda_device),
+                                      dim=1)
+    c = torch.nn.functional.normalize(torch.randn(1024, 64,
+                                                  device=cuda_device), dim=1)
+    c[700] = float("nan")
+    ct = c.to(torch.bfloat16)
+    for size, want in ((None, 1), (700, 0)):
+        flag = K.new_flag(cuda_device)
+        K.packed_extract(q, ct, size, 128, 8, flag)
+        assert int(flag[0]) == want, size
+
+
 # ---------------------------------------------------------- encoder graphs
 
 def _biencoder(dev):

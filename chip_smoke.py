@@ -24,7 +24,11 @@ Phases, each printing one JSON line with its seconds:
                raw sums on adversarial operands within the rounding bound
                of csrc/scan_mma.cuh (D=128 and 384, full and split): K1's
                main loop over bf16 rows and K2's over int8 codes (raw,
-               and scaled at mixed row scales);
+               and scaled at mixed row scales); then the KDA walk
+               (csrc/kda_chunk.cu), its launches counted over a call of
+               Kimi Linear's prefill path at the published widths (one
+               period of layers, 4 rows of 16,384 tokens), and held and
+               timed on the arguments of that call's first KDA layer;
 4. ``slice_f32``  the pretrained BiEncoder embeds the qa_docs chunks into a
                DenseIndex filled to 4,194,304 rows (6.4 GB f32) with clustered
                synthetic rows and contiguous near-duplicate runs; a
@@ -1047,6 +1051,116 @@ def phase_kernels(K_, T_, dev):
                         "bound")
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
+
+
+# The KDA walk (kda::chunk_state_kernel, csrc/kda_chunk.cu) on its path:
+# Kimi Linear's prefill at the published widths (32 heads of 128, hidden
+# 2,304) cut to one period of layers (3 KDA, 1 NoPE MLA) and 8 held experts
+# of a router over 32, over a prefill chunk of 4 rows of 16,384 tokens.
+KDA_ROWS, KDA_LEN = 4, 16_384
+
+
+def _kimi_params(cfg, model, dev):
+    """Weights drawn on the card: N(0, 0.02) matrices, norms 1; A_log, the
+    decays' dt_bias and the router's bias as the model initialises them."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for name, t in model.state_dict().items():
+        if "norm" in name:
+            x = torch.ones(t.shape, device=dev)
+        elif name.endswith("A_log"):
+            x = torch.empty(t.shape, device=dev).uniform_(
+                1, 16, generator=gen).log_()
+        elif name.endswith("dt_bias"):
+            lo, hi = math.log(1e-3), math.log(0.1)
+            dt = torch.rand(t.shape, generator=gen, device=dev).mul_(
+                hi - lo).add_(lo).exp_()
+            x = dt + torch.log(-torch.expm1(-dt))
+        else:
+            x = torch.randn(t.shape, generator=gen, device=dev) * 0.02
+        out[name] = x.to(t.dtype)
+    return out
+
+
+def phase_kda(dev):
+    """The KDA prefill's walk, counted from 0 over one Generator call of
+    Kimi Linear's path and held, on the arguments that call gave its first
+    KDA layer, against its twin ``chunk_state_plain`` (float32 on the card,
+    TF32 off): 1e-4 of the largest value, as the card tests hold it; timed
+    against the least time of the bf16 bytes and FLOPs any walk moves."""
+    from optimized_rag_tpu_torch.models import decoder as pd
+    from optimized_rag_tpu_torch.models import kimi_linear as kl
+    from optimized_rag_tpu_torch.ops import kda
+    t0 = time.perf_counter()
+    with open(os.path.join(HERE, "portbench", "configs",
+                           "kimi-linear-48b-a3b.ep4.bf16.json"),
+              encoding="utf-8") as f:
+        pub = json.load(f)
+    lac = dict(pub["linear_attn_config"], kda_layers=[1, 2, 3],
+               full_attn_layers=[4])
+    cfg = kl.KimiLinearConfig.from_config(dict(
+        pub, num_hidden_layers=4, num_experts=8, linear_attn_config=lac))
+    with torch.device("meta"):
+        shapes = kl.KimiLinearLM(cfg)
+    gen = pd.Generator(cfg, params=_kimi_params(cfg, shapes, dev),
+                       max_prompt_len=KDA_LEN, max_new_tokens=2, device=dev,
+                       prefill_chunk=KDA_ROWS * KDA_LEN)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ids = torch.randint(0, cfg.bos_token_id, (KDA_ROWS, KDA_LEN),
+                        generator=g, device=dev)
+    ids[:, 0] = cfg.bos_token_id
+    pad = torch.zeros(KDA_ROWS, dtype=torch.long, device=dev)
+    seen = []
+    walk = kda.chunk_state
+
+    def spy(wu, qt, aqk, kh, gam, offsets, rows, state):
+        if not seen:
+            seen.append([x.clone() if torch.is_tensor(x) else list(x)
+                         for x in (wu, qt, aqk, kh, gam, offsets, rows,
+                                   state)])
+        return walk(wu, qt, aqk, kh, gam, offsets, rows, state)
+    kda.chunk_state = spy
+    try:
+        before = kda.launch_counts()["chunk_state"]
+        gen.generate_ids(ids, pad)
+        torch.cuda.synchronize()
+        launches = kda.launch_counts()["chunk_state"] - before
+    finally:
+        kda.chunk_state = walk
+    del gen
+    want = len(cfg.kda_layers)          # one prefill chunk
+    if launches != want:
+        raise AssertionError(f"KDA walk: {launches} launches on the "
+                             f"prefill path, want {want}")
+    *args, state = seen.pop()
+    s_kernel, s_twin = state.clone(), state.clone()
+    o = kda.chunk_state(*args, s_kernel)
+    o_twin = kda.chunk_state_plain(*args, s_twin)
+    err = 0.0
+    for got, ref in ((o, o_twin), (s_kernel, s_twin)):
+        e = float((got - ref).abs().max()) / float(ref.abs().max())
+        err = max(err, e)
+        if not e <= 1e-4:
+            raise AssertionError(f"KDA walk: {e:.3g} of the largest value "
+                                 "from its twin")
+    ms = median_ms(lambda: kda.chunk_state(*args, state.clone()), 5)
+    plain = median_ms(lambda: kda.chunk_state_plain(*args, state.clone()), 2)
+    # bf16 q, k, v, g, o and A_qk's lower triangle a chunk, beta in float32,
+    # each row's state read and written in float32.
+    heads, d, c = cfg.kda_num_heads, cfg.kda_head_dim, kda.CHUNK
+    chunks = KDA_ROWS * -(-KDA_LEN // c)
+    nbytes = heads * (chunks * (2 * (5 * c * d + c * (c + 1) // 2) + 4 * d)
+                      + KDA_ROWS * 2 * 4 * d * d)
+    flops = heads * chunks * (6 * c * d * d + c * (c + 1) * d)
+    bound, by = bound_ms(nbytes, flops, PEAK_BF16)
+    emit({"phase": "kda", "kernel": "kda_chunk_state",
+          "shape": f"{heads} heads of {d}, {KDA_ROWS} rows of {KDA_LEN}",
+          "launches": launches,
+          "max_rel_err": err, "ms": ms, "plain_ms": plain,
+          "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
+          "seconds": time.perf_counter() - t0})
+    del args, state, s_kernel, s_twin, o, o_twin
+    torch.cuda.empty_cache()
 
 
 def fill_index(index, svc, chunks, dev, n_rows=N_BIG, on_block=None):
@@ -6224,6 +6338,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     torch.cuda.reset_peak_memory_stats()
     phase_kernels(K_, T_, dev)
+    phase_kda(dev)
     chunks = qa_chunks()
     first = make_queries(chunks, random.Random(SEED))
     queries = (first, make_queries(chunks, random.Random(SEED + 1),

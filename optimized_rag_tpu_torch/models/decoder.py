@@ -364,24 +364,30 @@ class Generation:
     """A call's tokens [max_new, B] on the host and, where asked for, the
     logits it picked from, of the rows asked for: [max_new, rows, V]
     float32 on the device (row 0 the prefill's last position, row t the
-    decode step before token t)."""
+    decode step before token t); and where the model keeps them, the
+    routing of those rows (``kimi_linear.RouteLog``)."""
     tokens: torch.Tensor
     logits: Optional[torch.Tensor] = None
+    routes: Optional[object] = None
 
 
 class _Probe:
     """What one generation records while a profiler session is on: CUDA
     events around its prefill and decode (read after the call's final
     copy), its prefill chunks and tokens, and the model's routing counts,
-    kept on the device: tokens per expert per MoE layer in prefill, and
-    the distinct experts hit per MoE layer per decode step."""
+    kept on the device: tokens per held expert per MoE layer in prefill
+    with the picks of experts another rank holds, and the distinct held
+    experts hit per MoE layer per decode step; the chunks a KDA layer's
+    chunk pass walked (a count of the host's); the bytes of the cache's
+    kinds of state (``cache_bytes``, where the cache tells them)."""
 
     def __init__(self, device, max_new: int):
         self.cuda = device.type == "cuda"
         self.max_new = max_new
         self.events = {}
-        self.chunks = self.tokens = self.steps = 0
-        self.expert_tokens = self.experts_hit = None
+        self.chunks = self.tokens = self.steps = self.kda_chunks = 0
+        self.expert_tokens = self.experts_hit = self.remote_picks = None
+        self.cache_bytes = {}
         self.spans = (None, None)       # generate.prefill, generate.decode
 
     def mark(self, name: str) -> None:
@@ -395,12 +401,19 @@ class _Probe:
         self.tokens += tokens
 
     def route(self, layer: int, layers: int, experts: int, idx) -> None:
-        """A prefill forward's routing ``idx`` in MoE layer ``layer``."""
+        """A prefill forward's routing ``idx`` (held ids, ``experts`` for
+        a pick of an absent expert) in MoE layer ``layer``."""
         from optimized_rag_tpu_torch.models.deepseek_v2 import expert_counts
-        counts = expert_counts(idx.reshape(-1), experts)
+        counts = expert_counts(idx.reshape(-1), experts + 1)
         if self.expert_tokens is None:
             self.expert_tokens = counts.new_zeros(layers, experts)
-        self.expert_tokens[layer] += counts
+            self.remote_picks = counts.new_zeros(())
+        self.expert_tokens[layer] += counts[:experts]
+        self.remote_picks += counts[experts]
+
+    def kda(self, chunks: int) -> None:
+        """A KDA layer's chunk pass walked ``chunks`` chunks a head."""
+        self.kda_chunks += chunks
 
     def step_hits(self, hits) -> None:
         """The distinct experts the current decode step hit, a layer."""
@@ -417,11 +430,13 @@ class _Probe:
 class Generator:
     """Prefill + cached decode generation on ``device``.
 
-    ``cfg`` chooses the model (``DecoderConfig``, the byte-level
-    ``DecoderLM``; ``deepseek_v2.DeepseekV2Config``). ``params`` is the
-    model's state dict (``models/convert.decoder_flax_to_torch`` for the
-    decoder); tensors already on ``device`` in the model's dtypes are taken
-    as they are where the model allows it (DeepSeek-V2), else copied in.
+    ``cfg`` chooses the model through its ``serving_model``
+    (``DecoderConfig``, the byte-level ``DecoderLM``;
+    ``deepseek_v2.DeepseekV2Config``; ``kimi_linear.KimiLinearConfig``).
+    ``params`` is the model's state dict
+    (``models/convert.decoder_flax_to_torch`` for the decoder); tensors
+    already on ``device`` in the model's dtypes are taken as they are where
+    the model allows it (DeepSeek-V2, Kimi Linear), else copied in.
     Without it the weights are random from ``seed``. ``prefill_chunk``
     bounds the positions a prefill runs at once, where the model runs
     chunks.
@@ -449,20 +464,24 @@ class Generator:
                   top_p: float, seed: int, max_new: int, keep=None,
                   probe: Optional[_Probe] = None):
         """LEFT-padded ids [B, P] and pad counts [B] -> [max_new, B], and
-        with ``keep`` (row indices) the logits those rows picked from."""
+        with ``keep`` (row indices) the logits those rows picked from and
+        their routing (None where the model keeps none)."""
         p = ids.shape[1]
         if p + max_new > self.cfg.max_seq_len:
             raise ValueError(f"{p} + {max_new} > max_seq_len "
                              f"{self.cfg.max_seq_len}")
         pad_mask, pos_ids, storage_valid = prefill_masks(pad_len, p, max_new)
+        routed = ({"keep": keep} if keep is not None
+                  and getattr(self.model, "keeps_routes", False) else {})
         with span("generate.prefill") as sp:
             if probe is not None:
                 probe.mark("prefill0")
             first, cache = self.model.prefill(
                 ids, pad_len, pad_mask, pos_ids, p + max_new,
-                chunk=self.prefill_chunk, probe=probe)
+                chunk=self.prefill_chunk, probe=probe, **routed)
             if probe is not None:
                 probe.mark("prefill1")
+                probe.cache_bytes = getattr(cache, "byte_sizes", dict)()
         prefill_span = sp
 
         def step(toks, t):
@@ -511,7 +530,7 @@ class Generator:
         if probe is not None:
             probe.spans = (prefill_span, sp)
         if keep is not None:
-            kept = kept[:at[0]]
+            kept = (kept[:at[0]], getattr(cache, "routes", None))
         return out if keep is None else (out, kept)
 
     def _call(self, ids, pad_len, max_new: int, keep=None,
@@ -523,13 +542,15 @@ class Generator:
             probe = _Probe(self.device, max_new) if sp else None
             res = self._generate(ids, pad_len, temperature, top_k, top_p,
                                  seed, max_new, keep, probe)
-            toks, kept = res if keep is not None else (res, None)
+            toks, (kept, routes) = (res if keep is not None
+                                    else (res, (None, None)))
             toks = toks.cpu()
             if probe is not None:
                 b, p = ids.shape
                 real = int(b * p - int(pad_len.sum()))
                 sp.attrs.update(B=b, P=p, prompt_tokens=real,
-                                new_tokens=max_new, steps=probe.steps)
+                                new_tokens=max_new, steps=probe.steps,
+                                **probe.cache_bytes)
                 pre, dec = probe.spans
                 if pre:
                     pre.attrs.update(
@@ -538,6 +559,9 @@ class Generator:
                     if probe.expert_tokens is not None:
                         pre.attrs["expert_tokens"] = \
                             probe.expert_tokens.tolist()
+                        pre.attrs["remote_picks"] = int(probe.remote_picks)
+                    if probe.kda_chunks:
+                        pre.attrs["kda_chunks"] = probe.kda_chunks
                 if dec:
                     dec.attrs.update(
                         steps=probe.steps,
@@ -545,7 +569,7 @@ class Generator:
                     if probe.experts_hit is not None:
                         dec.attrs["experts_hit"] = \
                             probe.experts_hit[:probe.steps].tolist()
-        return Generation(toks, kept)
+        return Generation(toks, kept, routes)
 
     def generate_ids(self, ids, pad_len=None,
                      max_new_tokens: Optional[int] = None,

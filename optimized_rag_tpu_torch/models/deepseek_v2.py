@@ -44,12 +44,25 @@ With ``n`` heads, hidden size ``H``, ``d_n`` = ``qk_nope_head_dim`` (128),
   mscale_all_dim)``, exactly 1 with the published values.
 * **MoE.** Router logits ``x W_g^T`` in float32, softmax, greedy top-k
   (k = 6 of 64), the weights not renormalised (``norm_topk_prob`` false)
-  and times ``routed_scaling_factor`` (1). The output is
+  and times ``routed_scaling_factor`` (1). With ``scoring_func`` "sigmoid"
+  (Kimi Linear, ``models/kimi_linear.py``) the scores are ``sigmoid(x
+  W_g^T)``, the top k are picked on ``scores + e_score_correction_bias``,
+  and the weights are the unbiased scores at those ids, divided by their
+  sum where ``norm_topk_prob`` holds, then times ``routed_scaling_factor``.
+  The output is
   ``sum_i p_i E_i(x) + S(x)``: each expert a SwiGLU
   ``W_down (silu(W_gate x) * W_up x)`` of width ``moe_intermediate_size``,
   ``S`` the shared experts as one SwiGLU of width ``n_shared_experts *
   moe_intermediate_size``. Layers before ``first_k_dense_replace`` are a
   dense SwiGLU of width ``intermediate_size``.
+* **An expert-parallel share.** A layer may hold ``experts_held`` of the
+  router's ``n_routed_experts``, ids from ``expert_first`` on: one rank's
+  experts. It routes over all of them and computes only its own experts'
+  part for the tokens routed to them; a pick of an absent expert adds
+  nothing (its rank's part, with no exchange on one card). The shared
+  experts and everything outside the MoE are whole.
+* **NoPE** (``mla_use_nope``): RoPE is left out; the ``d_r`` values of
+  ``q_pe`` and ``k_pe`` stay, and ``k_pe`` is cached unturned.
 
 Roundings, as the published code has them but for the two noted: weights,
 activations and the residual stream are in ``cfg.dtype`` (bfloat16); every
@@ -131,6 +144,10 @@ class DeepseekV2Config:
     max_position_embeddings: int = 163840
     routed_scaling_factor: float = 1.0
     norm_topk_prob: bool = False
+    scoring_func: str = "softmax"
+    mla_use_nope: bool = False
+    expert_first: int = 0
+    experts_held: Optional[int] = None      # None: all of them
     bos_token_id: int = 100000
     eos_token_id: int = 100001
     dtype: torch.dtype = torch.bfloat16
@@ -186,6 +203,12 @@ class DeepseekV2Config:
     def latent_dim(self) -> int:
         return self.kv_lora_rank + self.qk_rope_head_dim
 
+    @property
+    def held(self) -> int:
+        """Routed experts this model holds a MoE layer."""
+        return (self.n_routed_experts if self.experts_held is None
+                else self.experts_held)
+
     def is_moe(self, layer: int) -> bool:
         return (self.n_routed_experts > 0
                 and layer >= self.first_k_dense_replace
@@ -201,18 +224,27 @@ class DeepseekV2Config:
         become the module's own, with no second copy; other ``params`` are
         copied in; without ``params`` the weights are torch's default
         initialisation from ``seed``."""
-        from optimized_rag_tpu_torch.models.encoder import serving_module
-        device = torch.empty(0, device=device).device   # "cuda" -> "cuda:0"
-        if params is not None:
-            with torch.device("meta"):
-                module = DeepseekV2LM(self)
-            if all(k in params and params[k].device == device
-                   and params[k].dtype == v.dtype
-                   and params[k].shape == v.shape
-                   for k, v in module.state_dict().items()):
-                module.load_state_dict(params, assign=True)
-                return module.eval()
-        return serving_module(lambda: DeepseekV2LM(self), params, seed, device)
+        return serve(lambda: DeepseekV2LM(self), params, seed, device)
+
+
+def serve(make, params, seed: int, device) -> nn.Module:
+    """``make()`` on ``device`` for serving: ``params`` (a full state dict)
+    whose tensors already lie on ``device`` in the module's dtypes become
+    the module's own, with no second copy; other ``params`` are copied in;
+    without ``params`` the weights are ``make``'s initialisation from
+    ``seed``."""
+    from optimized_rag_tpu_torch.models.encoder import serving_module
+    device = torch.empty(0, device=device).device   # "cuda" -> "cuda:0"
+    if params is not None:
+        with torch.device("meta"):
+            module = make()
+        if all(k in params and params[k].device == device
+               and params[k].dtype == v.dtype
+               and params[k].shape == v.shape
+               for k, v in module.state_dict().items()):
+            module.load_state_dict(params, assign=True)
+            return module.eval()
+    return serving_module(make, params, seed, device)
 
 
 # ---------------------------------------------------------------------------
@@ -325,13 +357,23 @@ def expert_counts(flat: torch.Tensor, experts: int) -> torch.Tensor:
                        ).scatter_add_(0, flat, torch.ones_like(flat))
 
 
-class Experts(nn.Module):
-    """The routed experts, stacked: ``gate_up_proj`` [E, 2 I, H] and
-    ``down_proj`` [E, H, I]."""
+def held_hits(idx, held: int) -> torch.Tensor:
+    """The distinct held experts that held ids ``idx`` pick (an absent
+    expert's pick is ``held``, ``Experts.local``)."""
+    return (expert_counts(idx.reshape(-1), held + 1)[:held] > 0).sum()
 
-    def __init__(self, n: int, hidden: int, width: int, dtype):
+
+class Experts(nn.Module):
+    """The routed experts held, stacked: ``gate_up_proj`` [E, 2 I, H] and
+    ``down_proj`` [E, H, I]: router ids ``first`` to ``first + E - 1`` of
+    ``total`` (all of them by default)."""
+
+    def __init__(self, n: int, hidden: int, width: int, dtype,
+                 first: int = 0, total: Optional[int] = None):
         super().__init__()
         self.width = width
+        self.first = first
+        self.share = total is not None and total > n
         self.gate_up_proj = nn.Parameter(torch.empty(n, 2 * width, hidden,
                                                      dtype=dtype))
         self.down_proj = nn.Parameter(torch.empty(n, hidden, width,
@@ -343,21 +385,50 @@ class Experts(nn.Module):
     def _act(self, gu):
         return F.silu(gu[..., :self.width]) * gu[..., self.width:]
 
-    def grouped(self, x, idx, w):
-        """Each expert's GEMMs over the tokens routed to it: ``x`` [T, H],
-        ``idx`` and ``w`` [T, k] -> float32 [T, H] (the sum over k of the
-        weighted outputs)."""
-        t, k = idx.shape
-        flat = idx.reshape(-1)
-        order = torch.argsort(flat, stable=True)
-        counts = expert_counts(flat, self.gate_up_proj.shape[0])
-        xs = x[order // k]
-        gu = x.new_empty(xs.shape[0], 2 * self.width)
+    def local(self, idx):
+        """Router ids as held ids from 0; a pick of an absent expert is E
+        (the count held). Without a share, ``idx`` itself."""
+        if not self.share:
+            return idx
+        n = self.gate_up_proj.shape[0]
+        loc = idx - self.first
+        return torch.where((loc >= 0) & (loc < n), loc, n)
+
+    @staticmethod
+    def _spans(sizes) -> list:
+        """(expert, first row, end row) of each expert with tokens, over
+        rows sorted by expert."""
         spans, start = [], 0
-        for e, n in enumerate(counts.tolist()):     # the layer's one wait
+        for e, n in enumerate(sizes):
             if n:
                 spans.append((e, start, start + n))
             start += n
+        return spans
+
+    def grouped(self, x, idx, w):
+        """Each held expert's GEMMs over the tokens routed to it: ``x`` [T,
+        H], router ids ``idx`` and weights ``w`` [T, k] -> float32 [T, H]
+        (the sum over k of the weighted outputs, in the order of k; a pick
+        of an absent expert adds 0)."""
+        t, k = idx.shape
+        n = self.gate_up_proj.shape[0]
+        flat = self.local(idx).reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        sizes = expert_counts(flat, n + self.share).tolist()[:n]  # one wait
+        order = order[:sum(sizes)]
+        ys = self._gemms(x, order // k, self._spans(sizes))
+        out = (ys.new_zeros if self.share else ys.new_empty)(t * k,
+                                                             ys.shape[1])
+        out[order] = ys
+        del ys
+        # bf16 times float32 multiplies in float32: one pass, no copy.
+        return out.view(t, k, -1).mul(w[..., None]).sum(dim=1)
+
+    def _gemms(self, x, rows, spans):
+        """The SwiGLU of rows ``x[rows]``, sorted by expert, each ``spans``
+        range through its expert's weights."""
+        xs = x[rows]
+        gu = xs.new_empty(xs.shape[0], 2 * self.width)
         for e, a, b in spans:
             torch.mm(xs[a:b], self.gate_up_proj[e].t(), out=gu[a:b])
         act = self._act(gu)
@@ -366,19 +437,17 @@ class Experts(nn.Module):
         del xs
         for e, a, b in spans:
             torch.mm(act[a:b], self.down_proj[e].t(), out=ys[a:b])
-        del act
-        out = torch.empty_like(ys)
-        out[order] = ys
-        del ys
-        out = out.view(t, k, -1).float()
-        return out.mul_(w[..., None]).sum(dim=1)
+        return ys
 
     def every(self, x, idx, w):
         """Every expert over every token (three batched GEMMs), the combine
-        weights zero off each token's top k -> float32 [T, H]."""
-        dense = torch.zeros(x.shape[0], self.gate_up_proj.shape[0],
-                            dtype=torch.float32, device=x.device)
-        dense.scatter_(1, idx, w)
+        weights zero off each token's top k (and off absent experts)
+        -> float32 [T, H]."""
+        n = self.gate_up_proj.shape[0]
+        dense = torch.zeros(x.shape[0], n + self.share, dtype=torch.float32,
+                            device=x.device)
+        dense.scatter_(1, self.local(idx), w)
+        dense = dense[:, :n]
         gu = torch.matmul(x, self.gate_up_proj.transpose(1, 2))
         y = torch.matmul(self._act(gu), self.down_proj.transpose(1, 2))
         return torch.einsum("te,eth->th", dense, y.float())
@@ -390,8 +459,11 @@ class MoE(nn.Module):
         h = cfg.hidden_size
         self.cfg = cfg
         self.gate = _linear(h, cfg.n_routed_experts, dtype)
-        self.experts = Experts(cfg.n_routed_experts, h,
-                               cfg.moe_intermediate_size, dtype)
+        if cfg.scoring_func == "sigmoid":
+            self.gate.e_score_correction_bias = nn.Parameter(torch.zeros(
+                cfg.n_routed_experts, dtype=torch.float32))
+        self.experts = Experts(cfg.held, h, cfg.moe_intermediate_size, dtype,
+                               cfg.expert_first, cfg.n_routed_experts)
         self.shared_experts = MLP(
             h, cfg.moe_intermediate_size * cfg.n_shared_experts, dtype)
 
@@ -399,6 +471,14 @@ class MoE(nn.Module):
         """float32 router: (expert ids [T, k], weights [T, k])."""
         c = self.cfg
         logits = F.linear(x.float(), self.gate.weight.float())
+        if c.scoring_func == "sigmoid":
+            scores = torch.sigmoid(logits)
+            idx = torch.topk(scores + self.gate.e_score_correction_bias,
+                             c.num_experts_per_tok, dim=-1).indices
+            w = scores.gather(1, idx)
+            if c.norm_topk_prob:
+                w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+            return idx, w * c.routed_scaling_factor
         w, idx = torch.topk(torch.softmax(logits, dim=-1),
                             c.num_experts_per_tok, dim=-1)
         if c.norm_topk_prob:
@@ -438,11 +518,12 @@ class MLA(nn.Module):
         q = self.q_proj(h).unflatten(-1, (c.num_attention_heads,
                                           c.q_head_dim))
         q_nope, q_pe = q.split([c.qk_nope_head_dim, c.qk_rope_head_dim], -1)
-        q_pe = apply_rope(q_pe, cos.unsqueeze(-2), sin.unsqueeze(-2))
         lat, k_pe = self.kv_a_proj_with_mqa(h).split(
             [c.kv_lora_rank, c.qk_rope_head_dim], -1)
-        lat = torch.cat([self.kv_a_layernorm(lat), apply_rope(k_pe, cos, sin)],
-                        dim=-1)
+        if not c.mla_use_nope:
+            q_pe = apply_rope(q_pe, cos.unsqueeze(-2), sin.unsqueeze(-2))
+            k_pe = apply_rope(k_pe, cos, sin)
+        lat = torch.cat([self.kv_a_layernorm(lat), k_pe], dim=-1)
         return q_nope, q_pe, lat
 
     def prefill(self, h, cache, segments, cos, sin):
@@ -554,8 +635,8 @@ class DeepseekV2LM(nn.Module):
         if probe is None or layer not in self._moe_index:
             return None
         j, n = self._moe_index[layer], len(self._moe_index)
-        e = self.cfg.n_routed_experts
-        return lambda idx: probe.route(j, n, e, idx)
+        e, local = self.cfg.held, self.layers[layer].mlp.experts.local
+        return lambda idx: probe.route(j, n, e, local(idx))
 
     def new_cache(self, batch: int, slots: int, device) -> torch.Tensor:
         """The latent cache, zeroed: [layers, B, S, r + d_r] (a masked slot
@@ -656,9 +737,9 @@ class _DecodeStep:
     def _note(self, layer: int):
         if self.hit is None or layer not in self.model._moe_index:
             return None
-        j, e = self.model._moe_index[layer], self.model.cfg.n_routed_experts
-        return lambda idx: self.hit[j].copy_(
-            (expert_counts(idx.reshape(-1), e) > 0).sum())
+        j, e = self.model._moe_index[layer], self.model.cfg.held
+        local = self.model.layers[layer].mlp.experts.local
+        return lambda idx: self.hit[j].copy_(held_hits(local(idx), e))
 
     def _run(self):
         m = self.model
@@ -720,3 +801,6 @@ class _Cache:
     lo: int                 # the first slot decode reads: a multiple of 8
                             # at or below any row's first real slot
     step: Optional[_DecodeStep] = None
+
+    def byte_sizes(self) -> dict:
+        return {"latent_bytes": self.buf.nbytes}

@@ -79,6 +79,9 @@ _SIGNATURES = {
     "orag_scan_floor": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     # qh, corpus, dtype, out, B, N, D, tile, split, stream
     "orag_scan_sums": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # wu, qt, aqk, kh, gam, offsets, rows, state, out, segments, H, stream
+    # (ops/kda.py)
+    "kda_chunk_state": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 

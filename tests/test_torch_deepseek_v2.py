@@ -242,7 +242,8 @@ def test_text_prompts_name_the_missing_tokenizer():
 
 def test_generation_spans_and_routing_counts():
     """With a profiler session on, a call records ``generate`` (B, padded
-    P, real prompt tokens, steps) with ``generate.prefill`` (chunks,
+    P, real prompt tokens, steps, the latent cache's bytes) with
+    ``generate.prefill`` (chunks,
     tokens, real; tokens per expert per MoE layer: each real token k
     times) and ``generate.decode`` (steps; distinct experts hit a layer a
     step); finished rows emit the configuration's EOS as padding."""
@@ -258,12 +259,16 @@ def test_generation_spans_and_routing_counts():
     top, pre, dec = (recs[n] for n in ("generate", "generate.prefill",
                                        "generate.decode"))
     assert pre.parent == top.id and dec.parent == top.id
+    # the latent cache: 3 layers x 2 rows x (12 + 5) slots x (32 + 8)
+    # float32 values
     assert top.attrs == {"B": 2, "P": 12, "prompt_tokens": 21,
-                         "new_tokens": 5, "steps": 4}
+                         "new_tokens": 5, "steps": 4,
+                         "latent_bytes": 3 * 2 * 17 * 40 * 4}
     assert (pre.attrs["chunks"], pre.attrs["tokens"], pre.attrs["real"]) \
         == (6, 21, 21)
     counts = np.asarray(pre.attrs["expert_tokens"])
     assert counts.shape == (2, 8) and (counts.sum(1) == 21 * 2).all()
+    assert pre.attrs["remote_picks"] == 0       # every expert is held
     hit = np.asarray(dec.attrs["experts_hit"])
     assert hit.shape == (4, 2) and ((hit >= 2) & (hit <= 4)).all()
     assert pre.attrs["device_ms"] is None     # no card

@@ -1126,3 +1126,77 @@ def test_encoder_graphs_from_two_threads_equal_a_serial_eager_run(
     big = texts("big", 200, 6)
     np.testing.assert_array_equal(svc.encode(big), ref.encode(big))
     assert svc.graph_stats()["eager"] == 1
+
+
+# ----------------------------------------------------------- the KDA walk
+# kda::chunk_state_kernel (csrc/kda_chunk.cu) against its twin
+# (ops/kda.chunk_state_plain, run on the card through cuBLAS in float32,
+# TF32 off): both take float32 operands and sum in float32, in other
+# orders, so the outputs and the final states agree to a few float32 ulps
+# of their magnitude, grown over the walk's chunks: 1e-4 of the largest
+# value. The chunks' inputs come from the chunked form on the CPU.
+
+
+def _kda_walk_case(seed, lengths, strength, device):
+    from optimized_rag_tpu_torch.ops import kda
+    g = torch.Generator().manual_seed(seed)
+    heads, d, t = 32, 128, sum(lengths)
+    q = torch.randn(t, heads, d, generator=g) * d ** -0.5
+    k = torch.nn.functional.normalize(torch.randn(t, heads, d, generator=g),
+                                      dim=-1)
+    v = torch.randn(t, heads, d, generator=g)
+    lo, hi = strength
+    gate = -(lo + (hi - lo) * torch.rand(t, heads, d, generator=g))
+    beta = torch.rand(t, heads, generator=g)
+    slot, offsets, n = kda.layout(lengths, "cpu")
+    m = n * heads
+
+    def pk(x):
+        return kda.pack(x.reshape(t, -1), slot, n, heads)
+    parts = kda.chunk_tensors(pk(q).view(m, kda.CHUNK, -1),
+                              pk(k).view(m, kda.CHUNK, -1),
+                              pk(v).view(m, kda.CHUNK, -1),
+                              pk(gate).view(m, kda.CHUNK, -1),
+                              pk(beta).view(m, kda.CHUNK))
+    shape = (n, heads, kda.CHUNK)
+    wu, qt, aqk, kh = (p.reshape(*shape, -1).to(device) for p in parts[:4])
+    gam = parts[4].reshape(n, heads, d).to(device)
+    rows = [(3 * i + 1) % (len(lengths) + 2) for i in range(len(lengths))]
+    state = torch.randn(len(lengths) + 2, heads, d, d, generator=g
+                        ).to(device)
+    return (wu, qt, aqk, kh, gam, offsets, rows), state
+
+
+@pytest.mark.parametrize("strength", [(0.0, 1e-3), (0.05, 3.0),
+                                      (8.0, 16.0)])
+def test_kda_walk_matches_its_twin(cuda_device, strength):
+    """32 heads of 128; rows of 1, 63, 64, 65, 700 and 3,000 tokens in
+    another order than the state's rows, each from a carried initial
+    state; gates near 1, moderate and near e^-16 a step."""
+    from optimized_rag_tpu_torch.ops import kda
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, state = _kda_walk_case(11, [1, 63, 64, 65, 700, 3000], strength,
+                                 cuda_device)
+    before = kda.launch_counts()["chunk_state"]
+    s_kernel, s_twin = state.clone(), state.clone()
+    o = kda.chunk_state(*args, s_kernel)
+    torch.cuda.synchronize()
+    assert kda.launch_counts()["chunk_state"] == before + 1
+    o_twin = kda.chunk_state_plain(*args, s_twin)
+    for got, want in ((o, o_twin), (s_kernel, s_twin)):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+    untouched = [r for r in range(state.shape[0]) if r not in args[-1]]
+    assert torch.equal(s_kernel[untouched], state[untouched])
+
+
+def test_kda_walk_refuses_what_it_does_not_take(cuda_device):
+    from optimized_rag_tpu_torch.ops import kda
+    (wu, qt, aqk, kh, gam, offsets, rows), state = _kda_walk_case(
+        12, [70, 5], (0.05, 3.0), cuda_device)
+    with pytest.raises(ValueError):
+        kda.chunk_state(wu[..., :-1], qt, aqk, kh, gam, offsets, rows, state)
+    with pytest.raises(ValueError):
+        kda.chunk_state(wu, qt, aqk, kh, gam, offsets, [rows[0]] * 2, state)
+    with pytest.raises(ValueError):
+        kda.chunk_state(wu, qt, aqk, kh, gam, [0, 2, 9], rows, state)
